@@ -1,0 +1,460 @@
+"""Reference k-mer index: host build + device lookup.
+
+Build semantics replicate the BBDuk loader exactly
+(bbduk/BBDukIndexAndLoader.addToMap(Read) :618-700, addToMapLeftShift/
+RightShift :707-766, mutate recursion BBDukIndexMod.java:383-443):
+
+  - every fully-defined window of length k in a reference scaffold is
+    stored under its canonical key with value = scaffold id (1-based);
+    `setIfNotPresent` means the FIRST insertion wins, and insertions
+    happen in (scaffold, position, mutation-order) order
+  - hdist > 0 expands substitution mutants at load, depth-first per kmer,
+    symbol-major then position-minor (positions counted from the LSB end)
+  - mink enables short kmers at reference sequence ends: prefixes of the
+    first window (addToMapRightShift) and suffixes of the last
+    (addToMapLeftShift), lengths k-1 down to mink, tagged by their
+    length_mask bit, expanded with hdist2
+  - maskMiddle keys are stored pre-masked
+
+The host builders are copies of bbtools_tpu/ops/kmer_index.py. The
+BucketKmerIndex lookups are torch gathers on the index's device; the
+splitmix64 hash runs in int64 with logical right shifts, since torch
+has no general uint64 arithmetic (multiplication wraps modulo 2**64 on
+both the CPU and CUDA).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .kmers import (
+    canonical_keys_np,
+    length_mask,
+    rc_kmer_np,
+    rolling_kmers_np,
+)
+
+
+def _mutant_stream_hdist1(kmers: np.ndarray, klen: int, mid_mask: int):
+    """Per base kmer: [canon(kmer)] + canon of all single-sub mutants in
+    reference order (symbol-major j=0..3, position i=0..len-1 from LSB),
+    skipping identity mutants. Returns [n, 1+3*klen] canonical keys."""
+    n = len(kmers)
+    j = np.arange(4, dtype=np.int64)[None, :, None]
+    i = np.arange(klen, dtype=np.int64)[None, None, :]
+    clear = ~(np.int64(3) << (2 * i))
+    temp = (kmers[:, None, None] & clear) | (j << (2 * i))  # [n, 4, klen]
+    keep = temp != kmers[:, None, None]
+    temp_flat = temp.reshape(n, 4 * klen)
+    keep_flat = keep.reshape(n, 4 * klen)
+    # each row keeps exactly 3*klen entries, so masked-take stays rectangular
+    mutants = temp_flat[keep_flat].reshape(n, 3 * klen)
+    rmut = rc_kmer_np(mutants, klen)
+    base_key = canonical_keys_np(kmers, rc_kmer_np(kmers, klen), klen, mid_mask)
+    mut_key = canonical_keys_np(mutants, rmut, klen, mid_mask)
+    return np.concatenate([base_key[:, None], mut_key], axis=1)
+
+
+def _mutant_stream_recursive(
+    kmer: int, klen: int, dist: int, mid_mask: int, out: list[int]
+):
+    """Depth-first mutate recursion for hdist >= 2 (exact insertion order)."""
+    key = canonical_keys_np(
+        np.array([kmer], dtype=np.int64),
+        rc_kmer_np(np.array([kmer], dtype=np.int64), klen),
+        klen,
+        mid_mask,
+    )[0]
+    out.append(int(key))
+    if dist > 0:
+        for j in range(4):
+            for i in range(klen):
+                temp = (kmer & ~(3 << (2 * i))) | (j << (2 * i))
+                if temp != kmer:
+                    _mutant_stream_recursive(temp, klen, dist - 1, mid_mask, out)
+
+
+def expand_kmers(
+    kmers: np.ndarray, klen: int, hdist: int, mid_mask: int = -1
+) -> tuple[np.ndarray, np.ndarray]:
+    """Expand kmers (in scan order) to the full insertion stream of
+    canonical keys. Returns (keys, source_index) where source_index maps
+    each stream entry back to its originating kmer."""
+    kmers = np.asarray(kmers, dtype=np.int64)
+    n = len(kmers)
+    if n == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    if hdist == 0:
+        keys = canonical_keys_np(kmers, rc_kmer_np(kmers, klen), klen, mid_mask)
+        return keys, np.arange(n, dtype=np.int64)
+    if hdist == 1:
+        stream = _mutant_stream_hdist1(kmers, klen, mid_mask)
+        src = np.repeat(np.arange(n, dtype=np.int64), stream.shape[1])
+        return stream.reshape(-1), src
+    keys_l: list[int] = []
+    src_l: list[int] = []
+    for ix, km in enumerate(kmers):
+        buf: list[int] = []
+        _mutant_stream_recursive(int(km), klen, hdist, mid_mask, buf)
+        keys_l.extend(buf)
+        src_l.extend([ix] * len(buf))
+    return np.asarray(keys_l, dtype=np.int64), np.asarray(src_l, dtype=np.int64)
+
+
+def _edist_children(kmers: np.ndarray, extras: np.ndarray, klen: int):
+    """All one-step sub/del/ins mutants of (kmer, extra) nodes, vectorized.
+    Identity mutants are NOT filtered — their keys are duplicates of the
+    parent's own emission and vanish in the final first-wins dedup, so
+    skipping the filter trades a few dup rows for full vectorization."""
+    n = len(kmers)
+    full = np.int64((1 << (2 * klen)) - 1)
+    i = np.arange(klen, dtype=np.int64)[None, :]
+    j = np.arange(4, dtype=np.int64)[None, :, None]
+    # subs: [n, 4, klen], extra unchanged
+    clear = ~(np.int64(3) << (2 * i))
+    subs = (kmers[:, None, None] & clear[:, None, :]) | (j << (2 * i[:, None, :]))
+    subs = subs.reshape(n, -1)
+    sub_extra = np.broadcast_to(extras[:, None], subs.shape)
+    out_k = [subs.reshape(-1)]
+    out_e = [np.ascontiguousarray(sub_extra).reshape(-1)]
+    if klen > 1:
+        ii = np.arange(1, klen, dtype=np.int64)[None, :]
+        left = full & ~((np.int64(1) << (2 * ii)) - 1)
+        right = (np.int64(1) << (2 * ii)) - 1
+        # Identity mutants (temp==kmer) are never recursed by the reference;
+        # where one appears we pin the child's extra to the PARENT's extra,
+        # turning it into an exact copy of the parent node whose subtree is
+        # a subset of the parent's — union-harmless at any depth.
+        # dels (only where extra defined): consume extra, child extra = -1
+        has_extra = extras >= 0
+        if has_extra.any():
+            km_d = kmers[has_extra]
+            ex_d = extras[has_extra]
+            dels = (
+                (km_d[:, None] & left)
+                | ((km_d[:, None] << 2) & right)
+                | ex_d[:, None]
+            )
+            del_extra = np.where(dels == km_d[:, None], ex_d[:, None], -1)
+            out_k.append(dels.reshape(-1))
+            out_e.append(del_extra.reshape(-1))
+        # ins: child extra = parent's last base
+        temp0 = (kmers[:, None] & left) | ((kmers[:, None] & right) >> 2)
+        jj = np.arange(4, dtype=np.int64)[None, :, None]
+        ins = temp0[:, None, :] | (jj << (2 * (ii[:, None, :] - 1)))
+        ins = ins.reshape(n, -1)
+        eb2 = (kmers & 3)[:, None]
+        ins_extra = np.where(ins == kmers[:, None], extras[:, None], eb2)
+        out_k.append(ins.reshape(-1))
+        out_e.append(ins_extra.reshape(-1))
+    return np.concatenate(out_k), np.concatenate(out_e)
+
+
+def expand_kmers_edist(
+    kmers: np.ndarray,
+    extras: np.ndarray,
+    klen: int,
+    edist: int,
+    mid_mask: int = -1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Expand kmers through `edist` recursions of sub+del+ins mutation
+    (load-side `edist=` semantics, BBDukIndexMod.mutate :383-443 with
+    editDistance>0). `extras[i]` is the 2-bit code of the scaffold base
+    following kmer i, or -1 (scaffold end / undefined): deletions consume
+    it; insertions push the dropped last base into the child's extra.
+
+    Level-wise vectorized (the DFS emission ORDER is irrelevant here: all
+    mutants of one scaffold share the scaffold id, and first-wins dedup
+    happens downstream). Returns (keys, source_index) like expand_kmers;
+    source_index is 0 for all rows (per-kmer attribution is not preserved
+    across the level-wise expansion — callers only use per-scaffold ids).
+    """
+    kmers = np.asarray(kmers, dtype=np.int64)
+    extras = np.asarray(extras, dtype=np.int64)
+    if len(kmers) == 0:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    all_k = [kmers]
+    cur_k, cur_e = kmers, extras
+    for _ in range(edist):
+        cur_k, cur_e = _edist_children(cur_k, cur_e, klen)
+        # dedup identical (kmer, extra) nodes to bound level growth
+        pairs = np.stack([cur_k, cur_e], axis=1)
+        pairs = np.unique(pairs, axis=0)
+        cur_k, cur_e = pairs[:, 0], pairs[:, 1]
+        all_k.append(cur_k)
+    raw = np.concatenate(all_k)
+    keys = canonical_keys_np(raw, rc_kmer_np(raw, klen), klen, mid_mask)
+    keys = np.unique(keys)
+    return keys, np.zeros(len(keys), dtype=np.int64)
+
+
+def scaffold_kmer_stream(codes: np.ndarray, k: int, mink: int = 0):
+    """Full-k kmers (fwd, rkm) of one scaffold in scan order, plus the
+    short-kmer streams at the ends when mink > 0.
+
+    Returns (fwd[k..], rkm[k..], shorts_first, shorts_last, extras) with
+    shorts a list of (kmer, rkmer, len, extra) in reference insertion
+    order relative markers: shorts_first (added right after the first full
+    kmer) and shorts_last. `extras` aligns with the full kmers: the 2-bit
+    code of the scaffold base following each window (or -1 at scaffold
+    end / before an undefined base) — consumed by edist deletions
+    (BBDukIndexAndLoader passes it into addToMap/mutate).
+    """
+    codes = np.asarray(codes, dtype=np.uint8)
+    L = len(codes)
+    if L < k:
+        return (
+            np.zeros(0, np.int64),
+            np.zeros(0, np.int64),
+            [],
+            [],
+            np.zeros(0, np.int64),
+        )
+    fwd, rkm, runlen = rolling_kmers_np(codes[None, :], k)
+    fwd, rkm, runlen = fwd[0], rkm[0], runlen[0]
+    valid = runlen >= k
+    # extra base following the window ending at p: codes[p+1] (or -1)
+    nxt = np.full(L, -1, dtype=np.int64)
+    nxt[:-1] = np.where(codes[1:] < 4, codes[1:].astype(np.int64), -1)
+    shorts_first: list[tuple[int, int, int, int]] = []
+    shorts_last: list[tuple[int, int, int, int]] = []
+    if mink and mink < k:
+        right_masks = [(1 << (2 * i)) - 1 for i in range(k + 1)]
+        if valid[k - 1]:
+            # addToMapRightShift: prefixes of the first window; each
+            # iteration's extra is the base just shifted out (kmer&3)
+            km, rk = int(fwd[k - 1]), int(rkm[k - 1])
+            for i in range(k - 1, mink - 1, -1):
+                eb = km & 3
+                km >>= 2
+                rk &= right_masks[i]
+                shorts_first.append((km, rk, i, eb))
+        if valid[L - 1]:
+            # addToMapLeftShift: suffixes of the last window; extra is the
+            # caller's extraBase (base after the last window, i.e. -1 at
+            # scaffold end)
+            km, rk = int(fwd[L - 1]), int(rkm[L - 1])
+            eb = int(nxt[L - 1])
+            for i in range(k - 1, mink - 1, -1):
+                km &= right_masks[i]
+                rk >>= 2
+                shorts_last.append((km, rk, i, eb))
+    return fwd[valid], rkm[valid], shorts_first, shorts_last, nxt[valid]
+
+
+def build_ref_keys(
+    scaffolds: list[np.ndarray],
+    k: int,
+    mink: int = 0,
+    hdist: int = 0,
+    hdist2: int | None = None,
+    edist: int = 0,
+    edist2: int | None = None,
+    mid_mask: int = -1,
+    ids: list[int] | None = None,
+    speed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Build the (sorted_keys, ids) arrays for a reference set.
+
+    `scaffolds` are 2-bit code arrays in input order; scaffold ids default
+    to 1..n (the reference's scaffold numbering, 0 reserved). First
+    insertion wins on duplicate keys, in exact reference order.
+
+    `edist` switches the load expansion to sub+del+ins recursion at depth
+    edist (BBDukIndexMod.addToMap :352-360: when editDistance>0 the mutate
+    depth is edist, regardless of a larger hdist — replicated faithfully).
+    """
+    if hdist2 is None:
+        hdist2 = hdist
+    if edist2 is None:
+        edist2 = edist
+    all_keys: list[np.ndarray] = []
+    all_ids: list[np.ndarray] = []
+    for snum, codes in enumerate(scaffolds):
+        sid = ids[snum] if ids is not None else snum + 1
+        fwd, rkm, shorts_first, shorts_last, extras = scaffold_kmer_stream(
+            codes, k, mink
+        )
+        if len(fwd) == 0:
+            continue
+        # Reference interleaves short-kmer adds right after the first/last
+        # full-kmer add; with setIfNotPresent and distinct length tags the
+        # only ordering that matters is within each length class, which is
+        # preserved by grouping (full kmers never collide with shorts).
+        if edist > 0:
+            keys, _ = expand_kmers_edist(fwd, extras, k, edist, mid_mask)
+        else:
+            keys, _ = expand_kmers(fwd, k, hdist, mid_mask)
+        all_keys.append(keys)
+        all_ids.append(np.full(len(keys), sid, dtype=np.int32))
+        for km, rk, ln, eb in shorts_first + shorts_last:
+            if edist2 > 0:
+                skeys, _ = expand_kmers_edist(
+                    np.array([km], dtype=np.int64),
+                    np.array([eb], dtype=np.int64),
+                    ln,
+                    edist2,
+                    -1,
+                )
+            else:
+                skeys, _ = expand_kmers(
+                    np.array([km], dtype=np.int64), ln, hdist2, -1
+                )
+            all_keys.append(skeys)
+            all_ids.append(np.full(len(skeys), sid, dtype=np.int32))
+    if not all_keys:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int32)
+    keys = np.concatenate(all_keys)
+    idv = np.concatenate(all_ids)
+    # first-insertion-wins dedup: np.unique returns the first occurrence
+    # index for each unique key
+    ukeys, first = np.unique(keys, return_index=True)
+    uids = idv[first]
+    if speed > 0:
+        # speed sampling (BBDukIndexAndLoader.passesSpeed :997), applied
+        # on the same canonical key the scan side tests so both agree
+        keep = (
+            (ukeys.astype(np.uint64) & np.uint64(0x7FFFFFFFFFFFFFFF))
+            % np.uint64(17)
+        ) >= np.uint64(speed)
+        ukeys, uids = ukeys[keep], uids[keep]
+    return ukeys, uids
+
+
+def _mix64(h: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer (public-domain mixing constants)."""
+    h = h.astype(np.uint64)
+    h ^= h >> np.uint64(30)
+    h *= np.uint64(0xBF58476D1CE4E5B9)
+    h ^= h >> np.uint64(27)
+    h *= np.uint64(0x94D049BB133111EB)
+    h ^= h >> np.uint64(31)
+    return h
+
+
+@dataclass
+class BucketKmerIndex:
+    """Bucketed hash table: one row-gather fetches all candidates.
+
+    TPU-native replacement for probe chains: keys hash to one of `nb`
+    buckets of BUCKET slots; a lookup is exactly TWO gather ops (key rows,
+    id rows) regardless of load, with the match selected by a gather-free
+    masked sum (at most one slot can match a given key). This is the
+    device analog of HashArray's probe window (kmer/HashArray.java:154)
+    collapsed into a single coalesced row access.
+    """
+
+    BUCKET = 16
+
+    keys: np.ndarray  # int64 [nb, BUCKET]; packed: (key<<16|id), empty -1
+    ids: np.ndarray  # int32 [nb, BUCKET] (packed: empty [1, BUCKET])
+    nb: int
+    n: int
+    packed: bool = False
+
+    @staticmethod
+    def build(keys: np.ndarray, ids: np.ndarray, fill: float = 0.5,
+              pack: bool = False):
+        """Wide buckets; with pack=True and keys fitting 47 bits (k<=23
+        incl. the length-tag bit) the layout is key48|id16 in one plane:
+        ONE [.., 16] int64 row-gather per lookup instead of two [.., 8]
+        gathers — measured 2.2x the lookup rate on a v5e (bench: gather
+        variants a vs c). Callers using the static unpacked lookup_jnp
+        must keep pack=False."""
+        n = len(keys)
+        B = BucketKmerIndex.BUCKET
+        nb = 64
+        while nb * B * fill < max(n, 1):
+            nb *= 2
+        while True:
+            h = (_mix64(keys.astype(np.uint64)) & np.uint64(nb - 1)).astype(
+                np.int64
+            )
+            counts = np.bincount(h, minlength=nb)
+            if counts.max(initial=0) <= B or nb >= 1 << 28:
+                break
+            nb *= 2
+        order = np.argsort(h, kind="stable")
+        hs = h[order]
+        slot = np.arange(n) - np.searchsorted(hs, hs)  # rank within bucket
+        packed = pack and bool(
+            n == 0
+            or (
+                keys.min(initial=0) >= 0
+                and keys.max(initial=0) < (1 << 47)
+                and ids.min(initial=0) >= 0
+                and ids.max(initial=0) < (1 << 16)
+            )
+        )
+        if packed:
+            kt = np.full((nb, B), -1, dtype=np.int64)
+            kt[hs, slot] = (keys[order] << 16) | ids[order].astype(np.int64)
+            it = np.zeros((1, B), dtype=np.int32)
+        else:
+            kt = np.full((nb, B), -1, dtype=np.int64)
+            it = np.zeros((nb, B), dtype=np.int32)
+            kt[hs, slot] = keys[order]
+            it[hs, slot] = ids[order]
+        return BucketKmerIndex(keys=kt, ids=it, nb=nb, n=n, packed=packed)
+
+    def lookup_np(self, query: np.ndarray) -> np.ndarray:
+        h = (_mix64(query.astype(np.uint64)) & np.uint64(self.nb - 1)).astype(
+            np.int64
+        )
+        rows_k = self.keys[h]  # [..., B]
+        if self.packed:
+            eq = (rows_k >> 16) == query[..., None]
+            return ((rows_k & 0xFFFF) * eq).sum(axis=-1).astype(np.int32)
+        rows_i = self.ids[h]
+        eq = rows_k == query[..., None]
+        return (rows_i * eq).sum(axis=-1).astype(np.int32)
+
+    def device_arrays(self, device):
+        return (
+            torch.from_numpy(self.keys).to(device),
+            torch.from_numpy(self.ids).to(device),
+        )
+
+    @staticmethod
+    def lookup_packed(ptbl, nb: int, query):
+        """Packed-layout lookup: ONE row gather."""
+        rows = ptbl[_bucket_of(query, nb)]  # [..., B] int64 — the only gather
+        eq = (rows >> 16) == query[..., None]
+        return ((rows & 0xFFFF) * eq).sum(dim=-1).to(torch.int32)
+
+    @staticmethod
+    def lookup(keys_tbl, ids_tbl, nb: int, query):
+        """query int64 [...] -> id int32 [...]; exactly two gathers."""
+        slot = _bucket_of(query, nb)
+        rows_k = keys_tbl[slot]  # gather 1: [..., B] int64
+        rows_i = ids_tbl[slot]  # gather 2: [..., B] int32
+        eq = rows_k == query[..., None]
+        return (rows_i * eq).sum(dim=-1).to(torch.int32)
+
+
+def _as_int64(c: int) -> int:
+    """A 64-bit unsigned constant as the signed int64 of the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_M1 = _as_int64(0xBF58476D1CE4E5B9)
+_M2 = _as_int64(0x94D049BB133111EB)
+
+
+def _srl(h, s: int):
+    """Logical right shift of int64 bits."""
+    return (h >> s) & ((1 << (64 - s)) - 1)
+
+
+def _bucket_of(query, nb: int):
+    """splitmix64(query) & (nb - 1), the bucket of _mix64 on the host."""
+    h = query
+    h = h ^ _srl(h, 30)
+    h = h * _M1
+    h = h ^ _srl(h, 27)
+    h = h * _M2
+    h = h ^ _srl(h, 31)
+    return h & (nb - 1)

@@ -1,0 +1,174 @@
+"""Guards of the port's rules: it never imports JAX or the JAX package;
+its copied host code does not drift from the JAX package's; the device
+and the kernels are explicit, with no silent move to the CPU or to a
+plain version; flags of stages not ported yet raise."""
+
+import ast
+import importlib
+import inspect
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import pkgutil, importlib, sys, bbtools_torch\n"
+        "import bbtools_torch.cli, bbtools_torch.models.bbduk\n"
+        "for m in pkgutil.walk_packages(bbtools_torch.__path__, 'bbtools_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'bbtools_tpu'))\n"
+        "print(len([m for m in sys.modules if m.startswith('bbtools_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 20
+
+
+def test_port_sources_name_no_jax():
+    """No module of the port even mentions an import of jax."""
+    for root, _, files in os.walk(os.path.join(REPO, "bbtools_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                tree = ast.parse(open(os.path.join(root, f)).read())
+                for node in ast.walk(tree):
+                    names = (
+                        [a.name for a in node.names] if isinstance(node, ast.Import)
+                        else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                        else []
+                    )
+                    for n in names:
+                        assert n.split(".")[0] not in ("jax", "bbtools_tpu"), (f, n)
+
+
+#: modules the port copies verbatim (package name replaced)
+COPIED_MODULES = [
+    "core/dna.py", "core/parser.py", "core/qualtools.py",
+    "io/readwrite.py", "io/fileformat.py", "io/bgzf.py", "io/batch.py",
+    "io/fastq.py", "io/fasta.py", "ops/entropy.py", "utils/readstats.py",
+    "native/__init__.py",
+]
+
+
+@pytest.mark.parametrize("rel", COPIED_MODULES)
+def test_copied_module_has_not_drifted(rel):
+    src = open(os.path.join(REPO, "bbtools_tpu", rel)).read()
+    port = open(os.path.join(REPO, "bbtools_torch", rel)).read()
+    want = src.replace("bbtools_tpu", "bbtools_torch")
+    # the port's copies cite the reference's sources by their path inside
+    # the reference tree, without the local mount point
+    want = re.sub(r"\S*/reference/current/", "", want)
+    if rel == "native/__init__.py":
+        # the port compiles the JAX package's C sources by path
+        want = want.replace("    here = os.path.dirname(__file__)\n",
+                            "    here = SOURCE_DIR\n")
+        start = port.index("#: the C sources are shared")
+        port = port[:start] + port[port.index(")\n", start) + 2:]
+    assert port == want
+
+
+#: host functions the port copies into modules that also hold torch code
+COPIED_FUNCTIONS = [
+    ("ops.kmers", "rolling_kmers_np"), ("ops.kmers", "rc_kmer_np"),
+    ("ops.kmers", "canonical_keys_np"), ("ops.kmers", "middle_mask"),
+    ("ops.kmers", "mid_mask_len_default"), ("ops.kmers", "_last_undef_np"),
+    ("ops.kmer_index", "build_ref_keys"), ("ops.kmer_index", "expand_kmers"),
+    ("ops.kmer_index", "expand_kmers_edist"), ("ops.kmer_index", "_edist_children"),
+    ("ops.kmer_index", "scaffold_kmer_stream"), ("ops.kmer_index", "_mix64"),
+    ("ops.kmer_index", "_mutant_stream_hdist1"),
+    ("ops.kmer_index", "BucketKmerIndex.build"),
+    ("ops.kmer_index", "BucketKmerIndex.lookup_np"),
+    ("ops.lane_index", "_hash32_np"), ("ops.lane_index", "LaneKmerIndex.build"),
+    ("ops.lane_index", "LaneKmerIndex.lookup_np"),
+    ("ops.sort_join", "SortJoinIndex.lookup_np"),
+    ("ops.trim", "optimal_trim_np"), ("ops.trim", "apply_trim"),
+    ("models.bbduk", "load_reference"), ("models.bbduk", "BBDuk._ktrim_stage"),
+    ("models.bbduk", "BBDuk._poly_stage"), ("models.bbduk", "BBDuk._force_trim"),
+    ("models.bbduk", "BBDuk._low_entropy_windows"),
+    ("models.bbduk", "BBDuk.write_stats_file"),
+    ("models.bbduk", "_count_big_kmer_hits"), ("models.bbduk", "_detect_poly_scan"),
+    ("models.bbduk", "_avg_quality_by_prob"), ("models.bbduk", "_has_min_consecutive"),
+]
+
+
+def _source(pkg, mod, qualname):
+    obj = importlib.import_module(f"{pkg}.{mod}")
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return inspect.getsource(obj).replace(pkg, "PKG")
+
+
+@pytest.mark.parametrize("mod,qualname", COPIED_FUNCTIONS)
+def test_copied_function_has_not_drifted(mod, qualname):
+    assert _source("bbtools_torch", mod, qualname) == _source("bbtools_tpu", mod, qualname)
+
+
+def test_cuda_request_without_cuda_raises():
+    from bbtools_torch.device import resolve_device
+    from bbtools_torch.models.bbduk import BBDuk, parse_args
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BBDuk(parse_args(["literal=ACGTACGTACGTACGTACGTACGTA", "k=23"]))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_run_no_plain_version_off_the_cpu():
+    """A tensor that is not on the CPU never reaches the plain version."""
+    from bbtools_torch.ops.lane_index import lane_lookup
+    from bbtools_torch.ops.scan import cummax_i64
+
+    q = torch.zeros(16, dtype=torch.int64, device="meta")
+    t = torch.zeros((8, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        lane_lookup(t, t, t, 128, 1, 1, 8, 0, True, q)
+    with pytest.raises(ValueError, match="device"):
+        cummax_i64(q)
+    assert lane_lookup.launches == 0 and cummax_i64.launches == 0
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    from bbtools_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library()
+    assert build.sources() and all(s.endswith(".cu") for s in build.sources())
+
+
+@pytest.mark.parametrize("flag,item", [
+    ("tpshards=2", "A7"), ("tbo=t", "B5"), ("recalibrate=t", "A8"),
+    ("align=t", "A4"), ("profile=trace", "A9"),
+])
+def test_unported_flags_raise(tmp_path, flag, item):
+    from bbtools_torch.models.bbduk import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\nACGT\n+\nIIII\n")
+    with pytest.raises(NotImplementedError, match=item):
+        main([f"in={fq}", "literal=ACGTACGTACGTACGTACGTACGTA", "k=23",
+              "device=cpu", flag])
+
+
+def test_unknown_tool_raises():
+    from bbtools_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["bbmap", "in=x.fq"])
+    assert main(["help"]) == 0
