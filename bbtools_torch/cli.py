@@ -16,10 +16,18 @@ def _bbduk(args):
     return main(args)
 
 
+def _bbmerge(args):
+    from .models.bbmerge import main
+
+    return main(args)
+
+
 TOOLS = {
     "bbduk": _bbduk,
     # same-main-class launcher aliases (bbduk.BBDukS)
     "bbduks": _bbduk,
+    "bbmerge": _bbmerge,
+    "bbmerge-auto": _bbmerge,
 }
 
 

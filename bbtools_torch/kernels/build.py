@@ -1,7 +1,8 @@
 """Builds and loads the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into
-one shared library with a plain C interface, loaded with ctypes. The
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper
+(`sm_90a`), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ctypes. The
 build runs at the first CUDA use of a kernel, into `bbtools_torch/_build/`
 (git-ignored), under a name keyed by a hash of the sources and flags, so
 a changed source rebuilds and an unchanged one loads at once.
@@ -25,7 +26,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,12 @@ SIGNATURES = {
     # in, out, n, tile_max, stream
     "cummax_i64": (_P, _P, _I64, _P, _P),
     "cummax_i64_tile": (),
+    # idx, out, n, table, n_table, stream
+    "lane_table": (_P, _P, _I64, _P, _I, _P),
+    # a, b_rc, alens, blens, good, bad, olen, B, L, min0, D, stream
+    "overlap_scan": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    # keys, out, n, keyT, prio, Dp, k, mink, nc, Kp, stream
+    "mm_lookup": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -79,8 +86,9 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu unless a library of the same sources exists;
-    returns its path. The compiler's report (ptxas register and
-    shared-memory use) is kept beside it as `<name>.log`."""
+    returns its path. One nvcc per source, run in parallel, then one
+    link. The compilers' report (ptxas register and shared-memory use)
+    is kept beside the library as `<name>.log`."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
@@ -90,14 +98,29 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    reports = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, r) for c, p, r in zip(cmds, procs, reports)
+              if p.returncode != 0]
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        reports.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append((link, res.returncode, reports[-1]))
     with open(path[:-3] + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-        )
+        for c, r in zip(cmds + [link], reports):
+            fh.write(" ".join(c) + "\n" + r)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        c, rc, r = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{r}")
     os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
     return path

@@ -39,6 +39,7 @@ from ..ops.bbduk_scan import KScanConfig, credit_id, kscan_combined, kscan_full
 from ..ops.entropy import EntropyModel
 from ..ops.kmer_index import BucketKmerIndex, build_ref_keys
 from ..ops.lane_index import LaneKmerIndex
+from ..ops.mm_match import MMKmerIndex
 from ..ops.sort_join import SortJoinIndex
 from ..ops.kmers import mid_mask_len_default, middle_mask
 from ..ops.trim import apply_trim, optimal_trim
@@ -400,7 +401,6 @@ def _reject_unported(c: BBDukConfig):
     """Raise for flags whose stage the port does not have yet."""
     unported = [
         (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
-        (c.trim_by_overlap, "tbo (overlap kernel B5)", "A5/B5"),
         (c.recalibrate, "recalibrate", "A8"),
         (c.align, "align/side channel (BBMap)", "A4"),
     ]
@@ -456,6 +456,25 @@ def load_reference(cfg: BBDukConfig):
     return scaffolds, names
 
 
+def _mm_eligible(cfg: BBDukConfig) -> bool:
+    """Configs the one-hot matcher can serve exactly (ops/mm_match.py):
+    canonical queries (rcomp), no indel balls (edist), no query-side
+    mutation (qhdist), and, when speed>0, no short-kmer classes (the
+    short-end scans apply no speed gate, so load-side sampling of shorts
+    cannot be reproduced scan-side). The JAX package's gate without its
+    TPU test: decided from the config alone, so CPU runs walk the GPU's
+    path."""
+    return (
+        cfg.rcomp
+        and cfg.k <= 31
+        and cfg.edist == 0
+        and (cfg.edist2 or 0) == 0
+        and cfg.qhdist == 0
+        and (cfg.hdist > 0 or (cfg.hdist2 or 0) > 0)
+        and not (cfg.speed > 0 and cfg.use_short_kmers)
+    )
+
+
 def _join_eligible(cfg: BBDukConfig, n_keys: int) -> bool:
     """Sorted-join backend gate: panels past the lane cap, no query-side
     mutation (qhdist multiplies the query stream). Decided from the panel
@@ -480,14 +499,25 @@ def build_index(cfg: BBDukConfig):
     if len(keys):
         # small panels (adapters/artifacts/primers) go to the lane table
         # (kernel csrc/lane_lookup.cu); larger ones to the sorted join
-        # (ops/sort_join.py, kernel csrc/cummax_i64.cu). The MXU matcher
-        # the JAX package takes on TPU past the join cap is not ported
-        # (ROADMAP B3): those panels, and qhdist>0, take the bucket table,
-        # as the JAX package does off the TPU.
+        # (ops/sort_join.py, kernel csrc/cummax_i64.cu); expansion-heavy
+        # panels past the join cap (hdist>=2) to the one-hot matcher,
+        # which stores RAW keys and resolves the hamming ball in its
+        # product (kernel csrc/mm_match.cu); qhdist>0 and the rest take
+        # the bucket table. The JAX package's order.
         if LaneKmerIndex.supports(len(keys)):
             index = LaneKmerIndex.build(keys, ids)
         if index is None and _join_eligible(cfg, len(keys)):
             index = SortJoinIndex.build(keys, ids)
+        if index is None and _mm_eligible(cfg):
+            index = MMKmerIndex.build(
+                scaffolds,
+                cfg.k,
+                mink=cfg.mink if cfg.use_short_kmers else 0,
+                hdist=cfg.hdist,
+                hdist2=cfg.hdist2,
+                mid_mask=cfg.mid_mask_bits,
+                rcomp=cfg.rcomp,
+            )
         if index is None:
             index = BucketKmerIndex.build(keys, ids, pack=True)
     lengths = [len(s) for s in scaffolds]
@@ -530,6 +560,11 @@ class BBDuk:
             join=(
                 self.index.static_params()
                 if isinstance(self.index, SortJoinIndex)
+                else None
+            ),
+            mm=(
+                self.index.static_params()
+                if isinstance(self.index, MMKmerIndex)
                 else None
             ),
         )
@@ -600,6 +635,10 @@ class BBDuk:
             remove = self._kfilter_stage(
                 b1, b2, disc1, disc2, remove, init_len1, init_len2
             )
+
+        # ---- trim-by-overlap (:1100-1145) ----
+        if cfg.trim_by_overlap and b2 is not None:
+            b1, b2 = self._tbo_stage(b1, b2, remove)
 
         # ---- homopolymer trims/filters (BBDuk2.java:2239-2300) ----
         if (
@@ -1100,6 +1139,41 @@ class BBDuk:
             np.add.at(st.scaffold_reads, id0[act], 1)
             np.add.at(st.scaffold_bases, id0[act], b.lengths[act].astype(np.int64))
         return b1, b2, disc1, disc2, remove
+
+    def _tbo_stage(self, b1, b2, remove):
+        """trimByOverlap: detect pair overlap and trim both reads to the
+        insert size (BBDukProcessorS :1100-1145), with BBMerge's
+        non-quality ratio mode on the scan device (ops/overlap.py; the
+        insert scan is kernel csrc/overlap_scan.cu on the GPU). Only the
+        [B] winners come back to the host."""
+        from ..ops.overlap import overlap_and_mate
+        from .bbmerge import _rc_batch
+
+        alens = b1.lengths.astype(np.int64)
+        blens = b2.lengths.astype(np.int64)
+        b_rc = _rc_batch(b2)
+        min_insert0 = 13  # minInsert0 default in BBDuk tbo (minOverlap0-based)
+        n_inserts = int(max(1, (alens + blens).max(initial=0) - min_insert0 + 1))
+        insert, bad_int, ambig = (
+            x.cpu().numpy()
+            for x in overlap_and_mate(
+                self._dev(b1.bases), self._dev(b_rc), self._dev(alens),
+                self._dev(blens), min_insert0, n_inserts,
+                8, 14, min_insert0, 16, 0.09, 0.1, 5.5, 0.55,
+            )
+        )
+        ok = (insert > 0) & ~ambig & ~remove
+        trim1 = np.where(ok & (insert < alens), alens - insert, 0)
+        trim2 = np.where(ok & (insert < blens), blens - insert, 0)
+        nz = (trim1 > 0) | (trim2 > 0)
+        if nz.any():
+            nb1 = apply_trim(b1, np.zeros_like(trim1), trim1)
+            nb2 = apply_trim(b2, np.zeros_like(trim2), trim2)
+            b1.bases, b1.quals, b1.lengths = nb1.bases, nb1.quals, nb1.lengths
+            b1.ascii_bases = nb1.ascii_bases
+            b2.bases, b2.quals, b2.lengths = nb2.bases, nb2.quals, nb2.lengths
+            b2.ascii_bases = nb2.ascii_bases
+        return b1, b2
 
     def _kfilter_stage(self, b1, b2, disc1, disc2, remove, init_len1, init_len2):
         cfg, st = self.cfg, self.stats

@@ -45,14 +45,15 @@ def _build() -> str | None:
     if os.path.exists(cache):
         return cache
     cc = os.environ.get("CC", "cc")
+    tmp = f"{cache}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             [cc, "-O3", "-shared", "-fPIC", "-pthread", "-o",
-             cache + ".tmp", *srcs],
+             tmp, *srcs],
             check=True,
             capture_output=True,
         )
-        os.replace(cache + ".tmp", cache)
+        os.replace(tmp, cache)
         return cache
     except Exception as e:  # no compiler / failed build -> fallback
         print(f"bbtools_torch: native build unavailable ({e})", file=sys.stderr)

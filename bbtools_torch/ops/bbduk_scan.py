@@ -11,7 +11,8 @@ count without early exit and separately selects the
 
 Lookups go to the backend the index was built as: the lane table
 (kernel csrc/lane_lookup.cu on the GPU), the sorted join (whose cummax is
-the kernel csrc/cummax_i64.cu) or the bucket table (torch gathers).
+the kernel csrc/cummax_i64.cu), the one-hot matcher (kernel
+csrc/mm_match.cu) or the bucket table (torch gathers).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from .kmer_index import BucketKmerIndex
 from .kmers import length_mask, rolling_kmers, rolling_kmers_plain
 from .lane_index import lane_lookup
+from .mm_match import mm_lookup
 from .sort_join import join_lookup
 
 BIG = 999999999
@@ -51,12 +53,17 @@ class KScanConfig:
     #: SortJoinIndex static params (n,); when set, `table` holds
     #: (sorted_keys, ids32)
     join: tuple | None = None
+    #: MMKmerIndex static params (k, mink, Kp, Dp); when set, `table`
+    #: holds (key_words, prio)
+    mm: tuple | None = None
 
     def resolved_minlen2(self) -> int:
         return self.minlen2 if self.minlen2 > 0 else self.k
 
 
 def _lookup(cfg: KScanConfig, table, keys):
+    if cfg.mm is not None:
+        return mm_lookup(*table, *cfg.mm, keys)
     if cfg.join is not None:
         return join_lookup(*table, keys)
     if cfg.lane is not None:

@@ -16,7 +16,9 @@ RightShift :707-766, mutate recursion BBDukIndexMod.java:383-443):
     length_mask bit, expanded with hdist2
   - maskMiddle keys are stored pre-masked
 
-The host builders are copies of bbtools_tpu/ops/kmer_index.py. The
+The host builders are copies of bbtools_tpu/ops/kmer_index.py, but for
+`expand_kmers` at hdist >= 2, which builds the same stream vectorized
+(see there). The
 BucketKmerIndex lookups are torch gathers on the index's device; the
 splitmix64 hash runs in int64 with logical right shifts, since torch
 has no general uint64 arithmetic (multiplication wraps modulo 2**64 on
@@ -58,23 +60,28 @@ def _mutant_stream_hdist1(kmers: np.ndarray, klen: int, mid_mask: int):
     return np.concatenate([base_key[:, None], mut_key], axis=1)
 
 
-def _mutant_stream_recursive(
-    kmer: int, klen: int, dist: int, mid_mask: int, out: list[int]
-):
-    """Depth-first mutate recursion for hdist >= 2 (exact insertion order)."""
-    key = canonical_keys_np(
-        np.array([kmer], dtype=np.int64),
-        rc_kmer_np(np.array([kmer], dtype=np.int64), klen),
-        klen,
-        mid_mask,
-    )[0]
-    out.append(int(key))
-    if dist > 0:
-        for j in range(4):
-            for i in range(klen):
-                temp = (kmer & ~(3 << (2 * i))) | (j << (2 * i))
-                if temp != kmer:
-                    _mutant_stream_recursive(temp, klen, dist - 1, mid_mask, out)
+#: raw stream entries per chunk of `expand_kmers` at hdist >= 2 (32 MiB
+#: of int64, so a chunk's canonicalisation stays a few hundred MiB)
+EXPAND_CHUNK = 1 << 22
+
+
+def _mutant_stream_raw(kmers: np.ndarray, klen: int, dist: int) -> np.ndarray:
+    """The depth-first mutate recursion (BBDukIndexMod.mutate :383-443)
+    of every kmer as one array [n, S], S = 1 + 3*klen*S(dist-1): each row
+    is the kmer, then, for each of its single-sub mutants in (symbol j,
+    position i) order, skipping the identity, that mutant's own stream at
+    dist-1. Raw (not canonical) values, in the recursion's exact order."""
+    kmers = np.asarray(kmers, dtype=np.int64)
+    n = len(kmers)
+    if dist == 0:
+        return kmers[:, None]
+    j = np.arange(4, dtype=np.int64)[None, :, None]
+    i = np.arange(klen, dtype=np.int64)[None, None, :]
+    temp = (kmers[:, None, None] & ~(np.int64(3) << (2 * i))) | (j << (2 * i))
+    keep = temp != kmers[:, None, None]
+    muts = temp.reshape(n, 4 * klen)[keep.reshape(n, 4 * klen)]  # [n * 3klen]
+    sub = _mutant_stream_raw(muts, klen, dist - 1)
+    return np.concatenate([kmers[:, None], sub.reshape(n, -1)], axis=1)
 
 
 def expand_kmers(
@@ -82,7 +89,14 @@ def expand_kmers(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Expand kmers (in scan order) to the full insertion stream of
     canonical keys. Returns (keys, source_index) where source_index maps
-    each stream entry back to its originating kmer."""
+    each stream entry back to its originating kmer.
+
+    The JAX package walks hdist >= 2 as a per-kmer Python recursion (tens
+    of minutes for a panel whose expansion passes the sorted join's cap).
+    Here the kmers go in chunks of about EXPAND_CHUNK stream entries, and
+    each chunk's stream is one vectorized array per depth in the
+    recursion's exact order, so the result is the same arrays
+    (tests/test_torch_mm_match.py holds them equal across chunks)."""
     kmers = np.asarray(kmers, dtype=np.int64)
     n = len(kmers)
     if n == 0:
@@ -94,14 +108,16 @@ def expand_kmers(
         stream = _mutant_stream_hdist1(kmers, klen, mid_mask)
         src = np.repeat(np.arange(n, dtype=np.int64), stream.shape[1])
         return stream.reshape(-1), src
-    keys_l: list[int] = []
-    src_l: list[int] = []
-    for ix, km in enumerate(kmers):
-        buf: list[int] = []
-        _mutant_stream_recursive(int(km), klen, hdist, mid_mask, buf)
-        keys_l.extend(buf)
-        src_l.extend([ix] * len(buf))
-    return np.asarray(keys_l, dtype=np.int64), np.asarray(src_l, dtype=np.int64)
+    per = _mutant_stream_raw(kmers[:1], klen, hdist).shape[1]
+    step = max(1, EXPAND_CHUNK // per)
+    keys = np.concatenate([
+        canonical_keys_np(raw, rc_kmer_np(raw, klen), klen, mid_mask)
+        for raw in (
+            _mutant_stream_raw(kmers[c : c + step], klen, hdist).reshape(-1)
+            for c in range(0, n, step)
+        )
+    ])
+    return keys, np.repeat(np.arange(n, dtype=np.int64), per)
 
 
 def _edist_children(kmers: np.ndarray, extras: np.ndarray, klen: int):

@@ -1,0 +1,81 @@
+"""Small constant-table lookups: `out = table[idx]` for tables of at most
+2,048 entries (the f32 quality and increment tables of BBMerge, whose
+values encode sequential-f32 rounding, so no closed form exists).
+
+The counterpart of bbtools_tpu/ops/lane_table.py. There the TPU resolves
+the gather with lane-row selects (its kernel `_kernel`); on the GPU the
+kernel of csrc/lane_table.cu stages the table in shared memory and reads
+one entry per index. `lookup` is the wrapper: a CPU tensor runs
+`lookup_plain`, a CUDA tensor launches the kernel, anything else raises.
+Indices outside the table read 0, as the TPU kernel's row select gives.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+LANES = 128
+MAX_ENTRIES = 2048
+
+
+def pack_table(table: np.ndarray):
+    """Host-side: pad a 1-D table to [ceil(n/128), 128] for lookup()."""
+    table = np.asarray(table)
+    n = len(table)
+    assert n <= 2048, "lane table capped at 16 rows"
+    rows = (n + LANES - 1) // LANES
+    out = np.zeros((rows, LANES), table.dtype)
+    out.reshape(-1)[:n] = table
+    return out
+
+
+def lookup_plain(table2d, idx):
+    """Plain torch version: table2d.reshape(-1)[idx], 0 out of range."""
+    flat = table2d.reshape(-1)
+    idx = idx.to(torch.int64)
+    ok = (idx >= 0) & (idx < flat.numel())
+    return torch.where(ok, flat[idx.clamp(0, flat.numel() - 1)],
+                       torch.zeros((), dtype=flat.dtype, device=flat.device))
+
+
+def lookup(table2d, idx):
+    """out[...] = table2d.reshape(-1)[idx] for int32 idx of any shape and
+    a 32-bit table (f32 or int32) of at most 2,048 entries.
+
+    CPU tensors run `lookup_plain`; CUDA tensors launch the kernel of
+    csrc/lane_table.cu, or raise."""
+    if idx.device.type == "cpu":
+        return lookup_plain(table2d, idx)
+    if idx.device.type != "cuda":
+        raise ValueError(f"lane_table.lookup: unsupported device {idx.device}")
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        raise ValueError("lane_table.lookup: idx must be contiguous int32")
+    if (table2d.device != idx.device or table2d.element_size() != 4
+            or not table2d.is_contiguous()
+            or table2d.numel() > MAX_ENTRIES):
+        raise ValueError(
+            "lane_table.lookup: the table must be a contiguous 32-bit tensor "
+            f"of at most {MAX_ENTRIES} entries on {idx.device}"
+        )
+    out = torch.empty(idx.shape, dtype=table2d.dtype, device=idx.device)
+    n = idx.numel()
+    if n == 0:
+        return out
+    from ..kernels.build import check, library
+
+    lib = library()
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        rc = lib.lane_table(idx.data_ptr(), out.data_ptr(), n,
+                            table2d.data_ptr(), table2d.numel(),
+                            ctypes.c_void_p(stream))
+    check(rc, "lane_table")
+    lookup.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+lookup.launches = 0

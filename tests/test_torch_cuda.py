@@ -94,3 +94,202 @@ def test_bbduk_cuda_equals_cpu(cuda, tmp_path, panel):
               f"device={dev}"])
         outs[dev] = (out.read_bytes(), st.read_bytes())
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# B6 lane_table, B5 overlap_scan, B3 mm_match (kernels of the BBMerge / BBDuk
+# tbo / matcher slice)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_table", [60, 1025, 2048])
+@pytest.mark.parametrize("shape", [(0,), (1,), (8192, 290)])
+def test_lane_table_kernel_matches_plain(cuda, n_table, shape):
+    from bbtools_torch.ops import lane_table
+
+    rng = np.random.default_rng(n_table)
+    table = rng.standard_normal(n_table).astype(np.float32)
+    table[:3] = np.array([0x80000000, 0x00000001, 0x7FC00001],
+                         np.uint32).view(np.float32)  # -0, subnormal, NaN
+    packed = torch.from_numpy(lane_table.pack_table(table)).to(cuda)
+    idx = rng.integers(-3, packed.numel() + 3, shape).astype(np.int32)
+    idx = torch.from_numpy(idx).to(cuda)
+    before = lane_table.lookup.launches
+    got = lane_table.lookup(packed, idx)
+    want = lane_table.lookup_plain(packed, idx)
+    assert got.dtype == torch.float32 and got.shape == idx.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert lane_table.lookup.launches == before + (idx.numel() > 0)
+
+
+@pytest.mark.parametrize("B,L,min0,D", [
+    (1, 10, 5, 20), (77, 51, 5, 94), (300, 151, 12, 289), (64, 120, 13, 240),
+    (33, 40, 60, 9),
+])
+def test_overlap_scan_kernel_matches_plain(cuda, B, L, min0, D):
+    from bbtools_torch.ops.overlap_scan import overlap_counts, overlap_counts_plain
+
+    rng = np.random.default_rng(B + L)
+    a = torch.from_numpy(rng.integers(0, 5, (B, L)).astype(np.uint8)).to(cuda)
+    b = torch.from_numpy(rng.integers(0, 5, (B, L)).astype(np.uint8)).to(cuda)
+    al = torch.from_numpy(rng.integers(1, L + 1, B).astype(np.int32)).to(cuda)
+    bl = torch.from_numpy(rng.integers(1, L + 1, B).astype(np.int32)).to(cuda)
+    before = overlap_counts.launches
+    got = overlap_counts(a, b, al, bl, min0, D)
+    want = overlap_counts_plain(a, b, al, bl, min0, D)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert overlap_counts.launches == before + 1
+
+
+@pytest.mark.parametrize("k,mink,hdist", [(23, 11, 2), (13, 0, 1), (31, 11, 1)])
+def test_mm_kernel_matches_plain(cuda, k, mink, hdist):
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(k)
+    scafs = [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(30)]
+    idx = mm_match.MMKmerIndex.build(scafs, k, mink=mink, hdist=hdist)
+    assert idx is not None
+    km, pr = idx.device_arrays(cuda)
+    q = []
+    for i in range(5000):
+        s = scafs[i % 30]
+        ln = k if (not mink or i % 3) else int(rng.integers(mink, k))
+        codes = s[: ln].astype(np.int64).copy()
+        for _ in range(i % 5):
+            codes[rng.integers(0, ln)] = rng.integers(0, 4)
+        fwd = 0
+        for c in codes:
+            fwd = (fwd << 2) | int(c)
+        rc = int(mm_match.rc_kmer_np(np.array([fwd], np.int64), ln)[0])
+        q.append(max(fwd, rc) | (1 << (2 * ln)))
+    q = torch.tensor(q, dtype=torch.int64, device=cuda).reshape(50, 100)
+    before = mm_match.mm_lookup.launches
+    got = mm_match.mm_lookup(km, pr, *idx.static_params(), q)
+    want = mm_match.mm_lookup_plain(km, pr, *idx.static_params(), q)
+    assert torch.equal(got, want)
+    assert mm_match.mm_lookup.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), idx.lookup_np(q.cpu().numpy()))
+    assert int((got > 0).sum()) > 1000
+
+
+def _pairs_fastq(path, n, seed, L=150, lo=100, hi=300):
+    rng = np.random.default_rng(seed)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    adapter = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+    with open(path, "wb") as fh:
+        for i in range(n):
+            frag = bytes(b"ACGT"[x] for x in rng.integers(0, 4, int(rng.integers(lo, hi + 1))))
+            r1 = (frag + adapter + b"A" * L)[:L]
+            r2 = (frag[::-1].translate(comp) + adapter + b"A" * L)[:L]
+            for m, r in enumerate((r1, r2)):
+                q = (33 + np.clip(41 - rng.exponential(7, L), 2, 40)).astype(np.uint8)
+                fh.write(b"@p%d %d:N:0\n%s\n+\n%s\n" % (i, m + 1, r, q.tobytes()))
+    return path
+
+
+def test_bbmerge_and_tbo_cuda_equal_cpu(cuda, tmp_path):
+    from bbtools_torch.cli import main
+
+    fin = _pairs_fastq(tmp_path / "pairs.fq", 3000, 9)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        files = [tmp_path / f"{dev}.{x}" for x in ("m.fq", "u1.fq", "u2.fq", "ih.txt",
+                                                  "tbo.fq", "tbo.txt")]
+        main(["bbmerge", f"in={fin}", f"out={files[0]}", f"outu1={files[1]}",
+              f"outu2={files[2]}", f"ihist={files[3]}", f"device={dev}"])
+        main(["bbduk", f"in={fin}", f"out={files[4]}", f"stats={files[5]}",
+              "literal=AGATCGGAAGAGCACACGTCTGAACTCCAGTCA", "k=23", "mink=11",
+              "hdist=1", "ktrim=r", "minlen=40", "tbo", "tpe", f"device={dev}"])
+        outs[dev] = [f.read_bytes() for f in files]
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cuda"][0].count(b"\n+\n") > 1000
+
+
+@pytest.mark.parametrize("quality", [False, True])
+def test_overlap_device_path_matches_host_oracles(cuda, quality):
+    """The torch loops of ops/overlap.py on the card (insert scan kernel,
+    quality scan, mate selection, efilter, pfilter, entropy) against the
+    port's numpy oracles, copied from the JAX package: f32 bit for bit."""
+    from bbtools_torch.ops import overlap as T
+    from bbtools_torch.ops.overlap_scan import overlap_counts_plain
+
+    rng = np.random.default_rng(41)
+    B, L = 3000, 151
+    frag = rng.integers(0, 4, (B, 2 * L)).astype(np.uint8)
+    ins = rng.integers(30, 2 * L, B)
+    alens = rng.integers(60, L + 1, B)
+    a = np.full((B, L), 4, np.uint8)
+    b_rc = np.full((B, L), 4, np.uint8)
+    blens = np.zeros(B, np.int64)
+    for r in range(B):
+        a[r, : alens[r]] = frag[r, : alens[r]]
+        tail = frag[r, max(ins[r] - int(rng.integers(60, L + 1)), 0) : ins[r]]
+        b_rc[r, : len(tail)] = tail
+        blens[r] = len(tail)
+    a[rng.random((B, L)) < 0.01] = 4
+    aq = rng.integers(2, 41, (B, L)).astype(np.uint8)
+    bq = rng.integers(2, 41, (B, L)).astype(np.uint8)
+    m0, D = 12, int((alens + blens).max() - 12 + 1)
+    mo = rng.integers(8, 14, B)
+    consts = (5, mo, m0, 15, 0.09, 0.1, 5.5, 0.55)
+    good, bad, olen = (x.numpy() for x in overlap_counts_plain(
+        *(torch.from_numpy(v) for v in (a, b_rc, alens, blens)), m0, D))
+    gf = bf = None
+    if quality:
+        gf, bf, _, _ = T.overlap_counts_quality_np(a, b_rc, aq, bq, alens, blens, m0, D)
+    want = T.mate_by_overlap_ratio_np(good, bad, olen, alens, blens, m0, *consts,
+                                      good_f=gf, bad_f=bf)
+    d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+         for k, v in dict(a=a, b=b_rc, al=alens, bl=blens, aq=aq, bq=bq, mo=mo).items()}
+    got = T.overlap_and_mate(d["a"], d["b"], d["al"], d["bl"], m0, D, 5, d["mo"],
+                             *consts[2:], aq=d["aq"] if quality else None,
+                             bq_rev=d["bq"] if quality else None)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+    assert (want[0] > 0).sum() > B // 4
+    ov = np.where(want[0] > 0, want[0], 1)
+    for name in ("expected_mismatches", "probability"):
+        w = getattr(T, f"{name}_np")(a, b_rc, aq, bq, alens, blens, ov)
+        g = getattr(T, f"{name}_torch")(d["a"], d["b"], d["aq"], d["bq"], d["al"],
+                                        d["bl"], torch.from_numpy(ov).to(cuda))
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32), w.view(np.int32))
+    for tail in (True, False):
+        w = T.calc_min_overlap_by_entropy_np(a, alens, 3, 39, tail)
+        g = T.calc_min_overlap_by_entropy_torch(d["a"], d["al"], 3, 39, tail)
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def test_bbduk_mm_backend_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
+    """BBDuk on the matcher backend (forced on a small hdist=1 panel by
+    declining the lane table and the sorted join): CUDA output and stats
+    byte-equal to the CPU's."""
+    from bbtools_torch.models import bbduk
+    from bbtools_torch.ops.lane_index import LaneKmerIndex
+    from bbtools_torch.ops.mm_match import mm_lookup
+
+    rng = np.random.default_rng(21)
+    scafs = [bytes(b"ACGT"[x] for x in rng.integers(0, 4, 50)) for _ in range(60)]
+    (tmp_path / "panel.fa").write_bytes(
+        b"".join(b">s%d\n%s\n" % (i, s) for i, s in enumerate(scafs)))
+    with open(tmp_path / "in.fq", "wb") as fh:
+        for i in range(4000):
+            seq = bytearray(bytes(b"ACGT"[x] for x in rng.integers(0, 4, 120)))
+            if i % 3 == 0:
+                piece = bytearray(scafs[i % 60][:35])
+                piece[9] = b"ACGT"[(b"ACGT".index(piece[9]) + 2) % 4]
+                seq[85:] = piece
+            fh.write(b"@r%d\n%s\n+\n%s\n" % (i, bytes(seq), b"F" * 120))
+    monkeypatch.setattr(LaneKmerIndex, "supports", staticmethod(lambda n: False))
+    monkeypatch.setattr(bbduk, "_join_eligible", lambda cfg, n: False)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        out, st = tmp_path / f"{dev}.fq", tmp_path / f"{dev}.txt"
+        before = mm_lookup.launches
+        bbduk.main([f"in={tmp_path / 'in.fq'}", f"out={out}", f"stats={st}",
+                    f"ref={tmp_path / 'panel.fa'}", "k=23", "mink=11", "hdist=1",
+                    "ktrim=r", "minlen=40", f"device={dev}"])
+        assert (mm_lookup.launches > before) == (dev == "cuda")
+        outs[dev] = (out.read_bytes(), st.read_bytes())
+    assert outs["cuda"] == outs["cpu"]
+    assert b"#Matched\t0\t" not in outs["cuda"][1]

@@ -54,8 +54,8 @@ def test_port_sources_name_no_jax():
 COPIED_MODULES = [
     "core/dna.py", "core/parser.py", "core/qualtools.py",
     "io/readwrite.py", "io/fileformat.py", "io/bgzf.py", "io/batch.py",
-    "io/fastq.py", "io/fasta.py", "ops/entropy.py", "utils/readstats.py",
-    "native/__init__.py",
+    "io/fastq.py", "io/fasta.py", "ops/entropy.py", "ops/join.py",
+    "utils/readstats.py", "native/__init__.py",
 ]
 
 
@@ -73,6 +73,13 @@ def test_copied_module_has_not_drifted(rel):
                             "    here = SOURCE_DIR\n")
         start = port.index("#: the C sources are shared")
         port = port[:start] + port[port.index(")\n", start) + 2:]
+        # ... and builds into a per-process temp name, so processes that
+        # build at the same moment do not collide
+        build = '    try:\n        subprocess.run(\n'
+        assert want.count(build) == 1 and want.count('cache + ".tmp"') == 2
+        want = want.replace(
+            build, '    tmp = f"{cache}.{os.getpid()}.tmp"\n' + build
+        ).replace('cache + ".tmp"', "tmp")
     assert port == want
 
 
@@ -81,7 +88,7 @@ COPIED_FUNCTIONS = [
     ("ops.kmers", "rolling_kmers_np"), ("ops.kmers", "rc_kmer_np"),
     ("ops.kmers", "canonical_keys_np"), ("ops.kmers", "middle_mask"),
     ("ops.kmers", "mid_mask_len_default"), ("ops.kmers", "_last_undef_np"),
-    ("ops.kmer_index", "build_ref_keys"), ("ops.kmer_index", "expand_kmers"),
+    ("ops.kmer_index", "build_ref_keys"),
     ("ops.kmer_index", "expand_kmers_edist"), ("ops.kmer_index", "_edist_children"),
     ("ops.kmer_index", "scaffold_kmer_stream"), ("ops.kmer_index", "_mix64"),
     ("ops.kmer_index", "_mutant_stream_hdist1"),
@@ -97,6 +104,19 @@ COPIED_FUNCTIONS = [
     ("models.bbduk", "BBDuk.write_stats_file"),
     ("models.bbduk", "_count_big_kmer_hits"), ("models.bbduk", "_detect_poly_scan"),
     ("models.bbduk", "_avg_quality_by_prob"), ("models.bbduk", "_has_min_consecutive"),
+    ("ops.lane_table", "pack_table"),
+    ("ops.overlap", "_incr_table"), ("ops.overlap", "incr_table"),
+    ("ops.overlap", "right_justify_np"), ("ops.overlap", "overlap_counts_quality_np"),
+    ("ops.overlap", "find_best_ratio_np"), ("ops.overlap", "mate_by_overlap_ratio_np"),
+    ("ops.overlap", "expected_mismatches_np"), ("ops.overlap", "probability_np"),
+    ("ops.overlap", "calc_min_overlap_by_entropy_np"),
+    ("ops.overlap", "expected_tip_errors_np"),
+    ("ops.mm_match", "_field_onehot_np"), ("ops.mm_match", "_canonical_realizable_np"),
+    ("ops.mm_match", "_masked_safety"), ("ops.mm_match", "MMKmerIndex.build"),
+    ("ops.mm_match", "MMKmerIndex.lookup_np"), ("ops.mm_match", "_query_onehot_np"),
+    ("models.bbmerge", "Preset"), ("models.bbmerge", "BBMerge.process_batch"),
+    ("models.bbmerge", "BBMerge.write_ihist"), ("models.bbmerge", "BBMerge.print_stats"),
+    ("models.bbmerge", "_rc_batch"), ("models.bbmerge", "_rev_quals"),
 ]
 
 
@@ -127,16 +147,32 @@ def test_cuda_request_without_cuda_raises():
 
 def test_wrappers_run_no_plain_version_off_the_cpu():
     """A tensor that is not on the CPU never reaches the plain version."""
+    from bbtools_torch.ops import lane_table
     from bbtools_torch.ops.lane_index import lane_lookup
+    from bbtools_torch.ops.mm_match import mm_lookup
+    from bbtools_torch.ops.overlap_scan import overlap_counts
     from bbtools_torch.ops.scan import cummax_i64
 
-    q = torch.zeros(16, dtype=torch.int64, device="meta")
-    t = torch.zeros((8, 128), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="device"):
-        lane_lookup(t, t, t, 128, 1, 1, 8, 0, True, q)
-    with pytest.raises(ValueError, match="device"):
-        cummax_i64(q)
+    meta = torch.device("meta")
+    q = torch.zeros(16, dtype=torch.int64, device=meta)
+    t = torch.zeros((8, 128), dtype=torch.int32, device=meta)
+    codes = torch.zeros((4, 30), dtype=torch.uint8, device=meta)
+    lens = torch.zeros(4, dtype=torch.int32, device=meta)
+    key_words = torch.zeros((512, 32), dtype=torch.int32, device=meta)
+    prio = torch.zeros((1, 512), dtype=torch.int32, device=meta)
+    calls = [
+        lambda: lane_lookup(t, t, t, 128, 1, 1, 8, 0, True, q),
+        lambda: cummax_i64(q),
+        lambda: lane_table.lookup(t.float(), q.int()),
+        lambda: overlap_counts(codes, codes, lens, lens, 5, 50),
+        lambda: mm_lookup(key_words, prio, 23, 11, 128, 512, q),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="device"):
+            call()
     assert lane_lookup.launches == 0 and cummax_i64.launches == 0
+    assert lane_table.lookup.launches == 0 and overlap_counts.launches == 0
+    assert mm_lookup.launches == 0
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -152,18 +188,38 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert build.sources() and all(s.endswith(".cu") for s in build.sources())
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("tpshards=2", "A7"), ("tbo=t", "B5"), ("recalibrate=t", "A8"),
-    ("align=t", "A4"), ("profile=trace", "A9"),
+@pytest.mark.parametrize("tool,flag,item", [
+    ("bbduk", "tpshards=2", "A7"), ("bbduk", "recalibrate=t", "A8"),
+    ("bbduk", "align=t", "A4"), ("bbduk", "profile=trace", "A9"),
+    ("bbmerge", "extend2=20", "A3/A6"), ("bbmerge", "nn=t", "A5"),
+    ("bbmerge", "tpshards=2", "A7"),
 ])
-def test_unported_flags_raise(tmp_path, flag, item):
-    from bbtools_torch.models.bbduk import main
+def test_unported_flags_raise(tmp_path, tool, flag, item):
+    from bbtools_torch.cli import main
 
     fq = tmp_path / "in.fq"
     fq.write_text("@r\nACGT\n+\nIIII\n")
     with pytest.raises(NotImplementedError, match=item):
-        main([f"in={fq}", "literal=ACGTACGTACGTACGTACGTACGTA", "k=23",
+        main([tool, f"in={fq}", "literal=ACGTACGTACGTACGTACGTACGTA", "k=23",
               "device=cpu", flag])
+
+
+def test_native_codec_builds_under_concurrent_processes(tmp_path):
+    """Three processes build the native codec into one fresh TMPDIR at
+    the same moment; every one of them loads the library."""
+    code = (
+        "from bbtools_torch.native import get_lib\n"
+        "import sys\n"
+        "sys.exit(0 if get_lib() is not None else 3)\n"
+    )
+    env = dict(os.environ, TMPDIR=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for _ in range(3)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], outs
+    assert len(list(tmp_path.glob("bbtools_torch_native_*.so"))) == 1
+    assert not list(tmp_path.glob("*.tmp"))
 
 
 def test_unknown_tool_raises():
