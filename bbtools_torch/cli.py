@@ -22,12 +22,38 @@ def _bbmerge(args):
     return main(args)
 
 
+def _bbmap(args):
+    from .models.bbmap import main
+
+    return main(args)
+
+
+def _mappacbio(args):
+    from .models.bbmap import main
+
+    return main(args, preset="pacbio")
+
+
+def _bbmapskimmer(args):
+    from .models.bbmap import main
+
+    return main(args, preset="skimmer")
+
+
 TOOLS = {
     "bbduk": _bbduk,
     # same-main-class launcher aliases (bbduk.BBDukS)
     "bbduks": _bbduk,
     "bbmerge": _bbmerge,
     "bbmerge-auto": _bbmerge,
+    "bbmap": _bbmap,
+    # align2.BBMap5 / BBMapAcc: generations of the same pipeline
+    "bbmap5": _bbmap,
+    "bbmapacc": _bbmap,
+    # the long-read presets raise, naming ROADMAP A4b
+    "mappacbio": _mappacbio,
+    "bbmapskimmer": _bbmapskimmer,
+    "mappacbioskimmer": _bbmapskimmer,
 }
 
 

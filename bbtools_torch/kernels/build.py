@@ -47,6 +47,9 @@ SIGNATURES = {
     "overlap_scan": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     # keys, out, n, keyT, prio, Dp, k, mink, nc, Kp, stream
     "mm_lookup": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
+    # reads, lens, refs, col0, out_s, out_c, out_st, planes, S, R, Cc, K,
+    # stream
+    "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,0 +1,292 @@
+"""The unpruned MultiStateAligner11ts fill with traceback planes (B4).
+
+The counterpart of bbtools_tpu/ops/msa_pallas.py (`msa_fill_pallas`
+with traceback=True, the TPU kernel `_kernel`), which equals the XLA
+`msa_fill(prune=False, traceback=True)` of its ops/msa.py:
+fillUnlimited (MultiStateAligner11ts.java:643-860) as an anti-diagonal
+wavefront. MS depends on (r-1, c-1), INS on (r-1, c), DEL on (r, c-1),
+so every cell of diagonal d = r + c reads only diagonals d-1 and d-2.
+
+Inputs: reads uint8 [S, R] (code 4 past each read's length), read
+lengths int32 [S], reference windows uint8 [S, Cc]; columns outside the
+window read the sentinel code 97, as the TPU kernel's padded window
+(`prepare_refp`) does. Outputs: best score, column and state int32 [S]
+(state -1 and column -1 when no final-row cell qualified), and the
+prevState planes uint8 [nd, S, R+1], nd = R+Cc-1, diagonal d stored at
+d-2 (ms_prev | del_prev<<2 | ins_prev<<4, the picks taken before the
+barriers), the layout `ops.msa.msa_walk` reads.
+
+`msa_fill` is the wrapper: a CPU tensor runs `msa_fill_plain` (a torch
+wavefront over the diagonals), a CUDA tensor launches the kernel of
+csrc/msa_fill.cu, anything else raises. All arithmetic is int32 and
+exact, so both agree to the bit, planes included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import msa_constants as C
+from .msa import col0_scores
+
+NEG_BIG = -(1 << 30)
+#: the sentinel of the reference columns outside the window
+REF_PAD = 97
+#: rows a kernel thread may own (the kernel's largest template), and
+#: threads per block: reads up to MAX_ROWS_PER_THREAD * 1024 - 1 bases
+MAX_ROWS_PER_THREAD = 64
+
+
+def _sub_array_cost(streak):
+    i = streak + 1
+    return torch.where(
+        i > C.LIMIT_FOR_COST_3,
+        C.POINTS_SUB3,
+        torch.where(i > 1, C.POINTS_SUB2, C.POINTS_SUB),
+    )
+
+
+def _ins_array_cost(streak):
+    i = streak + 1
+    return torch.where(
+        i > C.LIMIT_FOR_COST_4,
+        C.POINTS_INS4,
+        torch.where(
+            i > C.LIMIT_FOR_COST_3,
+            C.POINTS_INS3,
+            torch.where(i > 1, C.POINTS_INS2, C.POINTS_INS),
+        ),
+    )
+
+
+def _del_ext_cost(streak):
+    return torch.where(
+        streak == 0,
+        C.POINTS_DEL,
+        torch.where(
+            streak < C.LIMIT_FOR_COST_3,
+            C.POINTS_DEL2,
+            torch.where(
+                streak < C.LIMIT_FOR_COST_4,
+                C.POINTS_DEL3,
+                torch.where(
+                    streak < C.LIMIT_FOR_COST_5,
+                    C.POINTS_DEL4,
+                    torch.where((streak & C.MASK5) == 0, C.POINTS_DEL5, 0),
+                ),
+            ),
+        ),
+    )
+
+
+def _shift_row(x):
+    """x[:, r] -> x[:, r-1]; row 0 reads 0."""
+    return F.pad(x[:, :-1], (1, 0))
+
+
+def msa_fill_plain(reads, read_lens, refs):
+    """(max_score, max_col, max_state, planes) of the unpruned fill, one
+    torch step per diagonal over [S, R+1] planes (the XLA wavefront of
+    bbtools_tpu/ops/msa.py `msa_fill`)."""
+    S, R = reads.shape
+    Cc = refs.shape[1]
+    W = R + 1
+    nd = R + Cc - 1
+    dev = reads.device
+    i32 = torch.int32
+    rr = torch.arange(W, dtype=i32, device=dev)[None, :]  # [1, W]
+    rd = reads.to(i32)
+    call1 = torch.cat([torch.full((S, 1), 99, dtype=i32, device=dev), rd], 1)
+    call0 = torch.cat([torch.full((S, 2), 98, dtype=i32, device=dev),
+                       rd[:, :-1]], 1)
+    PAD = R + 2
+    refp = F.pad(refs.to(i32), (PAD, PAD), value=REF_PAD)
+    # reversed once, so each diagonal's row-ordered codes are a view:
+    # row r reads ref[c-1] = refp[d - r + R + 1] = rev[n - 1 - (d - r + R + 1)]
+    rev = refp.flip(1)
+    n = refp.shape[1]
+    col0 = torch.as_tensor(col0_scores(R), dtype=i32, device=dev)[None, :]
+    lens = read_lens.to(i32)[:, None]  # [S, 1]
+    maxgain = (lens - 1) * C.POINTS_MATCH2 + C.POINTS_MATCH
+    subfloor = -2 * maxgain
+    del_barrier = (rr < C.BARRIER_D1) | (rr > lens - C.BARRIER_D1)
+    ins_lo = rr < C.BARRIER_I1
+    ins_hi = rr > lens - C.BARRIER_I1
+    fin_row = lens.clamp(0, R).long()
+    fin_ok = (lens >= 0) & (lens <= R)
+
+    def init_diag(dd):
+        c = dd - rr
+        s = torch.where(c == 0, col0, torch.where(rr == 0, 0, NEG_BIG))
+        return s.to(i32).expand(S, W)
+
+    zero = torch.zeros((S, W), dtype=i32, device=dev)
+    s0, s1 = init_diag(0), init_diag(1)
+    # (ms_s, ms_t, del_s, del_t, ins_s, ins_t) of diagonals d-1 and d-2
+    p1 = (s1, zero, s1, zero, s1, zero)
+    p2 = (s0, zero, s0, zero, s0, zero)
+    best_s = [torch.full((S,), NEG_BIG, dtype=i32, device=dev) for _ in range(3)]
+    best_c = [torch.full((S,), -1, dtype=i32, device=dev) for _ in range(3)]
+    planes = torch.empty((nd, S, W), dtype=torch.uint8, device=dev)
+    for d in range(2, R + Cc + 1):
+        c = d - rr
+        lo = n - 1 - (d + R + 1)
+        ref1 = rev[:, lo : lo + W]  # ref[c-1] by row
+        ref0 = rev[:, lo + 1 : lo + 1 + W]  # ref[c-2] by row
+        in_range = (rr >= 1) & (c >= 1)
+        match = (call1 == ref1) & (ref1 < 4)
+        prev_match = (call0 == ref0) & (ref0 < 4)
+        refn = ref1 >= 4
+        q_ms_s, q_ms_t, q_del_s, _, q_ins_s, _ = p2
+        p_ms_s, _, p_del_s, p_del_t, p_ins_s, p_ins_t = p1
+        # --- MS from (r-1, c-1) ---
+        s_diag = _shift_row(q_ms_s)
+        s_del = _shift_row(q_del_s)
+        s_ins = _shift_row(q_ins_s)
+        streak = _shift_row(q_ms_t)
+        m_sMS = torch.where(
+            match,
+            s_diag + torch.where(prev_match, C.POINTS_MATCH2, C.POINTS_MATCH),
+            torch.where(
+                (ref1 < 4) & (call1 < 4),
+                s_diag + torch.where(
+                    prev_match,
+                    torch.where(streak <= 1, C.POINTS_SUBR, C.POINTS_SUB),
+                    _sub_array_cost(streak),
+                ),
+                s_diag + C.POINTS_NOCALL,
+            ),
+        ).to(i32)
+        m_sD = s_del + torch.where(match, C.POINTS_MATCH, C.POINTS_SUB)
+        m_sI = s_ins + torch.where(match, C.POINTS_MATCH, C.POINTS_SUB)
+        pick_ms = (m_sMS >= m_sD) & (m_sMS >= m_sI)
+        pick_d = ~pick_ms & (m_sD >= m_sI)
+        ms_score = torch.where(pick_ms, m_sMS, torch.where(pick_d, m_sD, m_sI))
+        ms_time = torch.where(
+            pick_ms,
+            torch.where(
+                match,
+                torch.where(prev_match, streak + 1, 1),
+                torch.where(prev_match, 1, streak + 1),
+            ),
+            1,
+        )
+        # --- DEL from (r, c-1) ---
+        refn_pen = torch.where(refn, C.POINTS_DEL_REF_N, 0)
+        d_sMS = p_ms_s + C.POINTS_DEL + refn_pen
+        d_sD = p_del_s + _del_ext_cost(p_del_t) + refn_pen
+        d_pick = d_sMS >= d_sD
+        del_score = torch.where(d_pick, d_sMS, d_sD)
+        del_time = torch.where(d_pick, 1, p_del_t + 1)
+        # --- INS from (r-1, c) ---
+        i_sMS = _shift_row(p_ms_s) + C.POINTS_INS
+        i_streak = _shift_row(p_ins_t)
+        i_sI = _shift_row(p_ins_s) + _ins_array_cost(i_streak)
+        i_pick = i_sMS >= i_sI
+        ins_score = torch.where(i_pick, i_sMS, i_sI)
+        ins_time = torch.where(i_pick, 1, i_streak + 1)
+        # prevState byte, from the picks before the barriers
+        ms_prev = torch.where(pick_ms, 0, torch.where(pick_d, 1, 2))
+        planes[d - 2] = (ms_prev + torch.where(d_pick, 0, 4)
+                         + torch.where(i_pick, 0, 32)).to(torch.uint8)
+        # --- barriers, time clamp, boundary ---
+        ins_barrier = (ins_lo & (c > 1)) | (ins_hi & (c < Cc - 1))
+        del_score = torch.where(del_barrier, subfloor, del_score)
+        del_time = torch.where(del_barrier, 0, del_time)
+        ins_score = torch.where(ins_barrier, subfloor, ins_score)
+        ins_time = torch.where(ins_barrier, 0, ins_time)
+        clamp = C.MAX_TIME - C.MASK5
+        ms_time = torch.where(ms_time > C.MAX_TIME, clamp, ms_time)
+        del_time = torch.where(del_time > C.MAX_TIME, clamp, del_time)
+        ins_time = torch.where(ins_time > C.MAX_TIME, clamp, ins_time)
+        bnd = torch.where(c == 0, col0, torch.where(rr == 0, 0, NEG_BIG))
+        out = []
+        for v, b in ((ms_score, bnd), (ms_time, 0), (del_score, bnd),
+                     (del_time, 0), (ins_score, bnd), (ins_time, 0)):
+            out.append(torch.where(in_range, v, b).to(i32))
+        # --- final-row capture: r == len, 1 <= c <= Cc, strict > ---
+        fin_c = d - lens[:, 0]
+        valid = fin_ok[:, 0] & (fin_c >= 1) & (fin_c <= Cc)
+        for st, plane in enumerate(out[0::2]):
+            fs = plane.gather(1, fin_row)[:, 0]
+            cand = valid & (fs > best_s[st])
+            best_s[st] = torch.where(cand, fs, best_s[st])
+            best_c[st] = torch.where(cand, fin_c, best_c[st])
+        p2, p1 = p1, tuple(out)
+    # combine states in state-major order with strict >
+    bs, bc = best_s[0], best_c[0]
+    bst = torch.where(bc >= 0, 0, -1).to(i32)
+    for st in (1, 2):
+        take = best_s[st] > bs
+        bs = torch.where(take, best_s[st], bs)
+        bc = torch.where(take, best_c[st], bc)
+        bst = torch.where(take, st, bst).to(i32)
+    return bs, bc, bst, planes
+
+
+def _rows_per_thread(W: int) -> int:
+    """The kernel's rows per thread: the least power of two that fits
+    W rows into 1,024 threads."""
+    k = 1
+    while k * 1024 < W:
+        k *= 2
+    return k
+
+
+def msa_fill(reads, read_lens, refs):
+    """The fill of `msa_fill_plain`. CPU tensors run the plain version;
+    CUDA tensors launch the kernel of csrc/msa_fill.cu (reads contiguous
+    uint8 [S, R], read_lens int32 [S], refs uint8 [S, Cc]), or raise."""
+    if reads.device.type == "cpu":
+        return msa_fill_plain(reads, read_lens, refs)
+    if reads.device.type != "cuda":
+        raise ValueError(f"msa_fill: unsupported device {reads.device}")
+    S, R = reads.shape
+    Cc = refs.shape[1]
+    for t, name, dt, shape in ((reads, "reads", torch.uint8, (S, R)),
+                               (read_lens, "read_lens", torch.int32, (S,)),
+                               (refs, "refs", torch.uint8, (S, Cc))):
+        if (t.device != reads.device or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"msa_fill: {name} must be a contiguous {dt} tensor of shape "
+                f"{shape} on {reads.device}, got {t.dtype} {tuple(t.shape)} "
+                f"on {t.device}"
+            )
+    W = R + 1
+    if R < 1 or Cc < 1:
+        raise ValueError(f"msa_fill: needs R >= 1 and Cc >= 1, got {R}, {Cc}")
+    k = _rows_per_thread(W)
+    if k > MAX_ROWS_PER_THREAD:
+        raise ValueError(
+            f"msa_fill: reads of {R} bases exceed the kernel's "
+            f"{MAX_ROWS_PER_THREAD * 1024 - 1}"
+        )
+    nd = R + Cc - 1
+    dev = reads.device
+    outs = tuple(torch.empty(S, dtype=torch.int32, device=dev) for _ in range(3))
+    planes = torch.empty((nd, S, W), dtype=torch.uint8, device=dev)
+    if S == 0:
+        return (*outs, planes)
+    col0 = torch.as_tensor(col0_scores(R), dtype=torch.int32, device=dev)
+    from ..kernels.build import check, library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.msa_fill(
+            reads.data_ptr(), read_lens.data_ptr(), refs.data_ptr(),
+            col0.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr(), planes.data_ptr(), S, R, Cc, k,
+            ctypes.c_void_p(stream),
+        )
+    check(rc, "msa_fill")
+    msa_fill.launches += 1
+    return (*outs, planes)
+
+
+#: kernel launches since the count was last set to 0
+msa_fill.launches = 0

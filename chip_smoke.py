@@ -13,20 +13,31 @@ From the root of a checkout, on a machine with a CUDA card:
      events: B1 lane_lookup and B2 cummax_i64 (BBDuk), B3 mm_lookup (the
      matcher configuration's index, on the full-k and short-k end keys
      the BBDuk scans send it for one batch), B5 overlap_scan and B6
-     lane_table (one BBMerge batch);
+     lane_table (one BBMerge batch), B4 msa_fill (BBMap's fill with
+     traceback planes: window class 0 of one real 4,096-read batch, class
+     3 of that batch, and 4,096 synthetic tasks of mixed lengths at
+     R=250); each kernel's row carries its bound (bytes over the memory
+     rate or operations over the card's rate for their type, the larger)
+     and the time of one PyTorch call computing the same function where
+     there is one;
   4. drives each path through the CLI entry point on device=cuda with
      every launch counter set to 0 just before it and read just after:
-     `bbduk` over a seeded gzipped FASTQ of N reads (1,000,000 by
+     `bbduk` over a seeded gzipped FASTQ of N reads (500,000 by
      default) at ref=adapters hdist=1 (sorted join, B2) and on one
      literal adapter (lane table, B1); `bbduk` on the matcher backend
      (ref=adapters,phix k=23 mink=11 hdist=2, B3) over 100,000 of those
      reads, with its index build timed on its own line; a paired `bbduk
      tbo tpe` over seeded interleaved pairs (B1, B5, B6); and `bbmerge`
-     over a seeded pair of gzipped FASTQ files of N pairs (1,000,000 by
-     default; B5, B6);
+     over a seeded pair of gzipped FASTQ files of N pairs (300,000 by
+     default; B5, B6); `bbmap` (B4) against a seeded genome of E. coli
+     K-12's length (4,641,652 bp) over 200,000 reads of 151 bp and over
+     50,000 pairs, with reads/s, pairs/s, the index build, the mapped
+     share, the B4 launches and the batches that overflowed the fused
+     phase's walk cap on lines of their own;
   5. runs every path but the matcher's on its first 20,000 reads (pairs)
      on device=cuda and device=cpu and requires byte-equal output files
-     (the matcher's CUDA-against-CPU equality is held by the CPU tests).
+     (the matcher's CUDA-against-CPU equality is held by the CPU tests);
+     `bbmap` on its first 4,096 reads and 2,048 pairs.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -71,6 +82,35 @@ CHECK_READS = 20_000  # reads (pairs) of the CUDA-against-CPU comparison
 #: the overlapping ones (insert <= ~290) that are neither ambiguous nor
 #: too noisy; 0.6215 on the first 16,384 pairs (CPU run)
 MERGED_RANGE = (0.55, 0.70)
+#: the BBMap configuration: a seeded genome of the length of E. coli K-12
+#: MG1655 (no E. coli FASTA is in the repo), 151 bp reads with 1%
+#: substitutions and 1-10 bp indels in 10% of them, pairs from inserts of
+#: 200-500 bp
+ECOLI_LEN = 4_641_652
+MAP_READS = 200_000
+MAP_PAIRS = 50_000
+MAP_CHECK_READS = 4096  # one batch (batchreads default)
+MAP_CHECK_PAIRS = 2048
+#: mapped share predicted for reads drawn from the reference itself
+#: (PERF.md section 6, written before the first run); the CPU tests map
+#: 300 of 300 such reads on a 150 kb genome
+MAPPED_RANGE = (0.99, 1.0)
+#: share of mapped primary reads placed within 20 bp of their true start
+PLACED_MIN = 0.97
+
+# Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
+# white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
+# int32 outside the tensor cores at 132 SMs x 64 INT32 lanes x 1.98 GHz,
+# half the float32 rate of 67 TFLOP/s (128 FP32 lanes per SM)
+HBM_BYTES_S = 3.35e12
+INT8_TC_OPS_S = 1979e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+#: int32 operations per cell of the fill (csrc/msa_fill.cu): match and
+#: previous-match tests (6), the MS candidate and its streak cost (12),
+#: the DEL and INS candidates with their tiered costs (30), picks and
+#: selects (10), streak times (8), the prevState byte (5), barriers (9)
+#: and the time clamps and boundary (~0 to 9); some eighty
+B4_OPS_PER_CELL = 80
 
 
 def make_fastq(path: str, n: int, seed: int) -> int:
@@ -161,6 +201,31 @@ def make_pairs(paths: list[str], n: int, seed: int, lo: int, hi: int,
     return n
 
 
+def near_match_tasks(rng, S: int, R: int, Cc: int, lmin: int):
+    """Seeded fill tasks: each read a slice of its window with 3%
+    substitutions and one indel of up to 10 bases, a few N, code 4 past
+    each read's length (lengths lmin..R)."""
+    refs = rng.integers(0, 4, (S, Cc)).astype(np.uint8)
+    refs[rng.random((S, Cc)) < 0.003] = 4
+    lens = rng.integers(lmin, R + 1, S).astype(np.int32)
+    reads = np.full((S, R), 4, np.uint8)
+    for s in range(S):
+        n = int(lens[s])
+        start = int(rng.integers(0, max(Cc - n - 12, 1)))
+        src = refs[s, start : start + n + 12].copy()
+        p, k = int(rng.integers(0, max(n - 10, 1))), int(rng.integers(0, 11))
+        if s % 2:
+            src = np.concatenate([src[:p], src[p + k :]])
+        else:
+            src = np.concatenate([src[:p], rng.integers(0, 4, k).astype(np.uint8), src[p:]])
+        src = np.resize(src, n)
+        m = rng.random(n) < 0.03
+        src[m] = (src[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        src[rng.random(n) < 0.003] = 4
+        reads[s, :n] = src
+    return reads, lens, refs
+
+
 def head_fastq(src: str, dst: str, n: int):
     with gzip.open(src, "rb") as fi, gzip.open(dst, "wb", compresslevel=1) as fo:
         for _ in range(4 * n):
@@ -184,26 +249,46 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def compare(name: str, kernel, plain, reps: int = 20) -> dict:
+def compare(name: str, kernel, plain, reps: int = 20, plain_reps: int | None = None) -> dict:
     """Exact comparison of kernel() and plain() on the card, then timing
-    in turns (plain, kernel, kernel, plain)."""
+    in turns (plain, kernel, kernel, plain); `plain_reps` (default
+    `reps`) calls of the plain version per turn."""
+    plain_reps = plain_reps or reps
     import torch
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()) if got.numel() else 0
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name}: kernel differs from its plain version (max |diff| {err})")
-    p1 = cuda_ms(plain, reps)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = 0
+    for g, w in pairs:
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        if g.numel():
+            err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item()))
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: kernel differs from its plain version (max |diff| {err})")
+    n = sum(g.numel() for g in got) if isinstance(got, tuple) else got.numel()
+    p1 = cuda_ms(plain, plain_reps)
     k1 = cuda_ms(kernel, reps)
     k2 = cuda_ms(kernel, reps)
-    p2 = cuda_ms(plain, reps)
+    p2 = cuda_ms(plain, plain_reps)
     row = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-    print(f"{name}: n={got.numel()} exact=True kernel {row['ms']:.4f} ms "
+    print(f"{name}: n={n} exact=True kernel {row['ms']:.4f} ms "
           f"plain {row['plain_ms']:.4f} ms")
     return row
+
+
+def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_rate
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "ops": int(ops)}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
@@ -253,6 +338,8 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         hits = int((lane_index.lane_lookup(*args, q) > 0).sum().item())
         if hits == 0:
             raise AssertionError("B1: no query hit the adapter table")
+        # per query: the hash (9 int32 operations) and one probed slot (5)
+        r.update(bound(nbytes(q, *tbl) + 4 * q.numel(), 14 * q.numel(), INT32_OPS_S))
         rows.append(r)
     b1 = {
         "name": "lane_lookup", "route": "cuda",
@@ -260,6 +347,8 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "replaces": "bbtools_tpu/ops/lane_index.py:244",
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+        "library_ms": None,
     }
 
     # B2: the cummax input of the first join chunk of config #1
@@ -268,6 +357,10 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     v, _, _ = sort_join.segment_words(skeys, ids32, q.reshape(-1)[: sort_join.CHUNK])
     r2 = compare(f"B2 cummax_i64 join chunk ({join.n} index rows)",
                  lambda: scan.cummax_i64(v), lambda: scan.cummax_plain(v))
+    # an int64 compare and select per element, two int32 operations each
+    r2.update(bound(2 * nbytes(v), 4 * v.numel(), INT32_OPS_S))
+    r2["library_ms"] = cuda_ms(lambda: torch.cummax(v, 0), 20)
+    print(f"B2 library torch.cummax int64: {r2['library_ms']:.4f} ms")
     gen = torch.Generator(device="cpu").manual_seed(7)
     for n in (1, 4095, 4096, 4097, 1_000_003):
         r = torch.randint(-(2**62), 2**62, (n,), generator=gen, dtype=torch.int64)
@@ -322,6 +415,10 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
                     lambda: mm_lookup(*table, *mm.static_params(), q),
                     lambda: mm_lookup_plain(*table, *mm.static_params(), q),
                     reps=3)
+        # one int8 multiply-add per (query, column, one-hot byte), at the
+        # int8 tensor-core rate
+        r.update(bound(nbytes(q, *table) + 4 * q.numel(),
+                       2 * q.numel() * mm.Dp * mm.Kp, INT8_TC_OPS_S))
         hits.append(int((mm_lookup(*table, *mm.static_params(), q) > 0).sum().item()))
         print(f"B3 mm_lookup {label}: {hits[-1]} of {q.numel()} queries hit "
               f"(Dp={mm.Dp})")
@@ -335,7 +432,8 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "replaces": "bbtools_tpu/ops/mm_match.py:386",
         "max_abs_err": max(r["max_abs_err"] for r in r3),
         "ms": sum(r["ms"] for r in r3), "plain_ms": sum(r["plain_ms"] for r in r3),
-        "Dp": mm.Dp, "queries": [q.numel() for q in sent], "hits": hits,
+        "bound_ms": sum(r["bound_ms"] for r in r3), "bound_by": r3[0]["bound_by"],
+        "library_ms": None, "Dp": mm.Dp, "queries": [q.numel() for q in sent], "hits": hits,
     }
 
     # B5 and B6 on one BBMerge batch: the insert scan, and the efilter's
@@ -353,6 +451,11 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
                  lambda: torch.stack(overlap_counts(a, b_rc, al, bl, min0, D)),
                  lambda: torch.stack(overlap_counts_plain(a, b_rc, al, bl, min0, D)),
                  reps=5)
+    # per overlapped position: a code compare, an N test and two counts
+    olen = overlap_counts_plain(a, b_rc, al, bl, min0, D)[2]
+    r5.update(bound(nbytes(a, b_rc, al, bl) + 3 * 4 * a.shape[0] * D,
+                    4 * int(olen.sum().item()), INT32_OPS_S))
+    r5["library_ms"] = None
     b5 = {
         "name": "overlap_scan", "route": "cuda",
         "source": "bbtools_torch/csrc/overlap_scan.cu",
@@ -365,6 +468,11 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     r6 = compare(f"B6 lane_table (pc4, {tuple(qidx.shape)} phred)",
                  lambda: lane_table.lookup(pc4t, qidx).view(torch.int32),
                  lambda: lane_table.lookup_plain(pc4t, qidx).view(torch.int32))
+    # a range test and a select per index
+    r6.update(bound(nbytes(pc4t, qidx) + 4 * qidx.numel(), 2 * qidx.numel(), INT32_OPS_S))
+    flat = pc4t.reshape(-1)
+    r6["library_ms"] = cuda_ms(lambda: flat[qidx], 20)
+    print(f"B6 library table[idx]: {r6['library_ms']:.4f} ms")
     b6 = {
         "name": "lane_table", "route": "cuda",
         "source": "bbtools_torch/csrc/lane_table.cu",
@@ -374,8 +482,72 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     return [b1, b2, b3, b5, b6]
 
 
+def check_msa_fill(ref_fa: str, batch_fq: str) -> dict:
+    """B4 against its plain version on three task sets: the window-class
+    0 and class 3 tasks that the port's fused phase prepares for one
+    4,096-read batch (`batch_fq` holds exactly that batch; 128 synthetic
+    class-3 tasks if the batch gives none), and 4,096 synthetic tasks of
+    mixed lengths at R=250. Every output is compared, plane bytes too."""
+    import torch
+
+    from bbtools_torch.models.bbmap import BBMap, parse_args
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+
+    dev = torch.device("cuda")
+    tool = BBMap(parse_args([f"ref={ref_fa}", f"in={batch_fq}", "device=cuda"]))
+    batch = list(tool._read_batches(batch_fq))[0]
+    lengths = batch.lengths.astype(np.int64)
+    B, L = batch.bases.shape
+    cand = tool.candidates_for_batch(batch.bases, lengths)
+    task = tool._build_tasks(batch.bases, lengths, cand[0], cand[2], cand[5])
+    prep = tool._fused_prep(B, L, cand[0], cand[3], cand[4], cand[5], cand[1], *task[:3])
+    extras = tool.cfg.window_extras
+    # each class's (reads, lens, refs), the last three of its arguments
+    by_wc = {wc: args[-3:] for (wc, _n), args in zip(prep["args"][3], prep["args"][9])}
+    print(f"B4 one batch of {B} reads (L={L}): tasks per window class "
+          + ", ".join(f"Cc={wc}: {t[0].shape[0]}" for wc, t in sorted(by_wc.items())))
+    rng = np.random.default_rng(4)
+
+    def synthetic(S, R, Cc, lmin):
+        return tuple(torch.from_numpy(x).to(dev) for x in near_match_tasks(rng, S, R, Cc, lmin))
+
+    c3 = L + extras[3]
+    sets = [("class 0 of one batch", by_wc[L + extras[0]])]
+    if c3 in by_wc:
+        sets.append(("class 3 of that batch", by_wc[c3]))
+    else:
+        sets.append(("class 3, 128 synthetic tasks", synthetic(128, L, c3, L)))
+    sets.append(("mixed lengths 100-250", synthetic(4096, 250, 274, 100)))
+    rows = []
+    for label, (reads, lens, refs) in sets:
+        S, R = reads.shape
+        Cc = refs.shape[1]
+        nd = R + Cc - 1
+        r = compare(f"B4 msa_fill {label} (S={S}, R={R}, Cc={Cc}, nd={nd})",
+                    lambda: msa_fill(reads, lens, refs),
+                    lambda: msa_fill_plain(reads, lens, refs), reps=5, plain_reps=1)
+        cells = S * nd * (R + 1)
+        r.update(bound(nbytes(reads, lens, refs) + 12 * S + cells, B4_OPS_PER_CELL * cells,
+                       INT32_OPS_S))
+        r.update(label=label, S=S, R=R, Cc=Cc, cells=cells,
+                 gcells_s=cells / r["ms"] / 1e6)
+        print(f"B4 {label}: {cells} cells, {r['gcells_s']:.2f} Gcells/s, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        rows.append(r)
+    del tool, prep
+    return {
+        "name": "msa_fill", "route": "cuda",
+        "source": "bbtools_torch/csrc/msa_fill.cu",
+        "replaces": "bbtools_tpu/ops/msa_pallas.py:97",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+        "library_ms": None, "sets": rows,
+    }
+
+
 def counters():
-    from bbtools_torch.ops import lane_index, lane_table, mm_match, overlap_scan, scan
+    from bbtools_torch.ops import lane_index, lane_table, mm_match, msa_fill, overlap_scan, scan
 
     return {
         "lane_lookup": lane_index.lane_lookup,
@@ -383,6 +555,7 @@ def counters():
         "mm_lookup": mm_match.mm_lookup,
         "overlap_scan": overlap_scan.overlap_counts,
         "lane_table": lane_table.lookup,
+        "msa_fill": msa_fill.msa_fill,
     }
 
 
@@ -432,6 +605,38 @@ def run_bbmerge(fin: list[str], work: str, tag: str, device: str):
     return outs, time.perf_counter() - t0, err.getvalue()
 
 
+def run_bbmap(args: list[str], device: str):
+    """`bbmap` through the CLI's dispatch; returns the tool (its counters)
+    and the wall seconds."""
+    from bbtools_torch.cli import TOOLS
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        tool = TOOLS["bbmap"]([*args, f"device={device}"])
+    return tool, time.perf_counter() - t0
+
+
+def placed_share(sam: str) -> tuple[int, float]:
+    """(mapped primary records, the share of them whose POS lies within
+    20 bp of the read's true start, which synth writes into its name)."""
+    from bbtools_torch.utils.synth import parse_truth
+
+    mapped = placed = 0
+    with open(sam, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"@"):
+                continue
+            f = line.split(b"\t", 4)
+            flag = int(f[1])
+            if flag & 0x904 or not f[0].startswith(b"r"):
+                continue
+            mapped += 1
+            _scaf, pos, _strand = parse_truth(f[0])
+            placed += abs(int(f[3]) - 1 - pos) <= 20
+    return mapped, placed / max(mapped, 1)
+
+
 def read_all(paths) -> list[bytes]:
     out = []
     for p in paths:
@@ -442,8 +647,10 @@ def read_all(paths) -> list[bytes]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reads", type=int, default=1_000_000)
-    ap.add_argument("--pairs", type=int, default=1_000_000)
+    ap.add_argument("--reads", type=int, default=500_000)
+    ap.add_argument("--pairs", type=int, default=300_000)
+    ap.add_argument("--map-reads", type=int, default=MAP_READS)
+    ap.add_argument("--map-pairs", type=int, default=MAP_PAIRS)
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args(argv)
 
@@ -503,8 +710,41 @@ def main(argv=None) -> int:
         mm_reads = min(MM_READS, args.reads)
         mm_in = os.path.join(work, "head_mm.fq.gz")
         head_fastq(fq, mm_in, mm_reads)
+
+        # BBMap's inputs: the genome, 151 bp reads, pairs; the heads of
+        # the CUDA-against-CPU comparison
+        from bbtools_torch.io.fasta import load_reference as load_fasta
+        from bbtools_torch.io.fasta import write_fasta
+        from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+        t0 = time.perf_counter()
+        ref_fa = os.path.join(work, "ecoli_len.fa")
+        write_fasta(ref_fa, random_genome(ECOLI_LEN, seed=args.seed))
+        genome = load_fasta(ref_fa)
+        map_fq = os.path.join(work, "map.fq.gz")
+        write_reads(map_fq, random_reads(genome, args.map_reads, read_len=151,
+                                         snp_rate=0.01, indel_rate=0.1,
+                                         indel_range=(1, 10), seed=args.seed + 3))
+        pairs = random_reads(genome, args.map_pairs, read_len=151, paired=True,
+                             insert_range=(200, 500), snp_rate=0.01, indel_rate=0.1,
+                             indel_range=(1, 10), seed=args.seed + 4)
+        map_pe = [os.path.join(work, f"map_{m}.fq.gz") for m in (1, 2)]
+        for m in (0, 1):
+            write_reads(map_pe[m], [p[m] for p in pairs])
+        del pairs
+        map_small = os.path.join(work, "map_head.fq.gz")
+        head_fastq(map_fq, map_small, MAP_CHECK_READS)
+        map_small_pe = [os.path.join(work, f"map_head_{m}.fq.gz") for m in (1, 2)]
+        for m in (0, 1):
+            head_fastq(map_pe[m], map_small_pe[m], MAP_CHECK_PAIRS)
+        print(f"bbmap input: genome of {ECOLI_LEN} bp (seeded), {args.map_reads} reads "
+              f"and {args.map_pairs} pairs of 151 bp; made in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
         kernels = check_kernels(small, *small_pairs)
-        print(f"kernel timings on: {card}")
+        kernels.insert(3, check_msa_fill(ref_fa, map_small))
+        print(f"kernel timings on: {card}; kernel phase {time.perf_counter() - t0:.1f} s")
 
         # ---- the BBDuk paths, through the CLI ----
         needs = {"adapters_fa": ("cummax_i64",), "1adapter": ("lane_lookup",)}
@@ -570,6 +810,46 @@ def main(argv=None) -> int:
         print(f"bbmerge device=cuda: {args.pairs} pairs in {dt:.2f} s = "
               f"{args.pairs / dt:.0f} pairs/s, {2 * args.pairs / dt:.0f} reads/s "
               f"(wall, incl. IO) on {card}")
+
+        # ---- BBMap (B4), single end and paired ----
+        sam = os.path.join(work, "map.cuda.sam")
+        (tool, dt), got = run_path(
+            "bbmap", lambda: run_bbmap([f"ref={ref_fa}", f"in={map_fq}", f"out={sam}"],
+                                       "cuda"),
+            ("msa_fill",), launches)
+        share = tool.reads_mapped / max(tool.reads_in, 1)
+        mapped, placed = placed_share(sam)
+        print(f"bbmap index build (k=13, {ECOLI_LEN} bp): {tool.index_seconds:.2f} s")
+        print(f"bbmap device=cuda: {tool.reads_mapped} of {tool.reads_in} reads mapped "
+              f"({share:.4f}, expected {MAPPED_RANGE[0]}-{MAPPED_RANGE[1]}); "
+              f"{placed:.4f} of {mapped} placed within 20 bp of their origin")
+        print(f"bbmap device=cuda: {args.map_reads} reads in {dt:.2f} s = "
+              f"{args.map_reads / dt:.0f} reads/s (wall, incl. the index build and IO) "
+              f"on {card}")
+        print(f"bbmap B4 launches: {got['msa_fill']}; batches whose fused phase "
+              f"overflowed its walk cap and ran staged: {tool.fused_overflows}")
+        if tool.reads_in != args.map_reads or not MAPPED_RANGE[0] <= share <= MAPPED_RANGE[1]:
+            raise AssertionError(f"bbmap: {tool.reads_mapped} of {tool.reads_in} mapped")
+        if placed < PLACED_MIN:
+            raise AssertionError(f"bbmap: only {placed:.4f} of mapped reads placed")
+        pe_sam = os.path.join(work, "map_pe.cuda.sam")
+        (tool, dt), got = run_path(
+            "bbmap paired",
+            lambda: run_bbmap([f"ref={ref_fa}", f"in={map_pe[0]}", f"in2={map_pe[1]}",
+                               f"out={pe_sam}"], "cuda"),
+            ("msa_fill",), {})
+        share = tool.reads_mapped / max(tool.reads_in, 1)
+        mapped, placed = placed_share(pe_sam)
+        print(f"bbmap paired device=cuda: {tool.reads_mapped} of {tool.reads_in} reads "
+              f"mapped ({share:.4f}), {tool.rescued} mates rescued; {placed:.4f} of "
+              f"{mapped} placed within 20 bp; B4 launches {got['msa_fill']}, fused "
+              f"overflows {tool.fused_overflows}")
+        print(f"bbmap paired device=cuda: {args.map_pairs} pairs in {dt:.2f} s = "
+              f"{args.map_pairs / dt:.0f} pairs/s (wall) on {card}")
+        if tool.reads_in != 2 * args.map_pairs or not MAPPED_RANGE[0] <= share <= MAPPED_RANGE[1]:
+            raise AssertionError(f"bbmap paired: {tool.reads_mapped} of {tool.reads_in} mapped")
+        if placed < PLACED_MIN:
+            raise AssertionError(f"bbmap paired: only {placed:.4f} of mapped reads placed")
         for row in kernels:
             row["launches"] = launches[row["name"]]
 
@@ -590,6 +870,19 @@ def main(argv=None) -> int:
             raise AssertionError("bbmerge: cuda and cpu outputs differ")
         print(f"bbmerge: cuda == cpu on {CHECK_READS} pairs (merged "
               f"{len(files['cuda'][0])} bytes, unmerged and ihist equal)")
+        for name, ins, n in (("single end", [f"in={map_small}"], MAP_CHECK_READS),
+                             ("paired", [f"in={map_small_pe[0]}", f"in2={map_small_pe[1]}"],
+                              MAP_CHECK_PAIRS)):
+            files = {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(work, f"map_head.{device}.sam")
+                _, dt = run_bbmap([f"ref={ref_fa}", *ins, f"out={out}"], device)
+                files[device] = read_all([out])
+                print(f"bbmap {name} device={device}: {n} reads/pairs in {dt:.2f} s")
+            if files["cuda"] != files["cpu"]:
+                raise AssertionError(f"bbmap {name}: cuda and cpu SAM differ")
+            print(f"bbmap {name}: cuda == cpu on {n} reads/pairs "
+                  f"({len(files['cuda'][0])} SAM bytes)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

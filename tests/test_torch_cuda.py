@@ -293,3 +293,102 @@ def test_bbduk_mm_backend_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
         outs[dev] = (out.read_bytes(), st.read_bytes())
     assert outs["cuda"] == outs["cpu"]
     assert b"#Matched\t0\t" not in outs["cuda"][1]
+
+
+# ---------------------------------------------------------------------------
+# B4 msa_fill (the BBMap slice)
+# ---------------------------------------------------------------------------
+
+
+def _msa_tasks(rng, S, R, Cc, lmin):
+    """Seeded near-match fill tasks: each read is a slice of its window
+    with substitutions and one indel, some N in reads and windows, code 4
+    past each read's length."""
+    refs = rng.integers(0, 4, (S, Cc)).astype(np.uint8)
+    refs[rng.random((S, Cc)) < 0.003] = 4
+    lens = rng.integers(lmin, R + 1, S).astype(np.int32)
+    reads = np.full((S, R), 4, np.uint8)
+    for s in range(S):
+        n = int(lens[s])
+        start = int(rng.integers(0, max(Cc - n - 12, 1)))
+        src = refs[s, start : start + n + 12].copy()
+        p = int(rng.integers(0, max(n - 10, 1)))
+        cut = int(rng.integers(0, 11))
+        src = np.concatenate([src[:p], src[p + cut :]]) if s % 2 else np.concatenate(
+            [src[:p], rng.integers(0, 4, cut).astype(np.uint8), src[p:]])
+        src = np.resize(src, n) if len(src) < n else src[:n]
+        m = rng.random(n) < 0.03
+        src[m] = (src[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        src[rng.random(n) < 0.003] = 4
+        reads[s, :n] = src
+    return reads, lens, refs
+
+
+@pytest.mark.parametrize("S,R,Cc,lmin", [
+    (512, 256, 280, 140),  # window class 0 of a batch of 151 bp reads (L=256)
+    (64, 256, 2328, 140),  # window class 3 (L + 2072)
+    (256, 250, 274, 100),  # mixed lengths
+    (512, 151, 175, 151),  # class 0 of reads exactly as long as the batch
+    (3, 1, 1, 0), (7, 9, 4, 0), (5, 31, 33, 0),  # tiny and ragged
+    (4, 1100, 1130, 900),  # two rows per thread
+])
+def test_msa_fill_kernel_matches_plain(cuda, S, R, Cc, lmin):
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+
+    rng = np.random.default_rng(S + R + Cc)
+    reads, lens, refs = (torch.from_numpy(x).to(cuda)
+                         for x in _msa_tasks(rng, S, R, Cc, lmin))
+    before = msa_fill.launches
+    got = msa_fill(reads, lens, refs)
+    want = msa_fill_plain(reads, lens, refs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    assert msa_fill.launches == before + 1
+    if lmin >= 100:
+        assert int((got[1] >= 0).sum()) == S  # every task aligned
+
+
+def test_msa_fill_kernel_rejects_what_it_does_not_take(cuda):
+    from bbtools_torch.ops.msa_fill import msa_fill
+
+    r = torch.zeros((4, 10), dtype=torch.uint8, device=cuda)
+    n = torch.full((4,), 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        msa_fill(r.int(), n, r)
+    with pytest.raises(ValueError):
+        msa_fill(r, n.long(), r)
+    with pytest.raises(ValueError):
+        msa_fill(r, n, r[:, ::2])
+
+
+def test_bbmap_cuda_equals_cpu(cuda, tmp_path):
+    """512 seeded reads with SNPs and indels, single end and paired:
+    CUDA SAM byte-equal to the CPU's, with the fill kernel launched."""
+    from bbtools_torch.cli import main
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.ops.msa_fill import msa_fill
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(150_000, n_scaffolds=2, seed=7))
+    ref = load_reference(str(tmp_path / "ref.fa"))
+    write_reads(str(tmp_path / "r.fq"), random_reads(
+        ref, 512, read_len=151, snp_rate=0.01, indel_rate=0.1,
+        indel_range=(1, 10), seed=3))
+    pairs = random_reads(ref, 256, read_len=151, paired=True,
+                         insert_range=(200, 500), snp_rate=0.01, seed=4)
+    write_reads(str(tmp_path / "p1.fq"), [p[0] for p in pairs])
+    write_reads(str(tmp_path / "p2.fq"), [p[1] for p in pairs])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        before = msa_fill.launches
+        se, pe = tmp_path / f"{dev}.sam", tmp_path / f"{dev}.pe.sam"
+        main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}",
+              f"out={se}", f"device={dev}"])
+        main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'p1.fq'}",
+              f"in2={tmp_path / 'p2.fq'}", f"out={pe}", f"device={dev}"])
+        assert (msa_fill.launches > before) == (dev == "cuda")
+        outs[dev] = (se.read_bytes(), pe.read_bytes())
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cuda"][0].count(b"\n") > 512

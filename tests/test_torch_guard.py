@@ -56,6 +56,8 @@ COPIED_MODULES = [
     "io/readwrite.py", "io/fileformat.py", "io/bgzf.py", "io/batch.py",
     "io/fastq.py", "io/fasta.py", "ops/entropy.py", "ops/join.py",
     "utils/readstats.py", "native/__init__.py",
+    "ops/msa_constants.py", "ops/gaps.py", "io/sam.py", "io/sam_read.py",
+    "io/bam.py", "utils/synth.py", "models/bbmap_index.py",
 ]
 
 
@@ -117,6 +119,25 @@ COPIED_FUNCTIONS = [
     ("models.bbmerge", "Preset"), ("models.bbmerge", "BBMerge.process_batch"),
     ("models.bbmerge", "BBMerge.write_ihist"), ("models.bbmerge", "BBMerge.print_stats"),
     ("models.bbmerge", "_rc_batch"), ("models.bbmerge", "_rev_quals"),
+    ("ops.msa", "col0_scores"), ("ops.msa", "match_strings_np"),
+    ("ops.score_ungapped", "score_no_indels_np"),
+    ("models.bbmap", "max_quality"), ("models.bbmap", "MapResult"),
+    ("models.bbmap", "BBMap.seed_offsets"), ("models.bbmap", "BBMap._seed_slots"),
+    ("models.bbmap", "BBMap.candidates_for_batch"), ("models.bbmap", "BBMap._build_tasks"),
+    ("models.bbmap", "BBMap._finalize_batch"), ("models.bbmap", "BBMap._stitch_gapped"),
+    ("models.bbmap", "BBMap._tally_match"), ("models.bbmap", "BBMap._write_hists"),
+    ("models.bbmap", "BBMap._padded_ref"), ("models.bbmap", "BBMap._ref_windows"),
+    ("models.bbmap", "BBMap._read_batches"), ("models.bbmap", "BBMap._mark_blacklisted"),
+    ("models.bbmap", "BBMap._scafstats_add"), ("models.bbmap", "BBMap._write_scafstats"),
+    ("models.bbmap", "BBMap._load_or_build_index"),
+    ("models.bbmap", "BBMap.pair_site_scores"), ("models.bbmap", "BBMap.to_sam_paired"),
+    ("models.bbmap", "BBMap.to_sam"), ("models.bbmap", "BBMap.print_stats"),
+    ("models.bbmap", "score_match_bytes"), ("models.bbmap", "to_local_match"),
+    ("models.bbmap", "dels_to_introns"), ("models.bbmap", "_reflen"),
+    ("models.bbmap", "_nm"), ("models.bbmap", "min_score_for"),
+    ("models.bbmap", "clearzone_for"), ("models.bbmap", "_cz3_fraction"),
+    ("models.bbmap", "apply_clearzone3"), ("models.bbmap", "tip_score_penalty"),
+    ("models.bbmap", "load_ref"), ("models.bbmap", "main"),
 ]
 
 
@@ -142,6 +163,10 @@ def test_cuda_request_without_cuda_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         BBDuk(parse_args(["literal=ACGTACGTACGTACGTACGTACGTA", "k=23"]))
+    from bbtools_torch.models import bbmap
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        bbmap.BBMap(bbmap.parse_args(["ref=ref.fa", "in=r.fq", "device=cuda"]))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -150,6 +175,7 @@ def test_wrappers_run_no_plain_version_off_the_cpu():
     from bbtools_torch.ops import lane_table
     from bbtools_torch.ops.lane_index import lane_lookup
     from bbtools_torch.ops.mm_match import mm_lookup
+    from bbtools_torch.ops.msa_fill import msa_fill
     from bbtools_torch.ops.overlap_scan import overlap_counts
     from bbtools_torch.ops.scan import cummax_i64
 
@@ -166,13 +192,14 @@ def test_wrappers_run_no_plain_version_off_the_cpu():
         lambda: lane_table.lookup(t.float(), q.int()),
         lambda: overlap_counts(codes, codes, lens, lens, 5, 50),
         lambda: mm_lookup(key_words, prio, 23, 11, 128, 512, q),
+        lambda: msa_fill(codes, lens, codes),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="device"):
             call()
     assert lane_lookup.launches == 0 and cummax_i64.launches == 0
     assert lane_table.lookup.launches == 0 and overlap_counts.launches == 0
-    assert mm_lookup.launches == 0
+    assert mm_lookup.launches == 0 and msa_fill.launches == 0
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -193,6 +220,11 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     ("bbduk", "align=t", "A4"), ("bbduk", "profile=trace", "A9"),
     ("bbmerge", "extend2=20", "A3/A6"), ("bbmerge", "nn=t", "A5"),
     ("bbmerge", "tpshards=2", "A7"),
+    ("bbmap", "tpshards=2", "A7"), ("bbmap", "bloomfilter=t", "A6"),
+    ("bbmap", "covstats=c.txt", "A8"), ("bbmap", "basecov=b.txt", "A8"),
+    ("bbmap", "covhist=h.txt", "A8"), ("bbmap", "bincov=n.txt", "A8"),
+    ("mappacbio", "", "A4b"), ("bbmapskimmer", "", "A4b"),
+    ("mappacbioskimmer", "", "A4b"),
 ])
 def test_unported_flags_raise(tmp_path, tool, flag, item):
     from bbtools_torch.cli import main
@@ -201,7 +233,7 @@ def test_unported_flags_raise(tmp_path, tool, flag, item):
     fq.write_text("@r\nACGT\n+\nIIII\n")
     with pytest.raises(NotImplementedError, match=item):
         main([tool, f"in={fq}", "literal=ACGTACGTACGTACGTACGTACGTA", "k=23",
-              "device=cpu", flag])
+              "device=cpu", *([flag] if flag else [])])
 
 
 def test_native_codec_builds_under_concurrent_processes(tmp_path):
@@ -226,5 +258,5 @@ def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["bbmap", "in=x.fq"])
+        main(["tadpole", "in=x.fq"])
     assert main(["help"]) == 0
