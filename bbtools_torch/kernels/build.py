@@ -43,10 +43,14 @@ SIGNATURES = {
     "cummax_i64_tile": (),
     # idx, out, n, table, n_table, stream
     "lane_table": (_P, _P, _I64, _P, _I, _P),
+    # the same, then variant, stream
+    "lane_table_variant": (_P, _P, _I64, _P, _I, _I, _P),
     # a, b_rc, alens, blens, good, bad, olen, B, L, min0, D, stream
     "overlap_scan": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
     # keys, out, n, keyT, prio, Dp, k, mink, nc, Kp, stream
     "mm_lookup": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
+    # the same, then variant, stream
+    "mm_lookup_variant": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # reads, lens, refs, col0, out_s, out_c, out_st, planes, S, R, Cc, K,
     # stream
     "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),

@@ -23,16 +23,10 @@ _TRIED = False
 
 
 SOURCES = ("fastq_codec.c", "radix_count.c")
-#: the C sources are shared with the JAX package: compiled from its
-#: directory by path, without importing that package
-SOURCE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "bbtools_tpu", "native",
-)
 
 
 def _build() -> str | None:
-    here = SOURCE_DIR
+    here = os.path.dirname(__file__)
     srcs = [os.path.join(here, s) for s in SOURCES]
     h = hashlib.sha256()
     for src in srcs:

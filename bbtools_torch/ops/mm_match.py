@@ -347,48 +347,85 @@ def mm_lookup_plain(key_words, prio, k: int, mink: int, Kp: int, Dp: int,
     return out.reshape(shape)
 
 
-def mm_lookup(key_words, prio, k: int, mink: int, Kp: int, Dp: int, query):
-    """ids for int64 canonical keys `query` (any shape) against the key
-    words int32 [Dp, Kp/4] and priority row prio int32 [1, Dp] of
-    `MMKmerIndex.device_arrays`.
-
-    CPU tensors run `mm_lookup_plain`; CUDA tensors launch the kernel of
-    csrc/mm_match.cu, which builds each query's one-hot from its key, or
-    raise."""
-    if query.device.type == "cpu":
-        return mm_lookup_plain(key_words, prio, k, mink, Kp, Dp, query)
-    if query.device.type != "cuda":
-        raise ValueError(f"mm_lookup: unsupported device {query.device}")
+def _checked(key_words, prio, k: int, mink: int, Kp: int, Dp: int, query,
+             name: str):
+    """Raise unless the kernel takes these arguments."""
     if query.dtype != torch.int64 or not query.is_contiguous():
-        raise ValueError("mm_lookup: query must be contiguous int64")
+        raise ValueError(f"{name}: query must be contiguous int64")
     nc = _n_classes(k, mink)
     if (key_words.device != query.device or key_words.dtype != torch.int32
             or tuple(key_words.shape) != (Dp, Kp // 4)
             or not key_words.is_contiguous()):
-        raise ValueError(f"mm_lookup: key_words must be a contiguous int32 "
+        raise ValueError(f"{name}: key_words must be a contiguous int32 "
                          f"[{Dp}, {Kp // 4}] tensor on {query.device}")
     if (prio.device != query.device or prio.dtype != torch.int32
             or tuple(prio.shape) != (1, Dp) or not prio.is_contiguous()):
-        raise ValueError(f"mm_lookup: prio must be a contiguous int32 "
+        raise ValueError(f"{name}: prio must be a contiguous int32 "
                          f"[1, {Dp}] tensor on {query.device}")
-    if Kp not in (128, 256) or 4 * k + nc + 1 > Kp or not 0 < k <= 31:
-        raise ValueError(f"mm_lookup: k={k}, mink={mink}, Kp={Kp} unsupported")
+    if (Kp not in (128, 256) or 4 * k + nc + 1 > Kp or not 0 < k <= 31
+            or Dp <= 0):
+        raise ValueError(f"{name}: k={k}, mink={mink}, Kp={Kp}, Dp={Dp} "
+                         "unsupported")
+
+
+def _launch(entry: str, key_words, prio, k, mink, Kp, Dp, query, *extra):
     out = torch.empty(query.shape, dtype=torch.int32, device=query.device)
     n = query.numel()
     if n == 0:
         return out
     from ..kernels.build import check, library
 
-    lib = library()
+    fn = getattr(library(), entry)
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = lib.mm_lookup(query.data_ptr(), out.data_ptr(), n,
-                           key_words.data_ptr(), prio.data_ptr(), Dp, k, mink,
-                           nc, Kp, ctypes.c_void_p(stream))
-    check(rc, "mm_lookup")
-    mm_lookup.launches += 1
+        rc = fn(query.data_ptr(), out.data_ptr(), n, key_words.data_ptr(),
+                prio.data_ptr(), Dp, k, mink, _n_classes(k, mink), Kp, *extra,
+                ctypes.c_void_p(stream))
+    check(rc, entry)
+    return out
+
+
+def mm_lookup(key_words, prio, k: int, mink: int, Kp: int, Dp: int, query):
+    """ids for int64 canonical keys `query` (any shape) against the key
+    words int32 [Dp, Kp/4] and priority row prio int32 [1, Dp] of
+    `MMKmerIndex.device_arrays`.
+
+    CPU tensors run `mm_lookup_plain`; CUDA tensors launch the kernel of
+    csrc/mm_match.cu (wgmma's int8 product with the one-hot built in
+    registers from each key), or raise."""
+    if query.device.type == "cpu":
+        return mm_lookup_plain(key_words, prio, k, mink, Kp, Dp, query)
+    if query.device.type != "cuda":
+        raise ValueError(f"mm_lookup: unsupported device {query.device}")
+    _checked(key_words, prio, k, mink, Kp, Dp, query, "mm_lookup")
+    out = _launch("mm_lookup", key_words, prio, k, mink, Kp, Dp, query)
+    if query.numel():
+        mm_lookup.launches += 1
     return out
 
 
 #: kernel launches since the count was last set to 0
 mm_lookup.launches = 0
+
+#: measurement variants of csrc/mm_match.cu (`mm_lookup_variant`): the
+#: main kernel; its max-only epilogue (out = each query's max score) and
+#: one-column epilogue (out = a sum of scores), which split product from
+#: epilogue; the main kernel at half the query tile; the original dp4a
+#: kernel
+VARIANTS = {"main": 0, "max_only": 1, "one_column": 2, "half_tile": 3,
+            "dp4a": 4}
+#: the variants that compute the lookup itself
+LOOKUP_VARIANTS = ("main", "half_tile", "dp4a")
+
+
+def mm_lookup_variant(variant: str, key_words, prio, k: int, mink: int,
+                      Kp: int, Dp: int, query):
+    """One of VARIANTS on CUDA tensors, for timing beside `mm_lookup`;
+    LOOKUP_VARIANTS compute the lookup itself. No path of the port calls
+    it, and it does not count in `mm_lookup.launches`."""
+    if query.device.type != "cuda":
+        raise ValueError(f"mm_lookup_variant: needs a CUDA tensor, not "
+                         f"{query.device}")
+    _checked(key_words, prio, k, mink, Kp, Dp, query, "mm_lookup_variant")
+    return _launch("mm_lookup_variant", key_words, prio, k, mink, Kp, Dp,
+                   query, VARIANTS[variant])

@@ -19,7 +19,14 @@ From the root of a checkout, on a machine with a CUDA card:
      R=250); each kernel's row carries its bound (bytes over the memory
      rate or operations over the card's rate for their type, the larger)
      and the time of one PyTorch call computing the same function where
-     there is one;
+     there is one; kernels of microseconds (B1, B2, B5, B6) and their
+     library calls are timed in a CUDA graph, so the time is the card's
+     and not the wrapper's; B3 is also timed, on the same keys and in
+     turns, as the original dp4a kernel, with a max-only and a one-column
+     epilogue (the product alone) and at half its query tile; B6, its
+     original kernel and `table[idx]` are timed in turns in a graph on
+     the same indices (L2-warm) and cycling through copies of them that
+     overflow the L2 (cold, the time its HBM bound is held against);
   4. drives each path through the CLI entry point on device=cuda with
      every launch counter set to 0 just before it and read just after:
      `bbduk` over a seeded gzipped FASTQ of N reads (500,000 by
@@ -249,10 +256,51 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def compare(name: str, kernel, plain, reps: int = 20, plain_reps: int | None = None) -> dict:
+def graph_ms(fn, reps: int = 50, inputs=None) -> float:
+    """Mean device milliseconds of fn() with the host's per-call cost out
+    of the way: `reps` calls captured in one CUDA graph, replayed once to
+    warm up and once under CUDA events. For kernels of microseconds,
+    whose back-to-back calls (cuda_ms) measure the wrapper's Python.
+
+    With `inputs`, fn takes one argument and the calls cycle through
+    them, each call's output kept to the end of the replay: inputs and
+    outputs larger together than the L2 (50 MB) make each call read and
+    write HBM, the traffic its bound by bytes counts."""
+    import torch
+
+    def call(i):
+        return fn(inputs[i % len(inputs)]) if inputs else fn()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kept = []
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            out = call(i)
+            if inputs:
+                kept.append(out)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def compare(name: str, kernel, plain, reps: int = 20, plain_reps: int | None = None,
+            graph: bool = False) -> dict:
     """Exact comparison of kernel() and plain() on the card, then timing
     in turns (plain, kernel, kernel, plain); `plain_reps` (default
-    `reps`) calls of the plain version per turn."""
+    `reps`) calls of the plain version per turn. With `graph`, the
+    kernel's `ms` is its time in a CUDA graph (graph_ms) and its
+    back-to-back time is kept as `eager_ms`."""
     plain_reps = plain_reps or reps
     import torch
 
@@ -273,9 +321,40 @@ def compare(name: str, kernel, plain, reps: int = 20, plain_reps: int | None = N
     k2 = cuda_ms(kernel, reps)
     p2 = cuda_ms(plain, plain_reps)
     row = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-    print(f"{name}: n={n} exact=True kernel {row['ms']:.4f} ms "
-          f"plain {row['plain_ms']:.4f} ms")
+    if graph:
+        row["eager_ms"] = row["ms"]
+        row["ms"] = graph_ms(kernel)
+    print(f"{name}: n={n} exact=True kernel {row['ms']:.4f} ms"
+          + (f" in a graph ({row['eager_ms']:.4f} ms back to back)" if graph else "")
+          + f", plain {row['plain_ms']:.4f} ms")
     return row
+
+
+#: B3's measurement variants (bbtools_torch.ops.mm_match.VARIANTS), each
+#: timed on the main path's keys in turns with the main kernel
+MM_VARIANTS = ("main", "dp4a", "max_only", "one_column", "half_tile")
+
+
+def mm_variants(label: str, args) -> dict:
+    """B3's variants on one key set: those that compute the lookup held
+    equal to the main kernel; then each timed twice, in the order of
+    MM_VARIANTS and back."""
+    import torch
+
+    from bbtools_torch.ops.mm_match import LOOKUP_VARIANTS, mm_lookup, mm_lookup_variant
+
+    want = mm_lookup(*args)
+    for name in LOOKUP_VARIANTS:
+        if not torch.equal(mm_lookup_variant(name, *args), want):
+            raise AssertionError(f"B3 {label}: the {name} variant differs")
+    ms = {v: [] for v in MM_VARIANTS}
+    for order in (MM_VARIANTS, MM_VARIANTS[::-1]):
+        for v in order:
+            reps = 2 if v == "dp4a" else 5
+            ms[v].append(cuda_ms(lambda: mm_lookup_variant(v, *args), reps))
+    out = {v: sum(t) / len(t) for v, t in ms.items()}
+    print(f"B3 {label} variants (ms): " + ", ".join(f"{v} {t:.4f}" for v, t in out.items()))
+    return out
 
 
 def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
@@ -300,7 +379,8 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     from bbtools_torch.ops import bbduk_scan, lane_index, lane_table, scan, sort_join
     from bbtools_torch.ops.bbduk_scan import KScanConfig, canonical_keys, kscan_combined
     from bbtools_torch.ops.kmers import rolling_kmers
-    from bbtools_torch.ops.mm_match import MMKmerIndex, mm_lookup, mm_lookup_plain
+    from bbtools_torch.ops.mm_match import (MMKmerIndex, mm_lookup, mm_lookup_plain,
+                                            mm_lookup_variant)
     from bbtools_torch.ops.overlap import PROB_CORRECT4
     from bbtools_torch.ops.overlap_scan import overlap_counts, overlap_counts_plain
 
@@ -333,7 +413,7 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         r = compare(
             f"B1 lane_lookup {label} ({idx.groups}x{idx.slots} slots)",
             lambda: lane_index.lane_lookup(*args, q),
-            lambda: lane_index.lookup_plain(*args, q),
+            lambda: lane_index.lookup_plain(*args, q), graph=True,
         )
         hits = int((lane_index.lane_lookup(*args, q) > 0).sum().item())
         if hits == 0:
@@ -345,6 +425,7 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "name": "lane_lookup", "route": "cuda",
         "source": "bbtools_torch/csrc/lane_lookup.cu",
         "replaces": "bbtools_tpu/ops/lane_index.py:244",
+        "redesigned": False,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
         "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
@@ -356,11 +437,13 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     skeys, ids32 = join.device_arrays(dev)
     v, _, _ = sort_join.segment_words(skeys, ids32, q.reshape(-1)[: sort_join.CHUNK])
     r2 = compare(f"B2 cummax_i64 join chunk ({join.n} index rows)",
-                 lambda: scan.cummax_i64(v), lambda: scan.cummax_plain(v))
+                 lambda: scan.cummax_i64(v), lambda: scan.cummax_plain(v), graph=True)
     # an int64 compare and select per element, two int32 operations each
     r2.update(bound(2 * nbytes(v), 4 * v.numel(), INT32_OPS_S))
-    r2["library_ms"] = cuda_ms(lambda: torch.cummax(v, 0), 20)
-    print(f"B2 library torch.cummax int64: {r2['library_ms']:.4f} ms")
+    r2["library_ms"] = graph_ms(lambda: torch.cummax(v, 0))
+    r2["library_eager_ms"] = cuda_ms(lambda: torch.cummax(v, 0), 20)
+    print(f"B2 library torch.cummax int64: {r2['library_ms']:.4f} ms in a graph "
+          f"({r2['library_eager_ms']:.4f} ms back to back)")
     gen = torch.Generator(device="cpu").manual_seed(7)
     for n in (1, 4095, 4096, 4097, 1_000_003):
         r = torch.randint(-(2**62), 2**62, (n,), generator=gen, dtype=torch.int64)
@@ -375,6 +458,7 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "name": "cummax_i64", "route": "cuda",
         "source": "bbtools_torch/csrc/cummax_i64.cu",
         "replaces": "bbtools_tpu/ops/scan_pallas.py:49",
+        "redesigned": False,
         **r2,
     }
 
@@ -410,20 +494,20 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         raise AssertionError(f"B3: the scans sent {len(sent)} key sets, not 2")
     r3, hits = [], []
     for label, q in zip(("full-k", "short-k end"), sent):
+        args = (*table, *mm.static_params(), q)
         r = compare(f"B3 mm_lookup {label} keys {tuple(q.shape)} ({mm.n_raw} "
                     f"raw keys, Kp={mm.Kp}, Dp={mm.Dp})",
-                    lambda: mm_lookup(*table, *mm.static_params(), q),
-                    lambda: mm_lookup_plain(*table, *mm.static_params(), q),
-                    reps=3)
+                    lambda: mm_lookup(*args), lambda: mm_lookup_plain(*args), reps=3)
         # one int8 multiply-add per (query, column, one-hot byte), at the
         # int8 tensor-core rate
         r.update(bound(nbytes(q, *table) + 4 * q.numel(),
                        2 * q.numel() * mm.Dp * mm.Kp, INT8_TC_OPS_S))
-        hits.append(int((mm_lookup(*table, *mm.static_params(), q) > 0).sum().item()))
+        hits.append(int((mm_lookup(*args) > 0).sum().item()))
         print(f"B3 mm_lookup {label}: {hits[-1]} of {q.numel()} queries hit "
               f"(Dp={mm.Dp})")
         if hits[-1] == 0:
             raise AssertionError(f"B3: no {label} query hit the matcher")
+        r["variants_ms"] = mm_variants(label, args)
         r3.append(r)
     # one batch of the main path makes both calls
     b3 = {
@@ -433,8 +517,17 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "max_abs_err": max(r["max_abs_err"] for r in r3),
         "ms": sum(r["ms"] for r in r3), "plain_ms": sum(r["plain_ms"] for r in r3),
         "bound_ms": sum(r["bound_ms"] for r in r3), "bound_by": r3[0]["bound_by"],
-        "library_ms": None, "Dp": mm.Dp, "queries": [q.numel() for q in sent], "hits": hits,
+        "library_ms": None, "redesigned": True,
+        "variants_ms": {v: sum(r["variants_ms"][v] for r in r3) for v in MM_VARIANTS},
+        "Dp": mm.Dp, "queries": [q.numel() for q in sent], "hits": hits,
     }
+    v = b3["variants_ms"]
+    print(f"B3 one batch (both calls): kernel {b3['ms']:.4f} ms, bound "
+          f"{b3['bound_ms']:.4f} ms ({b3['bound_ms'] / b3['ms']:.3f} of it); in turns "
+          f"in this call: main {v['main']:.4f} ms, the original dp4a kernel {v['dp4a']:.4f} ms "
+          f"({v['dp4a'] / v['main']:.2f}x); max-only epilogue {v['max_only']:.4f} ms, "
+          f"one-column epilogue {v['one_column']:.4f} ms; half the query tile "
+          f"{v['half_tile']:.4f} ms")
 
     # B5 and B6 on one BBMerge batch: the insert scan, and the efilter's
     # probCorrect4 lookup of r1's quality plane
@@ -450,7 +543,7 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     r5 = compare(f"B5 overlap_scan ({a.shape[0]} pairs, L={a.shape[1]}, D={D})",
                  lambda: torch.stack(overlap_counts(a, b_rc, al, bl, min0, D)),
                  lambda: torch.stack(overlap_counts_plain(a, b_rc, al, bl, min0, D)),
-                 reps=5)
+                 reps=5, graph=True)
     # per overlapped position: a code compare, an N test and two counts
     olen = overlap_counts_plain(a, b_rc, al, bl, min0, D)[2]
     r5.update(bound(nbytes(a, b_rc, al, bl) + 3 * 4 * a.shape[0] * D,
@@ -460,6 +553,7 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "name": "overlap_scan", "route": "cuda",
         "source": "bbtools_torch/csrc/overlap_scan.cu",
         "replaces": "bbtools_tpu/ops/overlap_pallas.py:40",
+        "redesigned": False,
         **r5,
     }
     pc4t = torch.from_numpy(lane_table.pack_table(PROB_CORRECT4)).to(dev)
@@ -467,19 +561,62 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     qidx = qidx.contiguous()
     r6 = compare(f"B6 lane_table (pc4, {tuple(qidx.shape)} phred)",
                  lambda: lane_table.lookup(pc4t, qidx).view(torch.int32),
-                 lambda: lane_table.lookup_plain(pc4t, qidx).view(torch.int32))
+                 lambda: lane_table.lookup_plain(pc4t, qidx).view(torch.int32), graph=True)
     # a range test and a select per index
     r6.update(bound(nbytes(pc4t, qidx) + 4 * qidx.numel(), 2 * qidx.numel(), INT32_OPS_S))
-    flat = pc4t.reshape(-1)
-    r6["library_ms"] = cuda_ms(lambda: flat[qidx], 20)
-    print(f"B6 library table[idx]: {r6['library_ms']:.4f} ms")
+    r6.update(b6_timings(pc4t, qidx, r6["bound_ms"]))
+    # the same indices one element off 16-byte alignment, and one more
+    for shift, extra in ((1, 0), (0, 1)):
+        buf = torch.zeros(qidx.numel() + shift + extra, dtype=torch.int32, device=dev)
+        view = buf[shift:]
+        view[: qidx.numel()] = qidx.reshape(-1)
+        if not torch.equal(lane_table.lookup(pc4t, view), lane_table.lookup_plain(pc4t, view)):
+            raise AssertionError(f"B6: an index view at offset {shift}, n={view.numel()} differs")
+    print("B6 lane_table at a 4-byte offset and at n + 1: exact=True")
     b6 = {
         "name": "lane_table", "route": "cuda",
         "source": "bbtools_torch/csrc/lane_table.cu",
         "replaces": "bbtools_tpu/ops/lane_table.py:27",
-        **r6,
+        "redesigned": True, **r6,
     }
     return [b1, b2, b3, b5, b6]
+
+
+#: B6's timed functions: the kernel, its original kernel (a measurement
+#: variant) and one PyTorch call computing the same function
+B6_TIMED = ("main", "scalar", "table[idx]")
+#: copies of B6's indices that the cold timing cycles through: with their
+#: outputs, 8 x 16.8 MB overflow the 50 MB L2, so each call reads HBM
+B6_COLD_COPIES = 8
+
+
+def b6_timings(pc4t, qidx, bound_ms: float) -> dict:
+    """B6, its original kernel and `table[idx]`, each timed in a CUDA
+    graph in turns (in the order of B6_TIMED and back): L2-warm (every
+    call on the same indices) and cold (cycling through B6_COLD_COPIES
+    copies, the outputs kept); and back to back. The kernel's `ms` and
+    `library_ms` are the cold times, the ones held against the HBM bound."""
+    from bbtools_torch.ops import lane_table
+
+    flat = pc4t.reshape(-1)
+    fns = {"main": lambda i: lane_table.lookup_variant("main", pc4t, i),
+           "scalar": lambda i: lane_table.lookup_variant("scalar", pc4t, i),
+           "table[idx]": lambda i: flat[i]}
+    copies = [qidx.clone() for _ in range(B6_COLD_COPIES)]
+    t = {f: {"warm": [], "cold": [], "eager": []} for f in B6_TIMED}
+    for order in (B6_TIMED, B6_TIMED[::-1]):
+        for f in order:
+            t[f]["warm"].append(graph_ms(lambda: fns[f](qidx)))
+            t[f]["cold"].append(graph_ms(fns[f], inputs=copies))
+            t[f]["eager"].append(cuda_ms(lambda: fns[f](qidx), 20))
+    ms = {f: {m: sum(v) / len(v) for m, v in d.items()} for f, d in t.items()}
+    for f, d in ms.items():
+        print(f"B6 {f}: cold {d['cold']:.4f} ms ({bound_ms / d['cold']:.3f} of the "
+              f"{bound_ms:.4f} ms HBM bound), L2-warm {d['warm']:.4f} ms, back to back "
+              f"{d['eager']:.4f} ms")
+    return {"ms": ms["main"]["cold"], "warm_ms": ms["main"]["warm"],
+            "eager_ms": ms["main"]["eager"], "library_ms": ms["table[idx]"]["cold"],
+            "variants_ms": ms}
 
 
 def check_msa_fill(ref_fa: str, batch_fq: str) -> dict:
@@ -539,6 +676,7 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> dict:
         "name": "msa_fill", "route": "cuda",
         "source": "bbtools_torch/csrc/msa_fill.cu",
         "replaces": "bbtools_tpu/ops/msa_pallas.py:97",
+        "redesigned": False,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
         "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],

@@ -173,6 +173,206 @@ def test_mm_kernel_matches_plain(cuda, k, mink, hdist):
     assert int((got > 0).sum()) > 1000
 
 
+def _kmer_key(codes):
+    """Canonical key of a k-mer of 2-bit codes, with its length tag."""
+    from bbtools_torch.ops import mm_match
+
+    ln = len(codes)
+    fwd = 0
+    for c in codes:
+        fwd = (fwd << 2) | int(c)
+    rc = int(mm_match.rc_kmer_np(np.array([fwd], np.int64), ln)[0])
+    return max(fwd, rc) | (1 << (2 * ln))
+
+
+def _mm_queries(rng, scafs, k, mink, n, mutate=2):
+    """n seeded queries: k-mers (and short k-mers when mink) of the
+    scaffolds with up to `mutate` substitutions, and random keys."""
+    q = []
+    for i in range(n):
+        if i % 4 == 3:
+            ln = k if not mink or i % 3 else int(rng.integers(mink, k))
+            q.append(_kmer_key(rng.integers(0, 4, ln)))
+            continue
+        s = scafs[int(rng.integers(0, len(scafs)))]
+        ln = k if (not mink or i % 3) else int(rng.integers(mink, k))
+        p = int(rng.integers(0, len(s) - ln + 1))
+        codes = s[p : p + ln].astype(np.int64).copy()
+        for _ in range(int(rng.integers(0, mutate + 1))):
+            codes[rng.integers(0, ln)] = rng.integers(0, 4)
+        q.append(_kmer_key(codes))
+    return np.asarray(q, np.int64)
+
+
+def _mm_check(idx, q_np, cuda, *, min_hits=0):
+    """The kernel against mm_lookup_plain and lookup_np, exactly, and one
+    launch counted."""
+    from bbtools_torch.ops import mm_match
+
+    km, pr = idx.device_arrays(cuda)
+    q = torch.from_numpy(q_np).to(cuda)
+    before = mm_match.mm_lookup.launches
+    got = mm_match.mm_lookup(km, pr, *idx.static_params(), q)
+    torch.cuda.synchronize()
+    assert mm_match.mm_lookup.launches == before + (q.numel() > 0)
+    want = mm_match.mm_lookup_plain(km, pr, *idx.static_params(), q)
+    assert torch.equal(got, want)
+    # the host oracle's int32 product is slow: the first 4,096 queries
+    np.testing.assert_array_equal(got[:4096].cpu().numpy(), idx.lookup_np(q_np[:4096]))
+    assert int((got > 0).sum()) >= min_hits
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 511, 513, 65_537])
+def test_mm_kernel_ragged_query_counts(cuda, n):
+    """Query counts that are not a multiple of the kernel's query tile."""
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(n)
+    scafs = [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(30)]
+    idx = mm_match.MMKmerIndex.build(scafs, 23, mink=11, hdist=2)
+    _mm_check(idx, _mm_queries(rng, scafs, 23, 11, n), cuda,
+              min_hits=min(1, n // 2))
+
+
+@pytest.mark.parametrize("k,mink,hdist", [(23, 11, 2), (31, 11, 1)])
+def test_mm_kernel_many_column_tiles(cuda, k, mink, hdist):
+    """A panel of >= 4,096 columns (many staged tiles), at Kp=128 and at
+    Kp=256 (k=31, mink=11)."""
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(k + 100)
+    scafs = [rng.integers(0, 4, 80).astype(np.uint8) for _ in range(45)]
+    idx = mm_match.MMKmerIndex.build(scafs, k, mink=mink, hdist=hdist)
+    assert idx.Dp >= 4096 and idx.Kp == (128 if k == 23 else 256)
+    _mm_check(idx, _mm_queries(rng, scafs, k, mink, 20_000), cuda, min_hits=5000)
+
+
+def test_mm_kernel_all_miss(cuda):
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(3)
+    scafs = [np.zeros(60, np.uint8) for _ in range(3)]  # poly-A panel
+    idx = mm_match.MMKmerIndex.build(scafs, 23, mink=11, hdist=2)
+    # keys with at most 11 A's of 23 bases: far from poly-A
+    codes = rng.integers(1, 4, (9000, 23))
+    codes[:, ::2] = rng.integers(0, 4, (9000, 12))
+    codes[:, 1::2] = rng.integers(1, 4, (9000, 11))
+    q = np.asarray([_kmer_key(c) for c in codes], np.int64)
+    got = _mm_check(idx, q, cuda)
+    assert int((got != 0).sum()) == 0
+
+
+def test_mm_kernel_first_inserted_id_wins(cuda):
+    """Queries within hamming distance of many columns: the id of the
+    first-inserted key wins."""
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(8)
+    base = rng.integers(0, 4, 40).astype(np.uint8)
+    scafs = []
+    for i in range(40):  # 40 scaffolds, each one substitution off the base
+        s = base.copy()
+        s[i] = (s[i] + 1 + i % 3) % 4
+        scafs.append(s)
+    idx = mm_match.MMKmerIndex.build(scafs, 23, mink=11, hdist=2)
+    q = np.asarray([_kmer_key(base[p : p + 23]) for p in range(18)] * 200, np.int64)
+    got = _mm_check(idx, q, cuda, min_hits=len(q))
+    # each base k-mer lies within one substitution of a k-mer of every
+    # scaffold; the first scaffold's keys were inserted first
+    assert bool((got == 1).all())
+
+
+def test_mm_kernel_permuted_columns(cuda):
+    """An index from `from_arrays` whose columns are out of priority
+    order (and one trimmed to a ragged Dp): the same ids."""
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(12)
+    scafs = [rng.integers(0, 4, 70).astype(np.uint8) for _ in range(25)]
+    idx = mm_match.MMKmerIndex.build(scafs, 23, mink=11, hdist=2)
+    q = _mm_queries(rng, scafs, 23, 11, 30_000)
+    want = mm_match.mm_lookup_plain(*idx.device_arrays("cpu"), *idx.static_params(),
+                                    torch.from_numpy(q)).numpy()
+    perm = rng.permutation(idx.Dp)
+    shuffled = mm_match.MMKmerIndex.from_arrays(
+        idx.keymat[:, perm], idx.prio[:, perm], idx.k, idx.mink, idx.n_raw)
+    np.testing.assert_array_equal(_mm_check(shuffled, q, cuda).cpu().numpy(), want)
+    real = int((idx.prio[0] != mm_match.BIG32).sum())
+    ragged = mm_match.MMKmerIndex.from_arrays(
+        idx.keymat[:, :real + 5], idx.prio[:, :real + 5], idx.k, idx.mink, idx.n_raw)
+    assert ragged.Dp % 128
+    np.testing.assert_array_equal(_mm_check(ragged, q, cuda).cpu().numpy(), want)
+
+
+def test_mm_variants_agree_and_do_not_count(cuda):
+    """The measurement variants that compute the lookup (twice the query
+    tile, the original dp4a kernel) equal the main kernel; the epilogue
+    variants give each query's max score and run; none counts as
+    a launch."""
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(2)
+    scafs = [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(30)]
+    idx = mm_match.MMKmerIndex.build(scafs, 23, mink=11, hdist=2)
+    km, pr = idx.device_arrays(cuda)
+    q = torch.from_numpy(_mm_queries(rng, scafs, 23, 11, 3001)).to(cuda)
+    args = (km, pr, *idx.static_params(), q)
+    main = mm_match.mm_lookup(*args)
+    before = mm_match.mm_lookup.launches
+    for name in mm_match.LOOKUP_VARIANTS:
+        assert torch.equal(mm_match.mm_lookup_variant(name, *args), main), name
+    # float64 is exact for these small integer products (|s| < 256)
+    oh = mm_match.query_onehot(q, idx.k, idx.mink, idx.Kp).double()
+    smax = (oh @ km.view(torch.int8).t().double()).amax(dim=1).to(torch.int32)
+    assert torch.equal(mm_match.mm_lookup_variant("max_only", *args), smax)
+    mm_match.mm_lookup_variant("one_column", *args)
+    torch.cuda.synchronize()
+    assert mm_match.mm_lookup.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 2_097_153])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_lane_table_kernel_ragged_and_offset_views(cuda, n, offset):
+    """Lengths around the 4-element vector and index views at 4-byte
+    offsets (not 16-byte aligned), against lookup_plain."""
+    from bbtools_torch.ops import lane_table
+
+    rng = np.random.default_rng(n + offset)
+    table = rng.standard_normal(128).astype(np.float32)
+    packed = torch.from_numpy(lane_table.pack_table(table)).to(cuda)
+    base = torch.from_numpy(rng.integers(-2, 131, n + offset).astype(np.int32)).to(cuda)
+    idx = base[offset:]
+    assert idx.is_contiguous() and idx.data_ptr() % 16 == 4 * offset % 16
+    before = lane_table.lookup.launches
+    got = lane_table.lookup(packed, idx)
+    torch.cuda.synchronize()
+    assert lane_table.lookup.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       lane_table.lookup_plain(packed, idx).view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 5, 2_097_153])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lane_table_variants_agree_and_do_not_count(cuda, n, offset):
+    """The original kernel, kept for timing, equals lookup_plain too, and
+    no variant counts as a launch."""
+    from bbtools_torch.ops import lane_table
+
+    rng = np.random.default_rng(n + offset)
+    table = rng.standard_normal(128).astype(np.float32)
+    packed = torch.from_numpy(lane_table.pack_table(table)).to(cuda)
+    base = torch.from_numpy(rng.integers(-2, 131, n + offset).astype(np.int32)).to(cuda)
+    idx = base[offset:]
+    want = lane_table.lookup_plain(packed, idx).view(torch.int32)
+    before = lane_table.lookup.launches
+    for name in lane_table.VARIANTS:
+        got = lane_table.lookup_variant(name, packed, idx)
+        assert torch.equal(got.view(torch.int32), want), name
+    torch.cuda.synchronize()
+    assert lane_table.lookup.launches == before
+
+
 def _pairs_fastq(path, n, seed, L=150, lo=100, hi=300):
     rng = np.random.default_rng(seed)
     comp = bytes.maketrans(b"ACGT", b"TGCA")

@@ -70,12 +70,7 @@ def test_copied_module_has_not_drifted(rel):
     # the reference tree, without the local mount point
     want = re.sub(r"\S*/reference/current/", "", want)
     if rel == "native/__init__.py":
-        # the port compiles the JAX package's C sources by path
-        want = want.replace("    here = os.path.dirname(__file__)\n",
-                            "    here = SOURCE_DIR\n")
-        start = port.index("#: the C sources are shared")
-        port = port[:start] + port[port.index(")\n", start) + 2:]
-        # ... and builds into a per-process temp name, so processes that
+        # the port builds into a per-process temp name, so processes that
         # build at the same moment do not collide
         build = '    try:\n        subprocess.run(\n'
         assert want.count(build) == 1 and want.count('cache + ".tmp"') == 2
@@ -83,6 +78,38 @@ def test_copied_module_has_not_drifted(rel):
             build, '    tmp = f"{cache}.{os.getpid()}.tmp"\n' + build
         ).replace('cache + ".tmp"', "tmp")
     assert port == want
+
+
+#: C sources the port copies byte for byte
+COPIED_C_SOURCES = ["native/fastq_codec.c", "native/radix_count.c"]
+
+
+@pytest.mark.parametrize("rel", COPIED_C_SOURCES)
+def test_copied_c_source_has_not_drifted(rel):
+    with open(os.path.join(REPO, "bbtools_tpu", rel), "rb") as fh:
+        src = fh.read()
+    with open(os.path.join(REPO, "bbtools_torch", rel), "rb") as fh:
+        assert fh.read() == src
+
+
+def test_native_build_reads_only_the_ports_sources(monkeypatch):
+    """The port's native build compiles the C files of its own package,
+    never the JAX package's."""
+    from bbtools_torch import native
+
+    calls = []
+    monkeypatch.setattr(native.tempfile, "gettempdir", lambda: "/nonexistent-dir")
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        raise OSError("no compiler in this test")
+
+    monkeypatch.setattr(native.subprocess, "run", fake_run)
+    assert native._build() is None
+    srcs = [a for a in calls[0] if a.endswith(".c")]
+    port_dir = os.path.join(REPO, "bbtools_torch", "native")
+    assert sorted(os.path.basename(s) for s in srcs) == sorted(native.SOURCES)
+    assert all(os.path.samefile(os.path.dirname(s), port_dir) for s in srcs)
 
 
 #: host functions the port copies into modules that also hold torch code

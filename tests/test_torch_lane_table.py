@@ -52,3 +52,30 @@ def test_out_of_range_reads_zero_as_the_tpu_kernel():
     got = tl.lookup(torch.from_numpy(packed), torch.from_numpy(idx)).numpy()
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     assert got[0, 0] == 0 and got[0, 4] == 0 and got[0, 2] == PROB_CORRECT4[59]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1029])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_ragged_lengths_and_offset_views_match_pallas(n, offset):
+    """Lengths around the kernel's 4-element vectors, and index views at
+    an element offset, on the plain version against the TPU kernel."""
+    packed = jl.pack_table(PROB_CORRECT4)
+    rng = np.random.default_rng(n + offset)
+    base = rng.integers(-2, 131, n + offset).astype(np.int32)
+    want = np.asarray(jl._lookup_pallas(jnp.asarray(packed),
+                                        jnp.asarray(base[offset:]), interpret=True))
+    view = torch.from_numpy(base)[offset:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    got = tl.lookup(torch.from_numpy(packed), view).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_variants_run_only_on_the_card():
+    """The kernel's measurement variants have no plain version: a CPU
+    tensor raises and counts no launch."""
+    packed = torch.from_numpy(jl.pack_table(PROB_CORRECT4))
+    before = tl.lookup.launches
+    for name in tl.VARIANTS:
+        with pytest.raises(ValueError, match="CUDA"):
+            tl.lookup_variant(name, packed, torch.zeros(8, dtype=torch.int32))
+    assert tl.lookup.launches == before

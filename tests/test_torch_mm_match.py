@@ -235,3 +235,45 @@ def test_backend_gate_order(monkeypatch):
     assert backend("hdist=1", "qhdist=1") is BucketKmerIndex
     assert backend("edist=1") is BucketKmerIndex
     assert backend("hdist=0") is SortJoinIndex  # 72 keys: under the cap
+
+
+@pytest.mark.parametrize("layout", ["permuted", "ragged"])
+def test_from_arrays_any_column_order_matches_jax(layout):
+    """An index over the JAX package's arrays with its columns permuted
+    out of priority order, or trimmed to a Dp that is no multiple of the
+    column tile: the port's lookup still equals the JAX package's oracle
+    and its XLA product on those arrays."""
+    cfg = CONFIGS["k23_mink11_h2"]
+    scafs = _panel(31, n_scafs=20, length=50)
+    jidx = jm.MMKmerIndex.build(scafs, **cfg)
+    rng = np.random.default_rng(31)
+    if layout == "permuted":
+        cols = rng.permutation(jidx.Dp)
+    else:
+        cols = np.arange(int((jidx.prio[0] != jm.BIG32).sum()) + 5)
+    km, pr = jidx.keymat[:, cols], jidx.prio[:, cols]
+    idx = tm.MMKmerIndex.from_arrays(km, pr, jidx.k, jidx.mink, jidx.n_raw)
+    assert (idx.Dp % 128 != 0) == (layout == "ragged")
+    q = _queries(scafs, 23, 11, 1500, seed=32)
+    want = jidx.lookup_np(q)
+    xla = np.asarray(jm.mm_lookup_jnp(jnp.asarray(km), jnp.asarray(pr),
+                                      *jidx.static_params()[:3], idx.Dp,
+                                      jnp.asarray(q)))
+    got = tm.mm_lookup(*idx.device_arrays(torch.device("cpu")),
+                       *idx.static_params(), torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, xla)
+    assert (got > 0).sum() > len(q) // 3
+
+
+def test_variants_run_only_on_the_card():
+    """The kernel's measurement variants have no plain version: a CPU
+    tensor raises and counts no launch."""
+    idx = tm.MMKmerIndex.build(_panel(4), 23, mink=11, hdist=1)
+    args = (*idx.device_arrays(torch.device("cpu")), *idx.static_params(),
+            torch.zeros(8, dtype=torch.int64))
+    before = tm.mm_lookup.launches
+    for name in tm.VARIANTS:
+        with pytest.raises(ValueError, match="CUDA"):
+            tm.mm_lookup_variant(name, *args)
+    assert tm.mm_lookup.launches == before
