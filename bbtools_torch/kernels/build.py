@@ -35,9 +35,12 @@ _I64 = ctypes.c_int64
 #: C entry points and their argument types (pointers and the stream as
 #: void*, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    # query, out, n, tlo, thi, tid, rows, slots, nb, shift, salt, packed, stream
+    # query, out, n, tlo, thi, tid, rows, slots, nb, shift, salt, packed,
+    # variant, stream
     "lane_lookup": (_P, _P, _I64, _P, _P, _P, _I, _I, _I, _I, ctypes.c_uint,
-                    _I, _P),
+                    _I, _I, _P),
+    # rows, nb, packed, &need, &limit
+    "lane_lookup_shared_bytes": (_I, _I, _I, _P, _P),
     # in, out, n, tile_max, stream
     "cummax_i64": (_P, _P, _I64, _P, _P),
     "cummax_i64_tile": (),
@@ -51,9 +54,10 @@ SIGNATURES = {
     "mm_lookup": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
     # the same, then variant, stream
     "mm_lookup_variant": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # reads, lens, refs, col0, out_s, out_c, out_st, planes, S, R, Cc, K,
-    # stream
-    "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    # reads, lens, refs, col0, out_s, out_c, out_st, planes, S, R, ldr, Cc,
+    # long_ids, n_long, variant, stream
+    "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _I64, _I,
+                 _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -614,9 +614,10 @@ class BBMap:
             bs, bc, bst, planes = msa_fill(
                 self._dev(sreads), slens_d, self._dev(srefs)
             )
-            # the walk over every DP task of the class, on the device;
-            # only the winners' rows come back (below)
-            ops_d, nst_d = msa_walk(L, Wc, planes, slens_d, bc, bst)
+            # the walk over every DP task of the class, on the device, over
+            # the R' rows the fill kept; only the winners' rows come back
+            # (below)
+            ops_d, nst_d = msa_walk(planes.shape[2] - 1, Wc, planes, slens_d, bc, bst)
             del planes
             dp_dev[c] = (bs, bc, bst, ops_d, nst_d)
             dp_planes[c] = (slens, sel, srefs, Wc)

@@ -12,10 +12,13 @@ Hash: 32-bit multiply-xor-multiply with a build-chosen salt; build
 retries salts (and then grows nb) until every bucket fits in `slots`
 entries.
 
-`lane_lookup` is the kernel wrapper: on a CUDA tensor it launches the
+`lane_lookup` is the kernel wrapper: on a CUDA tensor it launches a
 CUDA kernel of csrc/lane_lookup.cu (the counterpart of the TPU's
 `_lane_kernel`), on a CPU tensor it runs `lookup_plain`, the torch port
-of the JAX package's `_lookup_xla`.
+of the JAX package's `_lookup_xla`. Of the two kernels, a table that
+fits in a block's shared memory (the device's opt-in limit, 227 KB on an
+H100) takes the one that stages it there; a larger one takes the kernel
+that probes it in L2.
 """
 
 from __future__ import annotations
@@ -233,40 +236,83 @@ def lane_lookup(tlo, thi, tid, nb: int, groups: int, slots: int, rows: int,
                 salt: int, packed: bool, query):
     """Lane-table lookup, query int64 [...] -> id int32 [...].
 
-    CPU tensors run `lookup_plain`; CUDA tensors launch the kernel of
-    csrc/lane_lookup.cu, or raise."""
+    CPU tensors run `lookup_plain`; CUDA tensors launch a kernel of
+    csrc/lane_lookup.cu, or raise: the shared-memory kernel where the
+    table fits (`fits_shared`), else the L2 probe."""
     if query.device.type == "cpu":
         return lookup_plain(tlo, thi, tid, nb, groups, slots, rows, salt,
                             packed, query)
     if query.device.type != "cuda":
         raise ValueError(f"lane_lookup: unsupported device {query.device}")
+    shared = fits_shared(query.device, nb, slots, rows, packed)
+    out = _launch("lane_lookup", VARIANTS["shared" if shared else "scalar"], tlo, thi,
+                  tid, nb, groups, slots, rows, salt, packed, query)
+    if query.numel():
+        lane_lookup.launches += 1
+        lane_lookup.l2_launches += not shared
+    return out
+
+
+#: kernel launches since the counts were last set to 0; `l2_launches`
+#: counts those of the L2-probe kernel, for tables too large for shared
+#: memory
+lane_lookup.launches = 0
+lane_lookup.l2_launches = 0
+
+#: kernels of csrc/lane_lookup.cu: the shared-memory kernel, and the
+#: original kernel (one query per thread, probes in L2), which serves the
+#: tables too large for shared memory and is the measurement variant
+#: "scalar"
+VARIANTS = {"shared": 0, "scalar": 1}
+
+
+def fits_shared(device, nb: int, slots: int, rows: int, packed: bool) -> bool:
+    """Whether the table fits the shared-memory kernel on `device`: its
+    planes, its filter and a word per bucket within the opt-in limit of
+    one block."""
+    from ..kernels.build import check, library
+
+    need, limit = ctypes.c_int64(), ctypes.c_int()
+    with torch.cuda.device(device):
+        check(library().lane_lookup_shared_bytes(rows, nb, int(packed), ctypes.byref(need),
+                                                 ctypes.byref(limit)),
+              "lane_lookup_shared_bytes")
+    return need.value <= limit.value
+
+
+def lane_lookup_variant(variant: str, tlo, thi, tid, nb: int, groups: int, slots: int,
+                        rows: int, salt: int, packed: bool, query):
+    """One of VARIANTS on CUDA tensors, for timing beside `lane_lookup`.
+    No path of the port calls it, and it counts in no launch count."""
+    if query.device.type != "cuda":
+        raise ValueError(f"lane_lookup_variant: needs a CUDA tensor, not {query.device}")
+    return _launch("lane_lookup_variant", VARIANTS[variant], tlo, thi, tid, nb, groups,
+                   slots, rows, salt, packed, query)
+
+
+def _launch(name: str, variant: int, tlo, thi, tid, nb: int, groups: int, slots: int,
+            rows: int, salt: int, packed: bool, query):
     if query.dtype != torch.int64 or not query.is_contiguous():
-        raise ValueError("lane_lookup: query must be contiguous int64")
-    for t, name in ((tlo, "tlo"), (thi, "thi"), (tid, "tid")):
-        _check_table(t, query, name)
+        raise ValueError(f"{name}: query must be contiguous int64")
+    for t, tname in ((tlo, "tlo"), (thi, "thi"), (tid, "tid")):
+        _check_table(t, query, tname)
     if tlo.shape != (groups * rows, LANES) or thi.shape != tlo.shape:
-        raise ValueError(f"lane_lookup: tables of shape {tuple(tlo.shape)}")
+        raise ValueError(f"{name}: tables of shape {tuple(tlo.shape)}")
     if not packed and tid.shape != tlo.shape:
-        raise ValueError(f"lane_lookup: tid of shape {tuple(tid.shape)}")
+        raise ValueError(f"{name}: tid of shape {tuple(tid.shape)}")
     out = torch.empty(query.shape, dtype=torch.int32, device=query.device)
     n = query.numel()
     if n == 0:
         return out
     from ..kernels.build import check, library
 
-    lib = library()
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = lib.lane_lookup(
+        rc = library().lane_lookup(
             query.data_ptr(), out.data_ptr(), n, tlo.data_ptr(),
             thi.data_ptr(), tid.data_ptr(), rows, slots, nb,
-            32 - int(nb).bit_length() + 1, salt, int(packed),
+            32 - int(nb).bit_length() + 1, salt, int(packed), variant,
             ctypes.c_void_p(stream),
         )
-    check(rc, "lane_lookup")
-    lane_lookup.launches += 1
+    check(rc, name)
     return out
-
-
-#: kernel launches since the count was last set to 0
-lane_lookup.launches = 0

@@ -25,11 +25,15 @@ Differences from the JAX version, none of which reaches an output:
 - Each class walks exactly its winners, in ascending read order, and a
   class without winners walks nothing; JAX walks a padded set of
   min(wcap, Sc) lanes whose pad rows the host never reads.
+- The fill trims its rows to the class's longest read (R' <= L), so the
+  walk runs R'+Wc steps, not L+Wc; the walk has ended by then, and its
+  rows are padded with the zeros JAX's further steps write.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .msa import msa_walk
 from .msa_fill import msa_fill
@@ -128,11 +132,14 @@ def fused_map_step(L: int, W: int, K: int, cls_shapes, wcap: int,
             # planes gathered once, then the walk over those lanes only
             bsel = torch.nonzero(win_cls == ci)[:, 0]
             lane = win_pos[bsel].long().clamp(0, Sc - 1)
+            # the fill trimmed its rows to the class's longest read, R'; the
+            # walk ends within R'+Wc steps and its rows read 0 past there
+            Rp = planes.shape[2] - 1
             ops_s, nst_s = msa_walk(
-                L, Wc, planes.index_select(1, lane), lens_c[lane],
+                Rp, Wc, planes.index_select(1, lane), lens_c[lane],
                 bc_c[lane], bst_c[lane],
             )
-            ops_subs.append(ops_s)
+            ops_subs.append(F.pad(ops_s, (0, L - Rp)))
             nst_subs.append(nst_s)
     return (
         eff, win_task, win_score, second, win_used, win_cls, win_pos, win_bc,

@@ -16,10 +16,22 @@ prevState planes uint8 [nd, S, R+1], nd = R+Cc-1, diagonal d stored at
 d-2 (ms_prev | del_prev<<2 | ins_prev<<4, the picks taken before the
 barriers), the layout `ops.msa.msa_walk` reads.
 
+Both versions trim R to R' = the longest read length of the call (at
+least 1, at most R): rows past a read's length are padding, and no cell
+of row r feeds a row above it, so the planes are [R'+Cc-1, S, R'+1] and
+the walk takes R'. A cell with r <= len and 0 <= c <= Cc is live; the
+walk reads live cells only (`live_cells`). The plain version writes
+every plane byte, the kernel only those of live cells: the bytes of dead
+cells are unspecified.
+
 `msa_fill` is the wrapper: a CPU tensor runs `msa_fill_plain` (a torch
-wavefront over the diagonals), a CUDA tensor launches the kernel of
-csrc/msa_fill.cu, anything else raises. All arithmetic is int32 and
-exact, so both agree to the bit, planes included.
+wavefront over the diagonals), a CUDA tensor launches the kernels of
+csrc/msa_fill.cu (one warp per task where the call has enough tasks to
+fill the card, a task of more than WARP_MAX_ROWS rows going to the block
+kernel; otherwise the block kernel, one block per task), anything else
+raises. All
+arithmetic is int32 and exact, so both agree to the bit on every output
+and every live plane byte.
 """
 
 from __future__ import annotations
@@ -35,9 +47,12 @@ from .msa import col0_scores
 NEG_BIG = -(1 << 30)
 #: the sentinel of the reference columns outside the window
 REF_PAD = 97
-#: rows a kernel thread may own (the kernel's largest template), and
-#: threads per block: reads up to MAX_ROWS_PER_THREAD * 1024 - 1 bases
-MAX_ROWS_PER_THREAD = 64
+#: the longest read the kernels take: rows a block kernel thread may own
+#: (its largest template) times its 1,024 threads, less row 0
+MAX_READ = 64 * 1024 - 1
+#: the most rows a task may have for the warp kernel (32 lanes x 8
+#: slices); a task with more goes to the block kernel
+WARP_MAX_ROWS = 256
 
 
 def _sub_array_cost(streak):
@@ -87,10 +102,32 @@ def _shift_row(x):
     return F.pad(x[:, :-1], (1, 0))
 
 
+def trimmed_rows(reads, read_lens) -> int:
+    """R': the longest read length of the call, at least 1 and at most
+    reads.shape[1] (all of it for no tasks). A pull from the device."""
+    S, R = reads.shape
+    if S == 0:
+        return R
+    return max(1, min(R, int(read_lens.max())))
+
+
+def live_cells(read_lens, R: int, Cc: int):
+    """bool [R+Cc-1, S, R+1]: the plane bytes of live cells (0 <= r <=
+    len, 0 <= c <= Cc, diagonal d = r + c stored at d-2), the ones the
+    kernel writes and the walk may read."""
+    dev = read_lens.device
+    d = torch.arange(2, R + Cc + 1, device=dev)[:, None, None]
+    r = torch.arange(R + 1, device=dev)[None, None, :]
+    lens = read_lens.to(torch.int64)[None, :, None]
+    c = d - r
+    return (r <= lens) & (c >= 0) & (c <= Cc)
+
+
 def msa_fill_plain(reads, read_lens, refs):
     """(max_score, max_col, max_state, planes) of the unpruned fill, one
-    torch step per diagonal over [S, R+1] planes (the XLA wavefront of
-    bbtools_tpu/ops/msa.py `msa_fill`)."""
+    torch step per diagonal over [S, R'+1] planes (the XLA wavefront of
+    bbtools_tpu/ops/msa.py `msa_fill` on reads[:, :R'])."""
+    reads = reads[:, : trimmed_rows(reads, read_lens)]
     S, R = reads.shape
     Cc = refs.shape[1]
     W = R + 1
@@ -227,66 +264,110 @@ def msa_fill_plain(reads, read_lens, refs):
     return bs, bc, bst, planes
 
 
-def _rows_per_thread(W: int) -> int:
-    """The kernel's rows per thread: the least power of two that fits
-    W rows into 1,024 threads."""
-    k = 1
-    while k * 1024 < W:
-        k *= 2
-    return k
-
-
 def msa_fill(reads, read_lens, refs):
     """The fill of `msa_fill_plain`. CPU tensors run the plain version;
-    CUDA tensors launch the kernel of csrc/msa_fill.cu (reads contiguous
+    CUDA tensors launch the kernels of csrc/msa_fill.cu (reads contiguous
     uint8 [S, R], read_lens int32 [S], refs uint8 [S, Cc]), or raise."""
     if reads.device.type == "cpu":
         return msa_fill_plain(reads, read_lens, refs)
     if reads.device.type != "cuda":
         raise ValueError(f"msa_fill: unsupported device {reads.device}")
+    _check("msa_fill", reads, read_lens, refs)
+    S = reads.shape[0]
+    Rp = trimmed_rows(reads, read_lens)
+    long_ids = _long_tasks(read_lens, Rp)
+    n_warp = S - (0 if long_ids is None else long_ids.numel())
+    warp = n_warp >= WARP_MIN_TASKS_PER_SM * torch.cuda.get_device_properties(
+        reads.device).multi_processor_count
+    outs = _launch("msa_fill", reads, read_lens, refs, Rp,
+                   VARIANTS["warp" if warp else "block"], long_ids if warp else None)
+    if S:
+        msa_fill.launches += warp
+        msa_fill.block_launches += not warp or long_ids is not None
+    return outs
+
+
+#: kernel launches since the counts were last set to 0: `launches` of the
+#: warp kernel, `block_launches` of the block kernel (for every task of a
+#: call that gives the warp kernel fewer than WARP_MIN_TASKS_PER_SM tasks
+#: an SM, or for the tasks of more than WARP_MAX_ROWS rows)
+msa_fill.launches = 0
+msa_fill.block_launches = 0
+
+#: the kernels of csrc/msa_fill.cu: one warp per task (with the block
+#: kernel for tasks of more than WARP_MAX_ROWS rows), and the block
+#: kernel over every task; both are also measurement variants
+VARIANTS = {"warp": 0, "block": 1}
+#: the warp kernel runs where it has at least this many tasks per SM;
+#: fewer warps than that leave it bound by one warp's chain of dependent
+#: instructions, and the block kernel, which spreads a task's rows over
+#: several warps, is faster (PERF.md: window classes 1-3)
+WARP_MIN_TASKS_PER_SM = 8
+
+
+def msa_fill_variant(variant: str, reads, read_lens, refs, trim: bool = True):
+    """One of VARIANTS on CUDA tensors, for timing beside `msa_fill`;
+    with trim=False over all R rows, as the fill first ran. No path of
+    the port calls it, and it counts in no launch count."""
+    if reads.device.type != "cuda":
+        raise ValueError(f"msa_fill_variant: needs a CUDA tensor, not {reads.device}")
+    _check("msa_fill_variant", reads, read_lens, refs)
+    Rp = trimmed_rows(reads, read_lens) if trim else reads.shape[1]
+    long_ids = _long_tasks(read_lens, Rp) if variant == "warp" else None
+    return _launch("msa_fill_variant", reads, read_lens, refs, Rp, VARIANTS[variant],
+                   long_ids)
+
+
+def _check(name: str, reads, read_lens, refs):
     S, R = reads.shape
     Cc = refs.shape[1]
-    for t, name, dt, shape in ((reads, "reads", torch.uint8, (S, R)),
-                               (read_lens, "read_lens", torch.int32, (S,)),
-                               (refs, "refs", torch.uint8, (S, Cc))):
+    for t, tname, dt, shape in ((reads, "reads", torch.uint8, (S, R)),
+                                (read_lens, "read_lens", torch.int32, (S,)),
+                                (refs, "refs", torch.uint8, (S, Cc))):
         if (t.device != reads.device or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
-                f"msa_fill: {name} must be a contiguous {dt} tensor of shape "
+                f"{name}: {tname} must be a contiguous {dt} tensor of shape "
                 f"{shape} on {reads.device}, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}"
             )
-    W = R + 1
     if R < 1 or Cc < 1:
-        raise ValueError(f"msa_fill: needs R >= 1 and Cc >= 1, got {R}, {Cc}")
-    k = _rows_per_thread(W)
-    if k > MAX_ROWS_PER_THREAD:
-        raise ValueError(
-            f"msa_fill: reads of {R} bases exceed the kernel's "
-            f"{MAX_ROWS_PER_THREAD * 1024 - 1}"
-        )
-    nd = R + Cc - 1
+        raise ValueError(f"{name}: needs R >= 1 and Cc >= 1, got {R}, {Cc}")
+    if R > MAX_READ:
+        raise ValueError(f"{name}: reads of {R} bases exceed the kernel's {MAX_READ}")
+
+
+def _long_tasks(read_lens, Rp: int):
+    """int32 indices of the tasks of more than WARP_MAX_ROWS rows (of the
+    Rp kept), or None. A pull from the device where Rp allows any."""
+    if Rp + 1 <= WARP_MAX_ROWS:
+        return None
+    ids = torch.nonzero(read_lens.clamp(max=Rp) + 1 > WARP_MAX_ROWS)[:, 0]
+    return ids.to(torch.int32) if ids.numel() else None
+
+
+def _launch(name: str, reads, read_lens, refs, Rp: int, variant: int, long_ids):
+    """The fill over Rp rows: variant 0 the warp kernel (the block kernel
+    over `long_ids`), 1 the block kernel over every task."""
+    S, R = reads.shape
+    Cc = refs.shape[1]
     dev = reads.device
     outs = tuple(torch.empty(S, dtype=torch.int32, device=dev) for _ in range(3))
-    planes = torch.empty((nd, S, W), dtype=torch.uint8, device=dev)
+    planes = torch.empty((Rp + Cc - 1, S, Rp + 1), dtype=torch.uint8, device=dev)
     if S == 0:
         return (*outs, planes)
-    col0 = torch.as_tensor(col0_scores(R), dtype=torch.int32, device=dev)
+    col0 = torch.as_tensor(col0_scores(Rp), dtype=torch.int32, device=dev)
     from ..kernels.build import check, library
 
-    lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.msa_fill(
+        rc = library().msa_fill(
             reads.data_ptr(), read_lens.data_ptr(), refs.data_ptr(),
             col0.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr(), planes.data_ptr(), S, R, Cc, k,
+            outs[2].data_ptr(), planes.data_ptr(), S, Rp, R, Cc,
+            long_ids.data_ptr() if long_ids is not None else None,
+            long_ids.numel() if long_ids is not None else 0, variant,
             ctypes.c_void_p(stream),
         )
-    check(rc, "msa_fill")
-    msa_fill.launches += 1
+    check(rc, name)
     return (*outs, planes)
-
-
-#: kernel launches since the count was last set to 0
-msa_fill.launches = 0

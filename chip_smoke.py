@@ -15,18 +15,26 @@ From the root of a checkout, on a machine with a CUDA card:
      the BBDuk scans send it for one batch), B5 overlap_scan and B6
      lane_table (one BBMerge batch), B4 msa_fill (BBMap's fill with
      traceback planes: window class 0 of one real 4,096-read batch, class
-     3 of that batch, and 4,096 synthetic tasks of mixed lengths at
-     R=250); each kernel's row carries its bound (bytes over the memory
-     rate or operations over the card's rate for their type, the larger)
-     and the time of one PyTorch call computing the same function where
-     there is one; kernels of microseconds (B1, B2, B5, B6) and their
-     library calls are timed in a CUDA graph, so the time is the card's
-     and not the wrapper's; B3 is also timed, on the same keys and in
-     turns, as the original dp4a kernel, with a max-only and a one-column
-     epilogue (the product alone) and at half its query tile; B6, its
-     original kernel and `table[idx]` are timed in turns in a graph on
-     the same indices (L2-warm) and cycling through copies of them that
-     overflow the L2 (cold, the time its HBM bound is held against);
+     3 of that batch, 4,096 synthetic tasks of mixed lengths at R=250,
+     and 4,096 long-read tasks at R=400, those past 256 rows taking
+     the block kernel; plane bytes compared on live cells; and the warp
+     and block kernels timed against each other at 256-2,048 tasks); each kernel's row
+     carries its bound (bytes over the memory rate or operations over
+     the card's rate for their type, the larger; B4's operations are the
+     SASS instructions of its diagonal loop, counted with cuobjdump, over
+     the live cells) and the time of one PyTorch call computing the same
+     function where there is one; kernels of microseconds (B1, B2, B5,
+     B6) and their library calls are timed in a CUDA graph, so the time
+     is the card's and not the wrapper's; B1 (the 1-adapter table, packed
+     and unpacked, in shared memory, and a table at LaneKmerIndex.build's cost
+     cap, probed in L2) and B4 are timed in turns with the kernels they
+     replace (kept as measurement variants); B3 is
+     also timed, on the same keys and in turns, as the original dp4a
+     kernel, with a max-only and a one-column epilogue (the product
+     alone) and at half its query tile; B6, its original kernel and
+     `table[idx]` are timed in turns in a graph on the same indices
+     (L2-warm) and cycling through copies of them that overflow the L2
+     (cold, the time its HBM bound is held against);
   4. drives each path through the CLI entry point on device=cuda with
      every launch counter set to 0 just before it and read just after:
      `bbduk` over a seeded gzipped FASTQ of N reads (500,000 by
@@ -112,12 +120,18 @@ PLACED_MIN = 0.97
 HBM_BYTES_S = 3.35e12
 INT8_TC_OPS_S = 1979e12
 INT32_OPS_S = 132 * 64 * 1.98e9
-#: int32 operations per cell of the fill (csrc/msa_fill.cu): match and
-#: previous-match tests (6), the MS candidate and its streak cost (12),
-#: the DEL and INS candidates with their tiered costs (30), picks and
-#: selects (10), streak times (8), the prevState byte (5), barriers (9)
-#: and the time clamps and boundary (~0 to 9); some eighty
-B4_OPS_PER_CELL = 80
+#: instructions the SMs can start: 4 schedulers of one warp instruction a
+#: clock on each of 132 SMs, 32 lanes each, at 1.98 GHz. B4's count is of
+#: SASS instructions, which go to several pipes (integer, the FMA pipe's
+#: IMAD, shuffles, shared-memory loads), so the schedulers' rate, not
+#: the int32 lanes, bounds them; it equals the float32 rate of 67
+#: TFLOP/s counted as instructions (an FMA is two operations)
+INSTR_S = 132 * 4 * 32 * 1.98e9
+#: instructions a cell of the fill costs when cuobjdump is missing: the
+#: count of the warp kernel's diagonal loop at 5 slices, 782 over 5 (my
+#: count of the code built on an H100 with CUDA 12.8; each run prints the
+#: count of the code it built)
+B4_OPS_PER_CELL = 782 / 5
 
 
 def make_fastq(path: str, n: int, seed: int) -> int:
@@ -370,6 +384,66 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+#: keys of the synthetic lane table at LaneKmerIndex.build's cost cap: the most a
+#: layout of groups x slots = MAX_COST (1,280) holds for random keys
+COST_CAP_KEYS = 70_000
+
+
+def cost_cap_table():
+    """A seeded lane table at LaneKmerIndex.MAX_COST, built by the port's
+    index build: its planes (768 KB each) exceed a block's shared memory."""
+    from bbtools_torch.ops.lane_index import LaneKmerIndex
+
+    rng = np.random.default_rng(70)
+    keys = np.unique(rng.integers(0, 1 << 44, 4 * COST_CAP_KEYS) | (1 << 44))[:COST_CAP_KEYS]
+    idx = LaneKmerIndex.build(keys, rng.integers(1, 1000, len(keys)).astype(np.int32))
+    if idx is None or idx.groups * idx.slots <= 0.9 * LaneKmerIndex.MAX_COST:
+        raise AssertionError("B1: the cost-cap table did not build near MAX_COST")
+    return idx
+
+
+def b1_check(label: str, idx, q, dev) -> dict:
+    """B1 on one table: the wrapper's kernel (shared memory, or the L2
+    probe for a table past it) held equal to the plain version and to PR
+    1's kernel, the path checked against the table's bytes, then the
+    kernel and the original kernel timed in turns in CUDA graphs."""
+    import torch
+
+    from bbtools_torch.ops import lane_index
+
+    tbl = idx.device_arrays(dev)
+    args = (*tbl, *idx.static_params())
+    shared = lane_index.fits_shared(dev, idx.nb, idx.slots, idx.rows, idx.packed)
+    l2 = lane_index.lane_lookup.l2_launches
+    r = compare(f"B1 lane_lookup {label} ({idx.groups}x{idx.slots} slots, "
+                f"{nbytes(*tbl) // 1024} KB, {'shared memory' if shared else 'L2 probe'})",
+                lambda: lane_index.lane_lookup(*args, q),
+                lambda: lane_index.lookup_plain(*args, q), graph=True)
+    if (lane_index.lane_lookup.l2_launches > l2) == shared:
+        raise AssertionError(f"B1 {label}: the {'L2' if shared else 'shared'} path ran")
+    if not torch.equal(lane_index.lane_lookup_variant("scalar", *args, q),
+                       lane_index.lane_lookup(*args, q)):
+        raise AssertionError(f"B1 {label}: the original kernel differs")
+    hits = int((lane_index.lane_lookup(*args, q) > 0).sum().item())
+    if label != "cost cap" and hits == 0:
+        raise AssertionError("B1: no query hit the adapter table")
+    ms = {"main": [], "scalar": []}
+    for v in ("main", "scalar", "scalar", "main"):
+        fn = lane_index.lane_lookup if v == "main" else (
+            lambda *a: lane_index.lane_lookup_variant("scalar", *a))
+        ms[v].append(graph_ms(lambda: fn(*args, q)))
+    r["ms"] = sum(ms["main"]) / 2
+    r["variants_ms"] = {"scalar": sum(ms["scalar"]) / 2}
+    # per query: the hash (9 int32 operations) and one probed slot (5)
+    r.update(bound(nbytes(q, *tbl) + 4 * q.numel(), 14 * q.numel(), INT32_OPS_S))
+    r.update(label=label, path="shared" if shared else "l2", hits=hits,
+             table_bytes=nbytes(*tbl))
+    print(f"B1 {label}: kernel {r['ms']:.4f} ms, the original kernel {r['variants_ms']['scalar']:.4f} "
+          f"ms in turns in a graph; bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+          f"{r['bound_ms'] / r['ms']:.3f} of it); {hits} of {q.numel()} queries hit")
+    return r
+
+
 def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     import torch
 
@@ -399,37 +473,26 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         keys = canonical_keys(KScanConfig(k=cfg.k, mid_mask=mm), fwd, rkm, cfg.k)
         return index, keys
 
-    # B1: the 1-adapter lane table, packed (as built) and unpacked
+    # B1: the 1-adapter lane table, packed (as built) and unpacked, in
+    # shared memory; a table at LaneKmerIndex.build's cost cap, probed in L2
     lane, q = keys_for(CONFIGS["1adapter"])
     packed = lane_index.LaneKmerIndex.from_arrays(
         lane.tlo, lane.thi, lane.tid, *lane.static_params())
     unpacked = lane_index.LaneKmerIndex.from_arrays(
         lane.tlo, lane.thi >> 16, lane.thi & 0xFFFF, lane.nb, lane.groups,
         lane.slots, lane.rows, lane.salt, False)
-    rows = []
-    for label, idx in (("packed", packed), ("unpacked", unpacked)):
-        tbl = idx.device_arrays(dev)
-        args = (*tbl, *idx.static_params())
-        r = compare(
-            f"B1 lane_lookup {label} ({idx.groups}x{idx.slots} slots)",
-            lambda: lane_index.lane_lookup(*args, q),
-            lambda: lane_index.lookup_plain(*args, q), graph=True,
-        )
-        hits = int((lane_index.lane_lookup(*args, q) > 0).sum().item())
-        if hits == 0:
-            raise AssertionError("B1: no query hit the adapter table")
-        # per query: the hash (9 int32 operations) and one probed slot (5)
-        r.update(bound(nbytes(q, *tbl) + 4 * q.numel(), 14 * q.numel(), INT32_OPS_S))
-        rows.append(r)
+    rows = [b1_check(label, idx, q, dev) for label, idx in
+            (("packed", packed), ("unpacked", unpacked), ("cost cap", cost_cap_table()))]
     b1 = {
         "name": "lane_lookup", "route": "cuda",
         "source": "bbtools_torch/csrc/lane_lookup.cu",
         "replaces": "bbtools_tpu/ops/lane_index.py:244",
-        "redesigned": False,
+        "redesigned": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
         "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "variants_ms": rows[0]["variants_ms"],
+        "tables": rows,
     }
 
     # B2: the cummax input of the first join chunk of config #1
@@ -619,18 +682,84 @@ def b6_timings(pc4t, qidx, bound_ms: float) -> dict:
             "variants_ms": ms}
 
 
-def check_msa_fill(ref_fa: str, batch_fq: str) -> dict:
-    """B4 against its plain version on three task sets: the window-class
-    0 and class 3 tasks that the port's fused phase prepares for one
-    4,096-read batch (`batch_fq` holds exactly that batch; 128 synthetic
-    class-3 tasks if the batch gives none), and 4,096 synthetic tasks of
-    mixed lengths at R=250. Every output is compared, plane bytes too."""
+def b4_equal(label: str, got, want, lens, Cc: int):
+    """B4's outputs against the plain version's: scores, columns and
+    states exactly, the planes in shape and on every live cell."""
     import torch
 
+    from bbtools_torch.ops.msa_fill import live_cells
+
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"B4 {label}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+    for g, w in zip(got[:3], want[:3]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"B4 {label}: a score, column or state differs")
+    live = live_cells(lens, got[3].shape[2] - 1, Cc)
+    if bool(((got[3] != want[3]) & live).any()):
+        raise AssertionError(f"B4 {label}: a live plane byte differs")
+    return int(live.sum().item())
+
+
+def sass_loop_instructions(lib: str, kernel: str) -> int | None:
+    """Instructions in the body of the largest loop of `kernel` (a
+    substring of its mangled name) in the built library's SASS, read
+    with cuobjdump; None where the toolkit has no cuobjdump."""
+    import re
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    body = None
+    for chunk in sass.split("Function : ")[1:]:
+        if kernel in chunk.split("\n", 1)[0]:
+            body = chunk
+    if body is None:
+        raise AssertionError(f"no function {kernel} in the SASS of {lib}")
+    ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    ins = [(a, t) for a, t in ins if not t.strip().startswith("NOP")]
+    loops = []
+    for a, t in ins:
+        m = re.search(r"\bBRA(?:\.[A-Z.]+)?\s+(?:!?U?P[T0-9]+\s*,\s*)?(?:`\()?(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) <= a:
+            lo = int(m.group(1), 16)
+            loops.append(sum(1 for x, _ in ins if lo <= x <= a))
+    return max(loops) if loops else None
+
+
+#: the warp kernel's slices per lane at the main path's read length (151
+#: bases: 152 rows, 5 slices of 32)
+B4_MAIN_SLICES = 5
+
+
+def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
+    """B4 against its plain version on four task sets: the window-class
+    0 and class 3 tasks that the port's fused phase prepares for one
+    4,096-read batch (`batch_fq` holds exactly that batch; 128 synthetic
+    class-3 tasks if the batch gives none), 4,096 synthetic tasks of
+    mixed lengths at R=250, and 4,096 long-read tasks of 150-400 bases,
+    whose tasks past 256 rows take the block kernel. Every output is
+    compared, plane bytes on live cells, for the wrapper and for each
+    kernel over every task. The wrapper's choice is timed in turns with
+    the warp kernel and the block kernel over every task, on the
+    trimmed rows and over all R rows (the fill's first design, whole);
+    then both kernels at 256 to 2,048 class-0 tasks (`b4_crossover`)."""
+    import torch
+
+    from bbtools_torch.kernels import build
     from bbtools_torch.models.bbmap import BBMap, parse_args
-    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
 
     dev = torch.device("cuda")
+    n_ins = sass_loop_instructions(build.library_path(),
+                                   f"msa_fill_warp_kernelILi{B4_MAIN_SLICES}E")
+    ops_per_cell = n_ins / B4_MAIN_SLICES if n_ins else B4_OPS_PER_CELL
+    print(f"B4 SASS: the diagonal loop of the warp kernel at {B4_MAIN_SLICES} slices holds "
+          f"{n_ins} instructions: {ops_per_cell:.1f} a cell"
+          + ("" if n_ins else f" (no cuobjdump: the recorded {B4_OPS_PER_CELL})"))
     tool = BBMap(parse_args([f"ref={ref_fa}", f"in={batch_fq}", "device=cuda"]))
     batch = list(tool._read_batches(batch_fq))[0]
     lengths = batch.lengths.astype(np.int64)
@@ -655,45 +784,118 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> dict:
     else:
         sets.append(("class 3, 128 synthetic tasks", synthetic(128, L, c3, L)))
     sets.append(("mixed lengths 100-250", synthetic(4096, 250, 274, 100)))
+    sets.append(("long reads 150-400", synthetic(4096, 400, 424, 150)))
     rows = []
     for label, (reads, lens, refs) in sets:
         S, R = reads.shape
         Cc = refs.shape[1]
-        nd = R + Cc - 1
-        r = compare(f"B4 msa_fill {label} (S={S}, R={R}, Cc={Cc}, nd={nd})",
-                    lambda: msa_fill(reads, lens, refs),
-                    lambda: msa_fill_plain(reads, lens, refs), reps=5, plain_reps=1)
-        cells = S * nd * (R + 1)
-        r.update(bound(nbytes(reads, lens, refs) + 12 * S + cells, B4_OPS_PER_CELL * cells,
-                       INT32_OPS_S))
-        r.update(label=label, S=S, R=R, Cc=Cc, cells=cells,
-                 gcells_s=cells / r["ms"] / 1e6)
-        print(f"B4 {label}: {cells} cells, {r['gcells_s']:.2f} Gcells/s, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        blocks = msa_fill.block_launches
+        got = msa_fill(reads, lens, refs)
+        block_ran = msa_fill.block_launches > blocks
+        want = msa_fill_plain(reads, lens, refs)
+        torch.cuda.synchronize()
+        live_bytes = b4_equal(label, got, want, lens, Cc)
+        for v in ("warp", "block"):
+            b4_equal(f"{label}, {v} kernel", msa_fill_variant(v, reads, lens, refs), want,
+                     lens, Cc)
+        Rp = got[3].shape[2] - 1
+        del got, want
+        fns = {"main": lambda: msa_fill(reads, lens, refs),
+               "warp": lambda: msa_fill_variant("warp", reads, lens, refs),
+               "block": lambda: msa_fill_variant("block", reads, lens, refs),
+               "block_untrimmed": lambda: msa_fill_variant("block", reads, lens, refs,
+                                                           trim=False),
+               "plain": lambda: msa_fill_plain(reads, lens, refs)}
+        t = {f: [] for f in fns}
+        for order in (tuple(fns), tuple(fns)[::-1]):
+            for f in order:
+                t[f].append(cuda_ms(fns[f], 1 if f == "plain" else 5))
+        ms = {f: sum(v) / len(v) for f, v in t.items()}
+        # live cells: rows 0..min(len, R'), columns 0..Cc
+        nrows = (lens.clamp(max=Rp).to(torch.int64) + 1).clamp(min=0)
+        live = int((nrows * (Cc + 1)).sum().item())
+        all_cells = S * (R + Cc - 1) * (R + 1)
+        inputs = nbytes(reads, lens, refs) + 12 * S
+        r = {"max_abs_err": 0, "ms": ms["main"], "plain_ms": ms["plain"],
+             "variants_ms": {f: ms[f] for f in ("warp", "block", "block_untrimmed")}}
+        r.update(bound(inputs + live_bytes, ops_per_cell * live, INSTR_S))
+        old = bound(inputs + all_cells, ops_per_cell * all_cells, INSTR_S)
+        r.update(label=label, S=S, R=R, R_trimmed=Rp, Cc=Cc, live_cells=live,
+                 all_cells=all_cells, bound_all_cells_ms=old["bound_ms"],
+                 block_kernel=block_ran, gcells_s=live / ms["main"] / 1e6)
+        print(f"B4 {label} (S={S}, R={R} trimmed to {Rp}, Cc={Cc}): exact on outputs and "
+              f"{live_bytes} live plane bytes; kernel {ms['main']:.4f} ms"
+              f"{' (the block kernel ran)' if block_ran else ''}: the warp kernel "
+              f"{ms['warp']:.4f} ms, the block kernel "
+              f"{ms['block']:.4f} ms trimmed, {ms['block_untrimmed']:.4f} ms over all R rows; "
+              f"plain {ms['plain']:.2f} ms; bound {r['bound_ms']:.4f} ms on {live} live cells "
+              f"({r['bound_ms'] / ms['main']:.3f} of it), {old['bound_ms']:.4f} ms on "
+              f"{all_cells} cells of the old R x nd count")
         rows.append(r)
+    if not any(r["block_kernel"] for r in rows):
+        raise AssertionError("B4: no set launched the block kernel")
+    crossover = b4_crossover(synthetic, L, L + extras[0])
     del tool, prep
-    return {
-        "name": "msa_fill", "route": "cuda",
-        "source": "bbtools_torch/csrc/msa_fill.cu",
-        "replaces": "bbtools_tpu/ops/msa_pallas.py:97",
-        "redesigned": False,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
-        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
-        "library_ms": None, "sets": rows,
-    }
+
+    def row(name: str, r: dict) -> dict:
+        return {"name": name, "route": "cuda", "source": "bbtools_torch/csrc/msa_fill.cu",
+                "replaces": "bbtools_tpu/ops/msa_pallas.py:97", "redesigned": True,
+                "ops_per_cell": ops_per_cell, "max_abs_err": 0, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "bound_all_cells_ms": r["bound_all_cells_ms"],
+                "variants_ms": r["variants_ms"], "library_ms": None, "set": r["label"]}
+
+    # the main path's two kernels, each on the class it takes: the warp
+    # kernel class 0, the block kernel class 3 (too few tasks for warps)
+    return [{**row("msa_fill", rows[0]), "sass_loop_instructions": n_ins, "sets": rows,
+             "crossover_ms": crossover},
+            row("msa_fill_block", rows[1])]
+
+
+#: task counts at which the two B4 kernels are timed on class-0 shapes,
+#: around the wrapper's choice (WARP_MIN_TASKS_PER_SM tasks an SM)
+B4_CROSSOVER_TASKS = (256, 512, 768, 1056, 1536, 2048)
+
+
+def b4_crossover(synthetic, R: int, Cc: int) -> dict:
+    """The warp and the block kernel over the same tasks (reads of up to
+    151 bases in rows of R, windows of Cc), in turns, at each of
+    B4_CROSSOVER_TASKS: where the warp kernel starts to win."""
+    import torch
+
+    from bbtools_torch.ops.msa_fill import WARP_MIN_TASKS_PER_SM, msa_fill_variant
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for S in B4_CROSSOVER_TASKS:
+        reads, lens, refs = synthetic(S, R, Cc, 151)
+        lens.clamp_(max=151)
+        reads[torch.arange(R, device=reads.device)[None, :] >= lens[:, None]] = 4
+        if not torch.equal(msa_fill_variant("warp", reads, lens, refs)[0],
+                           msa_fill_variant("block", reads, lens, refs)[0]):
+            raise AssertionError(f"B4 crossover S={S}: the kernels' scores differ")
+        t = {"warp": [], "block": []}
+        for v in ("warp", "block", "block", "warp"):
+            t[v].append(cuda_ms(lambda: msa_fill_variant(v, reads, lens, refs), 5))
+        out[S] = {v: sum(x) / len(x) for v, x in t.items()}
+    print(f"B4 warp against block kernel by tasks (class-0 shapes; the wrapper takes the "
+          f"warp kernel from {WARP_MIN_TASKS_PER_SM * sms} tasks): "
+          + ", ".join(f"S={S} {t['warp']:.4f} / {t['block']:.4f} ms" for S, t in out.items()))
+    return out
 
 
 def counters():
+    """Each kernel's launch count: (the object that holds it, its name)."""
     from bbtools_torch.ops import lane_index, lane_table, mm_match, msa_fill, overlap_scan, scan
 
     return {
-        "lane_lookup": lane_index.lane_lookup,
-        "cummax_i64": scan.cummax_i64,
-        "mm_lookup": mm_match.mm_lookup,
-        "overlap_scan": overlap_scan.overlap_counts,
-        "lane_table": lane_table.lookup,
-        "msa_fill": msa_fill.msa_fill,
+        "lane_lookup": (lane_index.lane_lookup, "launches"),
+        "cummax_i64": (scan.cummax_i64, "launches"),
+        "mm_lookup": (mm_match.mm_lookup, "launches"),
+        "overlap_scan": (overlap_scan.overlap_counts, "launches"),
+        "lane_table": (lane_table.lookup, "launches"),
+        "msa_fill": (msa_fill.msa_fill, "launches"),
+        "msa_fill_block": (msa_fill.msa_fill, "block_launches"),
     }
 
 
@@ -702,10 +904,10 @@ def run_path(name: str, fn, needs: tuple[str, ...], launches: dict):
     fail unless each kernel in `needs` launched, and record the first
     path's count of each kernel in `launches`. Returns (fn's result, the
     path's counts)."""
-    for c in counters().values():
-        c.launches = 0
+    for obj, attr in counters().values():
+        setattr(obj, attr, 0)
     result = fn()
-    got = {k: c.launches for k, c in counters().items()}
+    got = {k: getattr(obj, attr) for k, (obj, attr) in counters().items()}
     print(f"launches on the {name} path: {got}")
     for k in needs:
         if got[k] <= 0:
@@ -881,7 +1083,7 @@ def main(argv=None) -> int:
 
         t0 = time.perf_counter()
         kernels = check_kernels(small, *small_pairs)
-        kernels.insert(3, check_msa_fill(ref_fa, map_small))
+        kernels[3:3] = check_msa_fill(ref_fa, map_small)
         print(f"kernel timings on: {card}; kernel phase {time.perf_counter() - t0:.1f} s")
 
         # ---- the BBDuk paths, through the CLI ----
@@ -954,7 +1156,7 @@ def main(argv=None) -> int:
         (tool, dt), got = run_path(
             "bbmap", lambda: run_bbmap([f"ref={ref_fa}", f"in={map_fq}", f"out={sam}"],
                                        "cuda"),
-            ("msa_fill",), launches)
+            ("msa_fill", "msa_fill_block"), launches)
         share = tool.reads_mapped / max(tool.reads_in, 1)
         mapped, placed = placed_share(sam)
         print(f"bbmap index build (k=13, {ECOLI_LEN} bp): {tool.index_seconds:.2f} s")
@@ -964,7 +1166,8 @@ def main(argv=None) -> int:
         print(f"bbmap device=cuda: {args.map_reads} reads in {dt:.2f} s = "
               f"{args.map_reads / dt:.0f} reads/s (wall, incl. the index build and IO) "
               f"on {card}")
-        print(f"bbmap B4 launches: {got['msa_fill']}; batches whose fused phase "
+        print(f"bbmap B4 launches: warp kernel {got['msa_fill']}, block kernel "
+              f"{got['msa_fill_block']}; batches whose fused phase "
               f"overflowed its walk cap and ran staged: {tool.fused_overflows}")
         if tool.reads_in != args.map_reads or not MAPPED_RANGE[0] <= share <= MAPPED_RANGE[1]:
             raise AssertionError(f"bbmap: {tool.reads_mapped} of {tool.reads_in} mapped")
@@ -975,12 +1178,13 @@ def main(argv=None) -> int:
             "bbmap paired",
             lambda: run_bbmap([f"ref={ref_fa}", f"in={map_pe[0]}", f"in2={map_pe[1]}",
                                f"out={pe_sam}"], "cuda"),
-            ("msa_fill",), {})
+            ("msa_fill", "msa_fill_block"), {})
         share = tool.reads_mapped / max(tool.reads_in, 1)
         mapped, placed = placed_share(pe_sam)
         print(f"bbmap paired device=cuda: {tool.reads_mapped} of {tool.reads_in} reads "
               f"mapped ({share:.4f}), {tool.rescued} mates rescued; {placed:.4f} of "
-              f"{mapped} placed within 20 bp; B4 launches {got['msa_fill']}, fused "
+              f"{mapped} placed within 20 bp; B4 launches {got['msa_fill']} (warp) and "
+              f"{got['msa_fill_block']} (block), fused "
               f"overflows {tool.fused_overflows}")
         print(f"bbmap paired device=cuda: {args.map_pairs} pairs in {dt:.2f} s = "
               f"{args.map_pairs / dt:.0f} pairs/s (wall) on {card}")

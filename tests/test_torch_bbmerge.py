@@ -5,8 +5,15 @@ byte (merged, unmerged and ihist files; BBDuk output and stats).
 On the CPU the JAX package runs its host path (XLA insert scan, numpy
 mate selection, efilter and pfilter), while the port runs its device
 path on the CPU (the kernels' plain versions and the torch loops), so
-these runs hold the port's device path against an independent one."""
+these runs hold the port's device path against an independent one.
 
+The JAX package's `BBMerge` writes into the preset it takes from its
+module-level `PRESETS` table (`nn=t` sets max_ratio 0.7 on it,
+`mininsert=` its min_insert): one such run anywhere earlier in the same
+process changes every later default-mode JAX run. So each test here runs
+against a fresh copy of the published presets (`pristine_jax_presets`)."""
+
+import copy
 import gzip
 import os
 import subprocess
@@ -24,6 +31,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ADAPTER1 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 ADAPTER2 = b"AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
 COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
+#: the JAX package's presets as published, copied at import (collection
+#: runs before any test, so nothing has written into them yet)
+JAX_PRESETS = copy.deepcopy(jax_bbmerge.PRESETS)
+
+
+@pytest.fixture(autouse=True)
+def pristine_jax_presets(monkeypatch):
+    """Every test sees a fresh copy of the JAX package's published
+    BBMerge presets, whatever ran earlier in this process."""
+    monkeypatch.setattr(jax_bbmerge, "PRESETS", copy.deepcopy(JAX_PRESETS))
 
 
 def make_pairs(n, seed, L, lo, hi):
@@ -120,6 +137,39 @@ def test_bbmerge_interleaved_matches_jax(tmp_path, pairs):
     two_files = _bbmerge(lambda a: torch_main(a + ["device=cpu"]), tmp_path,
                          "torch2", [f"in1={pairs['r1']}", f"in2={pairs['r2']}"], [])
     assert got[0] == two_files[0] and got[3] == two_files[3]
+
+
+@pytest.fixture(scope="module")
+def jax_presets_after_nn_run(pairs):
+    """The JAX module's presets as a test process holds them after a JAX
+    `BBMerge` built with `nn=t` (as tests/test_cellnet.py builds one): a
+    copy that build wrote into, in the module's place until this test
+    module ends, so nothing outside it sees the write."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_bbmerge, "PRESETS", copy.deepcopy(JAX_PRESETS))
+        jax_bbmerge.BBMerge(jax_bbmerge.parse_args(
+            [f"in1={pairs['r1']}", f"in2={pairs['r2']}", "nn=t"]))
+        yield jax_bbmerge.PRESETS
+
+
+def test_bbmerge_default_matches_jax_after_a_jax_nn_run(
+        tmp_path, pairs, jax_presets_after_nn_run):
+    """The order that failed in a shared test process: a JAX `BBMerge`
+    with `nn=t`, then the default-mode comparison. The pinned presets
+    keep both packages equal byte for byte and on every count."""
+    assert jax_presets_after_nn_run["default"].max_ratio == 0.7
+    inputs = [f"in1={pairs['r1']}", f"in2={pairs['r2']}"]
+    tools = {}
+
+    def run(tag, main, dev):
+        def runner(argv):
+            tools[tag] = main(argv[1:] + dev)
+        return _bbmerge(runner, tmp_path, tag, inputs, [])
+
+    assert run("torch", port_bbmerge.main, ["device=cpu"]) == run("jax", jax_bbmerge.main, [])
+    for stat in ("merged", "ambiguous", "no_solution"):
+        assert getattr(tools["torch"], stat) == getattr(tools["jax"], stat), stat
+    assert tools["jax"].no_solution > tools["jax"].ambiguous  # not the polluted run's split
 
 
 @pytest.mark.parametrize("extra", [[], ["ktrim=f", "minkmerhits=2"]])

@@ -51,6 +51,60 @@ def test_lane_kernel_matches_plain(cuda, hi_bits, shape):
     np.testing.assert_array_equal(got.cpu().numpy(), idx.lookup_np(q.cpu().numpy()))
 
 
+def _cost_cap_table(rng):
+    """A layout near the largest LaneKmerIndex.build makes (70,000 keys, groups x
+    slots within 10% of MAX_COST), too large for shared memory."""
+    keys = np.unique(rng.integers(0, 1 << 44, 4 * 70_000) | (np.int64(1) << 44))[:70_000]
+    idx = lane_index.LaneKmerIndex.build(keys, rng.integers(1, 1000, len(keys)).astype(np.int32))
+    assert idx.groups * idx.slots > 0.9 * lane_index.LaneKmerIndex.MAX_COST
+    return keys, idx
+
+
+@pytest.mark.parametrize("table", ["shared", "l2"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4097, 1_000_003])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lane_kernel_paths_ragged_and_offset_views(cuda, table, n, offset):
+    """Both table paths (a 3,000-key table in shared memory, a table at
+    the cost cap probed in L2) on query counts around the 4-key vector
+    and on a view one key off 16-byte alignment, against lookup_plain;
+    l2_launches counts the L2 path only."""
+    rng = np.random.default_rng(n + offset)
+    keys, idx = (_lane_tables(rng, 3000, False) if table == "shared"
+                 else _cost_cap_table(rng))
+    args = (*idx.device_arrays(cuda), *idx.static_params())
+    assert lane_index.fits_shared(cuda, idx.nb, idx.slots, idx.rows, idx.packed) == (
+        table == "shared")
+    q = rng.integers(-(1 << 62), 1 << 62, n + offset, dtype=np.int64)
+    q[::2] = keys[rng.integers(0, len(keys), len(q[::2]))]
+    view = torch.from_numpy(q).to(cuda)[offset:]
+    assert view.data_ptr() % 16 == 8 * offset
+    before = (lane_index.lane_lookup.launches, lane_index.lane_lookup.l2_launches)
+    got = lane_index.lane_lookup(*args, view)
+    torch.cuda.synchronize()
+    assert (lane_index.lane_lookup.launches, lane_index.lane_lookup.l2_launches) == (
+        before[0] + 1, before[1] + (table == "l2"))
+    assert torch.equal(got, lane_index.lookup_plain(*args, view))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_lane_variants_agree_and_do_not_count(cuda, packed):
+    """The original kernel, kept for timing (and serving tables past shared
+    memory), equals the shared-memory kernel; neither counts as a
+    launch."""
+    rng = np.random.default_rng(4 + packed)
+    keys, idx = _lane_tables(rng, 3000, not packed)
+    args = (*idx.device_arrays(cuda), *idx.static_params())
+    q = rng.integers(-(1 << 62), 1 << 62, 100_001, dtype=np.int64)
+    q[::3] = keys[rng.integers(0, len(keys), len(q[::3]))]
+    q = torch.from_numpy(q).to(cuda)
+    want = lane_index.lookup_plain(*args, q)
+    before = (lane_index.lane_lookup.launches, lane_index.lane_lookup.l2_launches)
+    for name in lane_index.VARIANTS:
+        assert torch.equal(lane_index.lane_lookup_variant(name, *args, q), want), name
+    torch.cuda.synchronize()
+    assert (lane_index.lane_lookup.launches, lane_index.lane_lookup.l2_launches) == before
+
+
 @pytest.mark.parametrize("n", [0, 1, 31, 4095, 4096, 4097, (1 << 20) + 3, 5_000_000])
 def test_cummax_kernel_matches_plain(cuda, n):
     gen = torch.Generator().manual_seed(n)
@@ -533,21 +587,84 @@ def _msa_tasks(rng, S, R, Cc, lmin):
     (4, 1100, 1130, 900),  # two rows per thread
 ])
 def test_msa_fill_kernel_matches_plain(cuda, S, R, Cc, lmin):
-    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+    """The wrapper's choice, and each kernel over every task."""
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
 
     rng = np.random.default_rng(S + R + Cc)
     reads, lens, refs = (torch.from_numpy(x).to(cuda)
                          for x in _msa_tasks(rng, S, R, Cc, lmin))
-    before = msa_fill.launches
+    before = msa_fill.launches + msa_fill.block_launches
     got = msa_fill(reads, lens, refs)
     want = msa_fill_plain(reads, lens, refs)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g, w)
-    assert msa_fill.launches == before + 1
+    _assert_fill_equal(got, want, lens, Cc)
+    assert msa_fill.launches + msa_fill.block_launches == before + 1
     if lmin >= 100:
         assert int((got[1] >= 0).sum()) == S  # every task aligned
+    for name in ("warp", "block"):
+        _assert_fill_equal(msa_fill_variant(name, reads, lens, refs), want, lens, Cc)
+
+
+def _assert_fill_equal(got, want, lens, Cc):
+    """Scores, columns and states equal; the planes equal in shape and on
+    every live cell (the kernel leaves dead cells' bytes unspecified)."""
+    from bbtools_torch.ops.msa_fill import live_cells
+
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    live = live_cells(lens, got[3].shape[2] - 1, Cc)
+    assert not bool(((got[3] != want[3]) & live).any())
+
+
+@pytest.mark.parametrize("R,Cc", [(256, 280), (300, 330)])
+@pytest.mark.parametrize("S", [96, 1600])
+def test_msa_fill_warp_and_block_kernels_on_mixed_lengths(cuda, R, Cc, S):
+    """Lengths 0, 1, 31, 32, 33, 255 and R in one call, with the rest
+    mixed. The warp kernel takes every task of at most 256 rows and, at
+    R = 300, the block kernel the tasks of more, in the same call; the
+    wrapper takes the block kernel for all tasks of a call with fewer
+    than WARP_MIN_TASKS_PER_SM tasks an SM. block_launches counts each
+    call that launched the block kernel."""
+    from bbtools_torch.ops.msa_fill import (WARP_MAX_ROWS, WARP_MIN_TASKS_PER_SM, msa_fill,
+                                            msa_fill_plain, msa_fill_variant)
+
+    rng = np.random.default_rng(R + S)
+    reads, lens, refs = _msa_tasks(rng, S, R, Cc, 0)
+    special = [0, 1, 31, 32, 33, 255, R]
+    lens[: len(special)] = special
+    reads[np.arange(R)[None, :] >= lens[:, None]] = 4
+    reads, lens, refs = (torch.from_numpy(x).to(cuda) for x in (reads, lens, refs))
+    want = msa_fill_plain(reads, lens, refs)
+    before = (msa_fill.launches, msa_fill.block_launches)
+    got = msa_fill(reads, lens, refs)
+    torch.cuda.synchronize()
+    _assert_fill_equal(got, want, lens, Cc)
+    _assert_fill_equal(msa_fill_variant("warp", reads, lens, refs), want, lens, Cc)
+    long_tasks = int((lens + 1 > WARP_MAX_ROWS).sum())
+    warp = S - long_tasks >= WARP_MIN_TASKS_PER_SM * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    block = not warp or long_tasks > 0
+    assert (msa_fill.launches, msa_fill.block_launches) == (before[0] + warp,
+                                                            before[1] + block)
+    assert int(got[1][0]) >= 0 and int(got[1][6]) >= 0  # len 0 and len R align
+
+
+def test_msa_fill_block_variant_equals_plain_and_does_not_count(cuda):
+    """Both kernels over every task, as measurement variants, equal the
+    plain fill on live cells, and no launch counts."""
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
+
+    rng = np.random.default_rng(9)
+    reads, lens, refs = (torch.from_numpy(x).to(cuda)
+                         for x in _msa_tasks(rng, 300, 256, 280, 100))
+    before = (msa_fill.launches, msa_fill.block_launches)
+    want = msa_fill_plain(reads, lens, refs)
+    for name in ("warp", "block"):
+        _assert_fill_equal(msa_fill_variant(name, reads, lens, refs), want, lens, 280)
+    torch.cuda.synchronize()
+    assert (msa_fill.launches, msa_fill.block_launches) == before
 
 
 def test_msa_fill_kernel_rejects_what_it_does_not_take(cuda):
@@ -582,13 +699,13 @@ def test_bbmap_cuda_equals_cpu(cuda, tmp_path):
     write_reads(str(tmp_path / "p2.fq"), [p[1] for p in pairs])
     outs = {}
     for dev in ("cuda", "cpu"):
-        before = msa_fill.launches
+        before = msa_fill.launches + msa_fill.block_launches
         se, pe = tmp_path / f"{dev}.sam", tmp_path / f"{dev}.pe.sam"
         main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}",
               f"out={se}", f"device={dev}"])
         main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'p1.fq'}",
               f"in2={tmp_path / 'p2.fq'}", f"out={pe}", f"device={dev}"])
-        assert (msa_fill.launches > before) == (dev == "cuda")
+        assert (msa_fill.launches + msa_fill.block_launches > before) == (dev == "cuda")
         outs[dev] = (se.read_bytes(), pe.read_bytes())
     assert outs["cuda"] == outs["cpu"]
     assert outs["cuda"][0].count(b"\n") > 512

@@ -109,3 +109,22 @@ def test_lane_hash_matches_host_hash():
         h = tl._mul32(h ^ ((h >> 15) & 0x1FFFF), int(tl.C3))
         got = (h >> (33 - nb.bit_length())) & (nb - 1)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_lane_plain_on_a_table_at_the_cost_cap_matches_jax():
+    """The largest layout LaneKmerIndex.build makes: 70,000 keys at groups x
+    slots = MAX_COST (1,280), 768 KB a plane, past any block's shared
+    memory (the table the L2-probe kernel serves), against the JAX
+    package's host lookup on a table the JAX package's build made."""
+    rng = np.random.default_rng(70)
+    keys, ids = _mk_keys(rng, 70_000)
+    jidx = LaneKmerIndex.build(keys, ids)
+    assert jidx is not None
+    assert jidx.groups * jidx.slots == tl.LaneKmerIndex.MAX_COST
+    assert jidx.tlo.nbytes > 227 * 1024
+    q = _queries(rng, keys, 60_000, 45)
+    pidx = _port_index(jidx)
+    got = tl.lane_lookup(*pidx.device_arrays("cpu"), *pidx.static_params(),
+                         torch.from_numpy(q))
+    np.testing.assert_array_equal(got.numpy(), jidx.lookup_np(q))
+    assert (got.numpy() > 0).sum() == len(keys[::2])

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from bbtools_torch.ops import msa as tmsa
-from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+from bbtools_torch.ops import map_fused
+from bbtools_torch.ops.msa_fill import live_cells, msa_fill, msa_fill_plain
 from bbtools_tpu.ops import msa as jmsa
 from bbtools_tpu.ops import msa_constants as C
 from bbtools_tpu.ops.msa_pallas import msa_fill_pallas, prepare_refp
@@ -100,6 +101,64 @@ def test_fill_wrapper_runs_plain_on_cpu():
     assert msa_fill.launches == before
 
 
+def _poisoned_fill(reads, lens, refs):
+    """msa_fill_plain with every dead plane byte (r > len, c outside
+    0..Cc) set to 0xFF: what a reader of live cells only cannot see."""
+    *outs, planes = msa_fill_plain(reads, lens, refs)
+    dead = ~live_cells(lens, planes.shape[2] - 1, refs.shape[1])
+    return (*outs, planes.masked_fill(dead, 0xFF))
+
+
+def test_fill_trims_rows_to_the_longest_read_and_equals_jax_on_live_cells():
+    """Reads of at most R - 9 bases in rows of R: the planes keep R' =
+    the longest length (R' + 1 rows, R' + Cc - 1 diagonals), and equal
+    the JAX fill's (XLA wavefront and Pallas kernel, untrimmed) on every
+    live cell; scores, columns and states equal."""
+    Cc = R + 24
+    reads, lens, refs = _tasks(31, 16, R, Cc)
+    lens = np.minimum(lens, R - 9).astype(np.int32)
+    lens[3] = 0
+    reads[np.arange(R)[None, :] >= lens[:, None]] = 4
+    Rp = int(lens.max())
+    assert Rp < R
+    t = [torch.from_numpy(x) for x in (reads, lens, refs)]
+    *got, planes = msa_fill_plain(*t)
+    assert planes.shape == (Rp + Cc - 1, 16, Rp + 1)
+    live = live_cells(t[1], Rp, Cc).numpy()
+    # all cells of rows 0..len, columns 0..Cc, but those of diagonals 0
+    # and 1, which are not stored: (0, 0), (0, 1) and, for len >= 1, (1, 0)
+    assert live.sum() == ((lens + 1) * (Cc + 1) - 2 - (lens >= 1)).sum()
+    pal = msa_fill_pallas(R, Cc, jnp.asarray(reads), jnp.asarray(lens),
+                          jnp.asarray(prepare_refp(refs, R)), tile=8,
+                          interpret=True, traceback=True)
+    for want in (pal, _xla_fill(reads, lens, refs)):
+        for g, w in zip(got, want[:3]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        wp = np.asarray(want[3])[: Rp + Cc - 1, :, : Rp + 1]
+        np.testing.assert_array_equal(planes.numpy()[live], wp[live])
+
+
+@pytest.mark.parametrize("Cc", [R + 24, R + 152])
+def test_walk_on_live_cells_only_equals_jax(Cc):
+    """The walk over the trimmed plain fill with every dead plane byte
+    set to 0xFF gives the JAX walk's ops (zero past R' + Cc steps) and
+    step counts over the JAX fill."""
+    reads, lens, refs = _tasks(Cc + 7, 16, R, Cc)
+    lens = np.minimum(lens, R - 5).astype(np.int32)
+    reads[np.arange(R)[None, :] >= lens[:, None]] = 4
+    _s, c, st, jplanes = _xla_fill(reads, lens, refs)
+    jo, jn = jmsa.msa_walk(R, Cc, jplanes, jnp.asarray(lens), c, st)
+    *outs, planes = _poisoned_fill(*(torch.from_numpy(x) for x in (reads, lens, refs)))
+    Rp = planes.shape[2] - 1
+    assert Rp == R - 5
+    np.testing.assert_array_equal(outs[1].numpy(), np.asarray(c))
+    to, tn = tmsa.msa_walk(Rp, Cc, planes, torch.from_numpy(lens), outs[1], outs[2])
+    jo = np.asarray(jo)
+    np.testing.assert_array_equal(to.numpy(), jo[:, : Rp + Cc])
+    assert not jo[:, Rp + Cc :].any()
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+
+
 @pytest.mark.parametrize("Cc", [R + 24, R + 152])
 def test_walk_equals_jax(Cc):
     reads, lens, refs = _tasks(Cc + 1, 16, R, Cc)
@@ -127,6 +186,17 @@ def test_fused_map_step_equals_jax(tmp_path):
     winners, runner-ups and the walked winners' rows. The reference holds
     an exact repeat, so reads from it tie on the slot grid and the first
     maximal slot (the lowest task index) must win in both."""
+    _check_fused_map_step(tmp_path)
+
+
+def test_fused_map_step_reads_live_cells_only(tmp_path, monkeypatch):
+    """The same batch with every dead plane byte of the fill set to 0xFF:
+    the fused step still equals the JAX package's."""
+    monkeypatch.setattr(map_fused, "msa_fill", _poisoned_fill)
+    _check_fused_map_step(tmp_path)
+
+
+def _check_fused_map_step(tmp_path):
     from bbtools_torch.models.bbmap import BBMap as TBBMap
     from bbtools_torch.models.bbmap import parse_args as tparse
     from bbtools_torch.ops.map_fused import fused_map_step as tstep
