@@ -41,15 +41,24 @@ SIGNATURES = {
                     _I, _I, _P),
     # rows, nb, packed, &need, &limit
     "lane_lookup_shared_bytes": (_I, _I, _I, _P, _P),
-    # in, out, n, tile_max, stream
+    # in, out, n, scratch, stream
     "cummax_i64": (_P, _P, _I64, _P, _P),
+    # the same, then variant, stream
+    "cummax_i64_variant": (_P, _P, _I64, _P, _I, _P),
+    # n, variant (returns int64 words)
+    "cummax_i64_scratch": (_I64, _I),
+    # (returns elements)
     "cummax_i64_tile": (),
+    # stream (returns the capture's id, 0 where none)
+    "cummax_i64_capture_id": (_P,),
     # idx, out, n, table, n_table, stream
     "lane_table": (_P, _P, _I64, _P, _I, _P),
     # the same, then variant, stream
     "lane_table_variant": (_P, _P, _I64, _P, _I, _I, _P),
     # a, b_rc, alens, blens, good, bad, olen, B, L, min0, D, stream
     "overlap_scan": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    # the same, then variant, stream
+    "overlap_scan_variant": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
     # keys, out, n, keyT, prio, Dp, k, mink, nc, Kp, stream
     "mm_lookup": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
     # the same, then variant, stream
@@ -59,6 +68,9 @@ SIGNATURES = {
     "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _I64, _I,
                  _P),
 }
+
+#: entry points that return something else than a cudaError_t (int)
+RESTYPES = {"cummax_i64_scratch": _I64, "cummax_i64_capture_id": ctypes.c_uint64}
 
 _LIB: ctypes.CDLL | None = None
 #: seconds the last build of this process took (0.0 when it loaded a
@@ -145,7 +157,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         _LIB = lib
     return _LIB
 

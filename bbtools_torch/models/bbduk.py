@@ -401,8 +401,9 @@ def _reject_unported(c: BBDukConfig):
     """Raise for flags whose stage the port does not have yet."""
     unported = [
         (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
-        (c.recalibrate, "recalibrate", "A8"),
-        (c.align, "align/side channel (BBMap)", "A4"),
+        (c.recalibrate, "recalibrate (models/calctruequality.py)", "A2/A5"),
+        (c.align, "align/side channel (models/sidechannel.py on ops/microalign.py)",
+         "A2/A5"),
     ]
     for on, what, item in unported:
         if on:

@@ -20,7 +20,7 @@ default single-end path they are one fused step per batch
 ladder, pairing, rescue selection, SAM) is a copy of the JAX package's;
 only the device calls differ. Flags whose modules are not ported yet
 raise NotImplementedError naming their ROADMAP item: tpshards (A7),
-bloomfilter (A6), covstats/basecov/covhist/bincov (A8) and the pacbio
+bloomfilter (A6), covstats/basecov/covhist/bincov (A2/A5) and the pacbio
 and skimmer presets (A4b).
 """
 
@@ -109,7 +109,7 @@ class BBMapConfig:
     #: align2/BBSplitter scafstats/refstats machinery)
     scafstats: str | None = None
     #: inline coverage outputs (covstats=/basecov=/covhist=/bincov=;
-    #: not ported, A8)
+    #: not ported, A2/A5)
     covstats: str | None = None
     basecov: str | None = None
     covhist: str | None = None
@@ -213,7 +213,7 @@ def _reject_unported(c: BBMapConfig):
     unported = [
         (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
         (c.bloom_prescreen, "bloomfilter (ops/cms.py)", "A6"),
-        (bool(cov), f"{'/'.join(cov)} (models/pileup.py)", "A8"),
+        (bool(cov), f"{'/'.join(cov)} (models/pileup.py)", "A2/A5"),
     ]
     for on, what, item in unported:
         if on:

@@ -19,7 +19,7 @@ insert-size histogram.
 
 Flags whose stage is not ported yet raise NotImplementedError naming
 their ROADMAP item: extend2/ecct (k-mer extension and Tadpole correction,
-A3/A6), ecco (A5), nn (the CellNet gate, A5) and tpshards (A7).
+A3/A6), ecco and nn (the CellNet gate) (A2/A5) and tpshards (A7).
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ class BBMergeConfig:
     ziplevel: int | None = None
     extend2: int = 0  # k-mer extension of unmerged pairs (not ported, A3/A6)
     ecct: bool = False  # Tadpole correction before the scan (not ported, A3/A6)
-    #: CellNet gate (BBMerge.java nn= flag :425; not ported, A5)
+    #: CellNet gate (BBMerge.java nn= flag :425; not ported, A2/A5)
     nn: bool = False
     #: quality-weighted overlap scoring (BBMerge.java useQuality :3189,
     #: default true): when quals exist, mateByOverlapRatioJava_WithQualities
@@ -160,8 +160,8 @@ def _reject_unported(c: BBMergeConfig):
     unported = [
         (c.extend2 > 0, "extend2 (k-mer extension)", "A3/A6"),
         (c.ecct, "ecct (Tadpole error correction)", "A3/A6"),
-        (c.ecco, "ecco (error correction by overlap)", "A5"),
-        (c.nn, "nn (the CellNet merge gate, ml/cellnet.py)", "A5"),
+        (c.ecco, "ecco (error correction by overlap)", "A2/A5"),
+        (c.nn, "nn (the CellNet merge gate, ml/cellnet.py)", "A2/A5"),
         (c.tpshards > 1, "tpshards>1 (multi-GPU)", "A7"),
     ]
     for on, what, item in unported:

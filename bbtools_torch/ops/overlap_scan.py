@@ -11,9 +11,10 @@ overlap. Two Ns are equal but not good.
 
 `overlap_counts` is the wrapper: a CPU tensor runs `overlap_counts_plain`
 (overlap_counts_jnp's algorithm: right-justify rc(b) once, then one
-static shifted slice per insert), a CUDA tensor launches the kernel of
-csrc/overlap_scan.cu, anything else raises. Counts are integers, so both
-are exact in any order.
+static shifted slice per insert), a CUDA tensor launches the bit-sliced
+kernel of csrc/overlap_scan.cu, anything else raises. Counts are
+integers, so both are exact in any order. Like the TPU kernel and the
+plain version, the kernel compares any uint8 codes, not only 0-4.
 """
 
 from __future__ import annotations
@@ -72,15 +73,42 @@ def overlap_counts(a, b_rc, alens, blens, min_insert0: int, n_inserts: int):
                                     n_inserts)
     if a.device.type != "cuda":
         raise ValueError(f"overlap_counts: unsupported device {a.device}")
+    outs = _launch("overlap_counts", a, b_rc, alens, blens, min_insert0, n_inserts, 0)
+    if a.shape[0] and n_inserts > 0:
+        overlap_counts.launches += 1
+    return outs
+
+
+#: kernel launches since the count was last set to 0
+overlap_counts.launches = 0
+
+#: measurement variants of csrc/overlap_scan.cu (`overlap_scan_variant`):
+#: the bit-sliced kernel, and the first port's kernel (a byte at a time)
+VARIANTS = {"main": 0, "byte": 1}
+
+
+def overlap_counts_variant(variant: str, a, b_rc, alens, blens, min_insert0: int,
+                           n_inserts: int):
+    """One of VARIANTS on CUDA tensors, for timing beside
+    `overlap_counts`. No path of the port calls it, and it does not count
+    in `overlap_counts.launches`."""
+    if a.device.type != "cuda":
+        raise ValueError(f"overlap_counts_variant: needs a CUDA tensor, not {a.device}")
+    return _launch("overlap_counts_variant", a, b_rc, alens, blens, min_insert0,
+                   n_inserts, VARIANTS[variant])
+
+
+def _launch(name: str, a, b_rc, alens, blens, min_insert0: int, n_inserts: int,
+            variant: int):
     B, L = a.shape
-    for t, name, dt, shape in ((a, "a", torch.uint8, (B, L)),
-                               (b_rc, "b_rc", torch.uint8, (B, L)),
-                               (alens, "alens", torch.int32, (B,)),
-                               (blens, "blens", torch.int32, (B,))):
+    for t, arg, dt, shape in ((a, "a", torch.uint8, (B, L)),
+                              (b_rc, "b_rc", torch.uint8, (B, L)),
+                              (alens, "alens", torch.int32, (B,)),
+                              (blens, "blens", torch.int32, (B,))):
         if (t.device != a.device or t.dtype != dt or tuple(t.shape) != shape
                 or not t.is_contiguous()):
             raise ValueError(
-                f"overlap_counts: {name} must be a contiguous {dt} tensor "
+                f"{name}: {arg} must be a contiguous {dt} tensor "
                 f"of shape {shape} on {a.device}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}"
             )
@@ -92,16 +120,13 @@ def overlap_counts(a, b_rc, alens, blens, min_insert0: int, n_inserts: int):
 
     lib = library()
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.overlap_scan(
-            a.data_ptr(), b_rc.data_ptr(), alens.data_ptr(), blens.data_ptr(),
-            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-            B, L, min_insert0, n_inserts, ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)
+        args = (a.data_ptr(), b_rc.data_ptr(), alens.data_ptr(), blens.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+                B, L, min_insert0, n_inserts)
+        if variant == 0:
+            rc = lib.overlap_scan(*args, stream)
+        else:
+            rc = lib.overlap_scan_variant(*args, variant, stream)
     check(rc, "overlap_scan")
-    overlap_counts.launches += 1
     return outs
-
-
-#: kernel launches since the count was last set to 0
-overlap_counts.launches = 0

@@ -25,7 +25,12 @@ From the root of a checkout, on a machine with a CUDA card:
      the live cells) and the time of one PyTorch call computing the same
      function where there is one; kernels of microseconds (B1, B2, B5,
      B6) and their library calls are timed in a CUDA graph, so the time
-     is the card's and not the wrapper's; B1 (the 1-adapter table, packed
+     is the card's and not the wrapper's; B2 (one pass) in turns with the
+     first port's three-pass kernel and torch.cummax, and on random
+     inputs up to 5,000,003 elements; B5 (bit-sliced) in turns with the
+     first port's byte kernel, on codes
+     drawn from 0..255, with the SASS of its word loops counted with
+     cuobjdump for its bound; B1 (the 1-adapter table, packed
      and unpacked, in shared memory, and a table at LaneKmerIndex.build's cost
      cap, probed in L2) and B4 are timed in turns with the kernels they
      replace (kept as measurement variants); B3 is
@@ -308,6 +313,16 @@ def graph_ms(fn, reps: int = 50, inputs=None) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_turns(fns: dict) -> dict:
+    """Each function's graph_ms, timed in turns: in the order of `fns`
+    and back; the mean of the two."""
+    t = {f: [] for f in fns}
+    for order in (tuple(fns), tuple(fns)[::-1]):
+        for f in order:
+            t[f].append(graph_ms(fns[f]))
+    return {f: sum(v) / len(v) for f, v in t.items()}
+
+
 def compare(name: str, kernel, plain, reps: int = 20, plain_reps: int | None = None,
             graph: bool = False) -> dict:
     """Exact comparison of kernel() and plain() on the card, then timing
@@ -448,6 +463,7 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
     import torch
 
     from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.kernels.build import library as build_lib
     from bbtools_torch.models.bbduk import build_index, load_reference, parse_args
     from bbtools_torch.models.bbmerge import _rc_batch
     from bbtools_torch.ops import bbduk_scan, lane_index, lane_table, scan, sort_join
@@ -503,25 +519,40 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
                  lambda: scan.cummax_i64(v), lambda: scan.cummax_plain(v), graph=True)
     # an int64 compare and select per element, two int32 operations each
     r2.update(bound(2 * nbytes(v), 4 * v.numel(), INT32_OPS_S))
-    r2["library_ms"] = graph_ms(lambda: torch.cummax(v, 0))
+    for name in scan.VARIANTS:
+        if not torch.equal(scan.cummax_i64_variant(name, v), scan.cummax_i64(v)):
+            raise AssertionError(f"B2: the {name} variant differs on the join chunk")
+    fns = {name: (lambda f=name: scan.cummax_i64_variant(f, v)) for name in scan.VARIANTS}
+    fns["torch.cummax"] = lambda: torch.cummax(v, 0)
+    ms = graph_turns(fns)
+    r2["ms"] = ms.pop("main")
+    r2["library_ms"] = ms.pop("torch.cummax")
+    r2["variants_ms"] = ms
     r2["library_eager_ms"] = cuda_ms(lambda: torch.cummax(v, 0), 20)
-    print(f"B2 library torch.cummax int64: {r2['library_ms']:.4f} ms in a graph "
-          f"({r2['library_eager_ms']:.4f} ms back to back)")
+    tile = build_lib().cummax_i64_tile()
+    print(f"B2 in turns in a graph: one-pass kernel {r2['ms']:.4f} ms (tile {tile}, "
+          f"{-(-v.numel() // tile)} tiles; {r2['bound_ms'] / r2['ms']:.3f} of the "
+          f"{r2['bound_ms']:.4f} ms bound), the first port's three-pass kernel "
+          f"{ms['three_pass']:.4f} ms ({ms['three_pass'] / r2['ms']:.2f}x); torch.cummax "
+          f"{r2['library_ms']:.4f} ms ({r2['library_eager_ms']:.4f} ms back to back)")
     gen = torch.Generator(device="cpu").manual_seed(7)
-    for n in (1, 4095, 4096, 4097, 1_000_003):
+    for n in (1, 4095, 4096, 4097, 1_000_003, 5_000_003):
         r = torch.randint(-(2**62), 2**62, (n,), generator=gen, dtype=torch.int64)
         r[r.abs() < 2**60] *= -1
         r[:: 997] = -(2**63)
         r = r.to(dev)
-        out = scan.cummax_i64(r)
-        if not torch.equal(out, scan.cummax_plain(r)):
+        want = scan.cummax_plain(r)
+        if not torch.equal(scan.cummax_i64(r), want):
             raise AssertionError(f"B2: random n={n} differs from torch.cummax")
-    print("B2 cummax_i64 random (INT64_MIN, negatives, ragged n): exact=True")
+        for name in scan.VARIANTS:
+            if not torch.equal(scan.cummax_i64_variant(name, r), want):
+                raise AssertionError(f"B2: the {name} variant differs at random n={n}")
+    print("B2 cummax_i64 and its variants, random (INT64_MIN, negatives, ragged n): exact=True")
     b2 = {
         "name": "cummax_i64", "route": "cuda",
         "source": "bbtools_torch/csrc/cummax_i64.cu",
         "replaces": "bbtools_tpu/ops/scan_pallas.py:49",
-        "redesigned": False,
+        "redesigned": True, "tile": tile,
         **r2,
     }
 
@@ -607,16 +638,12 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
                  lambda: torch.stack(overlap_counts(a, b_rc, al, bl, min0, D)),
                  lambda: torch.stack(overlap_counts_plain(a, b_rc, al, bl, min0, D)),
                  reps=5, graph=True)
-    # per overlapped position: a code compare, an N test and two counts
-    olen = overlap_counts_plain(a, b_rc, al, bl, min0, D)[2]
-    r5.update(bound(nbytes(a, b_rc, al, bl) + 3 * 4 * a.shape[0] * D,
-                    4 * int(olen.sum().item()), INT32_OPS_S))
-    r5["library_ms"] = None
+    r5.update(b5_timings(a, b_rc, al, bl, min0, D))
     b5 = {
         "name": "overlap_scan", "route": "cuda",
         "source": "bbtools_torch/csrc/overlap_scan.cu",
         "replaces": "bbtools_tpu/ops/overlap_pallas.py:40",
-        "redesigned": False,
+        "redesigned": True,
         **r5,
     }
     pc4t = torch.from_numpy(lane_table.pack_table(PROB_CORRECT4)).to(dev)
@@ -643,6 +670,60 @@ def check_kernels(fq: str, pair1: str, pair2: str) -> list[dict]:
         "redesigned": True, **r6,
     }
     return [b1, b2, b3, b5, b6]
+
+
+def b5_timings(a, b_rc, al, bl, min0: int, D: int) -> dict:
+    """B5 beside the first port's kernel (the variant "byte"), in turns
+    in a CUDA graph on the batch; the batch with codes drawn from 0..255 (every
+    pair compares 8 planes) held against the plain version; the SASS of
+    the kernel's word loops; and its bounds: bytes (the inputs and the
+    three output planes), the SASS instructions of the 3-plane word loop
+    times the 32-position words the batch's windows need (ceil(olen /
+    32) an insert; null where the toolkit has no cuobjdump), and, kept
+    beside them, the first port's count of 4 int32 operations per
+    overlapped position."""
+    import torch
+
+    from bbtools_torch.kernels import build
+    from bbtools_torch.ops.overlap_scan import (VARIANTS, overlap_counts,
+                                                overlap_counts_plain, overlap_counts_variant)
+
+    want = overlap_counts_plain(a, b_rc, al, bl, min0, D)
+    for name in VARIANTS:
+        for g, w in zip(overlap_counts_variant(name, a, b_rc, al, bl, min0, D), want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"B5: the {name} variant differs on the batch")
+    ms = graph_turns({name: (lambda f=name: overlap_counts_variant(f, a, b_rc, al, bl, min0, D))
+                      for name in VARIANTS})
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    wide = [torch.randint(0, 256, a.shape, generator=gen, dtype=torch.uint8).to(a.device)
+            for _ in range(2)]
+    wide[1][:, ::2] = wide[0][:, ::2]  # equal codes at every other position
+    got = overlap_counts(wide[0], wide[1], al, bl, min0, D)
+    for g, w in zip(got, overlap_counts_plain(wide[0], wide[1], al, bl, min0, D)):
+        if not torch.equal(g, w):
+            raise AssertionError("B5: codes 0..255 differ from the plain version")
+    print("B5 overlap_scan on codes 0..255 (8 planes): exact=True")
+    loops = sass_innermost_loops(build.library_path(), "overlap_bits_kernel", "POPC")
+    per_word = min(loops) if loops else None
+    olen = want[2].to(torch.int64)
+    words = int(((olen + 31) // 32).sum().item())
+    nbytes_ = nbytes(a, b_rc, al, bl) + 3 * 4 * a.shape[0] * D
+    r = bound(nbytes_, (per_word or 0) * words, INSTR_S)
+    if per_word is None:
+        r["ops"] = None  # not counted in this run: the bound is the bytes'
+    old = bound(nbytes_, 4 * int(olen.sum().item()), INT32_OPS_S)
+    r.update(ms=ms["main"], variants_ms={"byte": ms["byte"]}, sass_word_loops=loops,
+             words=words, bound_ops_old_ms=old["bound_ms"], library_ms=None)
+    print(f"B5 SASS: the word loops of overlap_bits_kernel hold {loops} instructions "
+          f"(3 and 8 planes){'' if loops else ' (no cuobjdump: no instruction bound)'}; "
+          f"{words} words of 32 positions in the batch's windows")
+    print(f"B5 in turns in a graph: bit-sliced kernel {ms['main']:.4f} ms, the first port's "
+          f"byte kernel {ms['byte']:.4f} ms ({ms['byte'] / ms['main']:.2f}x); bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}: {nbytes_} bytes, {r['ops']} instructions; "
+          f"{r['bound_ms'] / ms['main']:.3f} of it); the first port's operations bound "
+          f"{old['bound_ms']:.4f} ms")
+    return r
 
 
 #: B6's timed functions: the kernel, its original kernel (a measurement
@@ -701,10 +782,11 @@ def b4_equal(label: str, got, want, lens, Cc: int):
     return int(live.sum().item())
 
 
-def sass_loop_instructions(lib: str, kernel: str) -> int | None:
-    """Instructions in the body of the largest loop of `kernel` (a
-    substring of its mangled name) in the built library's SASS, read
-    with cuobjdump; None where the toolkit has no cuobjdump."""
+def sass_loops(lib: str, kernel: str) -> list[tuple[int, int, list[str]]] | None:
+    """The loops of `kernel` (a substring of its mangled name) in the
+    built library's SASS, read with cuobjdump: (first address, address
+    of the backward branch, the instructions between, NOPs left out) for
+    each backward branch. None where the toolkit has no cuobjdump."""
     import re
 
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -726,8 +808,30 @@ def sass_loop_instructions(lib: str, kernel: str) -> int | None:
         m = re.search(r"\bBRA(?:\.[A-Z.]+)?\s+(?:!?U?P[T0-9]+\s*,\s*)?(?:`\()?(0x[0-9a-f]+)", t)
         if m and int(m.group(1), 16) <= a:
             lo = int(m.group(1), 16)
-            loops.append(sum(1 for x, _ in ins if lo <= x <= a))
-    return max(loops) if loops else None
+            loops.append((lo, a, [x for y, x in ins if lo <= y <= a]))
+    return loops
+
+
+def sass_loop_instructions(lib: str, kernel: str) -> int | None:
+    """Instructions in the body of the largest loop of `kernel`; None
+    where the toolkit has no cuobjdump."""
+    loops = sass_loops(lib, kernel)
+    return max(len(b) for _, _, b in loops) if loops else None
+
+
+def sass_innermost_loops(lib: str, kernel: str, opcode: str) -> list[int] | None:
+    """Instruction counts of the innermost loops of `kernel` (no other
+    loop inside them) that hold `opcode`, smallest first; None where the
+    toolkit has no cuobjdump."""
+    import re
+
+    loops = sass_loops(lib, kernel)
+    if loops is None:
+        return None
+    inner = [b for lo, hi, b in loops
+             if not any((lo, hi) != (l2, h2) and lo <= l2 and h2 <= hi for l2, h2, _ in loops)]
+    return sorted(len(b) for b in inner
+                  if any(re.search(rf"\b{opcode}\b", t) for t in b))
 
 
 #: the warp kernel's slices per lane at the main path's read length (151

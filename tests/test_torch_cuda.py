@@ -124,6 +124,123 @@ def test_cummax_kernel_rejects_what_it_does_not_take(cuda):
         scan.cummax_i64(torch.zeros((4, 4), dtype=torch.int64, device=cuda))
 
 
+def _cummax_tile():
+    from bbtools_torch.kernels.build import library
+
+    return library().cummax_i64_tile()
+
+
+def _cummax_random(n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randint(-(2**62), 2**62, (n,), generator=gen, dtype=torch.int64)
+    v[v.abs() < 2**60] *= -1
+    v[::997] = -(2**63)
+    return v
+
+
+@pytest.mark.parametrize("edge", ["1", "tile-1", "tile", "tile+1", "2tile+1", "1265711",
+                                  "5000003"])
+def test_cummax_one_pass_at_tile_and_look_back_edges(cuda, edge):
+    """The one-pass kernel at element counts around its tile, over the
+    join chunk's 1,265,711 and over 5,000,003 (look-backs of more than 32
+    tiles), against cummax_plain, one launch counted."""
+    tile = _cummax_tile()
+    n = {"1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "2tile+1": 2 * tile + 1}.get(edge) or int(edge)
+    v = _cummax_random(n, n).to(cuda)
+    before = scan.cummax_i64.launches
+    got = scan.cummax_i64(v)
+    torch.cuda.synchronize()
+    assert scan.cummax_i64.launches == before + 1
+    assert torch.equal(got, scan.cummax_plain(v))
+
+
+@pytest.mark.parametrize("pattern", ["all_int64_min", "descending"])
+def test_cummax_one_pass_carries(cuda, pattern):
+    """All INT64_MIN (the identity everywhere), and a strictly descending
+    input, whose every output is the first element: each tile's prefix
+    comes from tile 0 through the look-back."""
+    n = 1_265_711
+    if pattern == "all_int64_min":
+        v = torch.full((n,), -(2**63), dtype=torch.int64, device=cuda)
+    else:
+        v = torch.arange(2**62, 2**62 - n, -1, dtype=torch.int64, device=cuda)
+    got = scan.cummax_i64(v)
+    assert torch.equal(got, scan.cummax_plain(v))
+    assert bool((got == v[0]).all())
+
+
+def test_cummax_one_pass_in_a_cuda_graph(cuda):
+    """50 calls captured in one CUDA graph, on inputs of three sizes, each
+    exact on every replay: the records' epochs, not a memset before each
+    call, keep each call from reading an earlier call's records."""
+    sizes = (1_265_711, 4097, 300_001)
+    inputs = [_cummax_random(sizes[i % 3], i).to(cuda) for i in range(50)]
+    wants = [scan.cummax_plain(v) for v in inputs]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [scan.cummax_i64(v) for v in inputs]
+    for _ in range(3):
+        for o in outs:
+            o.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for i, (o, w) in enumerate(zip(outs, wants)):
+            assert torch.equal(o, w), i
+
+
+def test_cummax_one_pass_scratch_belongs_to_its_capture(cuda):
+    """A stream whose first call is made inside a capture: an eager call on
+    that stream before the first replay, and then the replay, are exact
+    (the capture's scratch is its graph's, zeroed by the graph, not the
+    stream's). Two graphs captured on torch's shared capture stream,
+    replayed at the same time on two streams, keep to their own scratch
+    and stay exact."""
+    v = [_cummax_random(1_265_711, 40 + i).to(cuda) for i in range(4)]
+    wants = [scan.cummax_plain(x) for x in v]
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    first = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(first, stream=fresh):
+        captured = scan.cummax_i64(v[0])
+    with torch.cuda.stream(fresh):
+        eager = scan.cummax_i64(v[1])
+    torch.cuda.synchronize()
+    assert torch.equal(eager, wants[1])
+    first.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, wants[0])
+
+    graphs, outs = [], []
+    for i in (2, 3):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            outs.append([scan.cummax_i64(v[i]) for _ in range(10)])
+        graphs.append(g)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(20):
+        for g, st in zip(graphs, streams):
+            with torch.cuda.stream(st):
+                g.replay()
+    torch.cuda.synchronize()
+    for i, o in zip((2, 3), outs):
+        assert all(torch.equal(x, wants[i]) for x in o), i
+
+
+def test_cummax_variants_agree_and_do_not_count(cuda):
+    """The first port's three-launch kernel equals the main kernel, and
+    neither variant counts as a launch."""
+    v = _cummax_random(1_265_711, 3).to(cuda)
+    want = scan.cummax_i64(v)
+    before = scan.cummax_i64.launches
+    for name in scan.VARIANTS:
+        assert torch.equal(scan.cummax_i64_variant(name, v), want), name
+        assert torch.equal(scan.cummax_i64(v), want), name
+    torch.cuda.synchronize()
+    assert scan.cummax_i64.launches == before + len(scan.VARIANTS)
+
+
 @pytest.mark.parametrize("panel", ["ref=adapters", "literal=AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"])
 def test_bbduk_cuda_equals_cpu(cuda, tmp_path, panel):
     from bbtools_torch.cli import main
@@ -194,6 +311,95 @@ def test_overlap_scan_kernel_matches_plain(cuda, B, L, min0, D):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert overlap_counts.launches == before + 1
+
+
+def _overlap_check(a, b, al, bl, min0, D):
+    """The bit-sliced kernel against overlap_counts_plain, and the
+    variants, exactly; one launch counted."""
+    from bbtools_torch.ops.overlap_scan import (VARIANTS, overlap_counts,
+                                                overlap_counts_plain, overlap_counts_variant)
+
+    before = overlap_counts.launches
+    got = overlap_counts(a, b, al, bl, min0, D)
+    torch.cuda.synchronize()
+    assert overlap_counts.launches == before + 1
+    want = overlap_counts_plain(a, b, al, bl, min0, D)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for name in VARIANTS:
+        for g, w in zip(overlap_counts_variant(name, a, b, al, bl, min0, D), want):
+            assert torch.equal(g, w), name
+    torch.cuda.synchronize()
+    assert overlap_counts.launches == before + 1
+    return want
+
+
+@pytest.mark.parametrize("codes", ["0..255", "0..15", "all_N", "N_and_pad9"])
+@pytest.mark.parametrize("L", [31, 33, 151, 250])
+def test_overlap_scan_exact_on_every_code(cuda, codes, L):
+    """Codes drawn from 0..255 (every pair compares 8 planes), 0..15 (4
+    planes), all N, and 0..4 with the JAX package's pad code 9; L not a
+    multiple of 32; lengths of 0 and of L; inserts past alen + blen."""
+    rng = np.random.default_rng(L + len(codes))
+    B = 300
+    hi = {"0..255": 256, "0..15": 16, "all_N": 5, "N_and_pad9": 5}[codes]
+    a = rng.integers(0, hi, (B, L)).astype(np.uint8)
+    b = rng.integers(0, hi, (B, L)).astype(np.uint8)
+    if codes == "0..255":
+        # equal bytes at random places, so matches occur at every code
+        same = rng.random((B, L)) < 0.5
+        b[same] = a[same]
+    if codes == "all_N":
+        a[:] = 4
+        b[: B // 2] = 4
+    if codes == "N_and_pad9":
+        a[rng.random((B, L)) < 0.1] = 9
+        b[rng.random((B, L)) < 0.1] = 9
+    al = rng.integers(0, L + 1, B).astype(np.int32)
+    bl = rng.integers(0, L + 1, B).astype(np.int32)
+    al[:4], bl[:4] = [0, L, 0, L], [0, 0, L, L]
+    min0, D = 1, 2 * L + 20  # the last 20 inserts lie past every alen + blen
+    t = {k: torch.from_numpy(x).to(cuda) for k, x in dict(a=a, b=b, al=al, bl=bl).items()}
+    good, bad, olen = _overlap_check(t["a"], t["b"], t["al"], t["bl"], min0, D)
+    assert int(olen[:, -20:].abs().sum()) == 0
+    if codes != "all_N":
+        assert int(good.sum()) > 0 and int(bad.sum()) > 0
+
+
+def test_overlap_scan_one_merge_batch(cuda):
+    """8,192 pairs of 150 bp at the BBMerge main path's shapes (codes
+    0-4, min0 12, D 289), a pair with a code above 15 among them."""
+    rng = np.random.default_rng(5)
+    B, L = 8192, 150
+    frag = rng.integers(0, 4, (B, 2 * L)).astype(np.uint8)
+    a = frag[:, :L].copy()
+    b = frag[:, 60 : 60 + L].copy()
+    a[rng.random((B, L)) < 0.01] = 4
+    a[17, 3] = 200
+    t = [torch.from_numpy(x).to(cuda) for x in
+         (a, b, np.full(B, L, np.int32), rng.integers(100, L + 1, B).astype(np.int32))]
+    good, _, _ = _overlap_check(*t, 12, 289)
+    assert int(good.max()) >= 80  # insert blen + 60: a 90-position overlap
+
+
+@pytest.mark.parametrize("L", [2100, 20_000])
+def test_overlap_scan_long_reads(cuda, L):
+    """Reads so long that a block holds fewer than its 8 pairs (L 2,100:
+    4 pairs in 25 KB of shared memory), or that one pair needs more than
+    48 KB and the launch opts in (L 20,000: 60 KB); codes 0..4 and, on
+    half the pairs, 0..255; lengths of 0, of L and between; inserts
+    around L, where the windows are longest."""
+    rng = np.random.default_rng(L)
+    B = 6
+    a = rng.integers(0, 5, (B, L)).astype(np.uint8)
+    b = rng.integers(0, 5, (B, L)).astype(np.uint8)
+    a[3:] = rng.integers(0, 256, (3, L))
+    b[3:] = np.where(rng.random((3, L)) < 0.5, a[3:], rng.integers(0, 256, (3, L)))
+    al = np.array([0, L, L, L - 17, 5, L], np.int32)
+    bl = np.array([L, 0, L, L, L - 3, L // 2], np.int32)
+    t = [torch.from_numpy(x).to(cuda) for x in (a, b, al, bl)]
+    good, bad, olen = _overlap_check(*t, L - 150, 300)
+    assert int(olen.max()) == L and int(good.sum()) > 0 and int(bad.sum()) > 0
 
 
 @pytest.mark.parametrize("k,mink,hdist", [(23, 11, 2), (13, 0, 1), (31, 11, 1)])
@@ -709,3 +915,83 @@ def test_bbmap_cuda_equals_cpu(cuda, tmp_path):
         outs[dev] = (se.read_bytes(), pe.read_bytes())
     assert outs["cuda"] == outs["cpu"]
     assert outs["cuda"][0].count(b"\n") > 512
+
+
+@pytest.fixture(scope="module")
+def repeat_genome(tmp_path_factory):
+    """A seeded 150 kb genome of two scaffolds with planted repeats: a
+    5 kb segment of scaffold 0 copied into scaffold 1 once exactly and
+    once with 1% substitutions. Reads of 151 bp (and pairs from inserts
+    of 200-500), three in eight of them drawn from the segment; indel
+    reads (60% with an indel) for the walk-cap overflow."""
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    tmp = tmp_path_factory.mktemp("repeats")
+    (n0, s0), (n1, s1) = random_genome(150_000, n_scaffolds=2, seed=13)
+    rng = np.random.default_rng(14)
+    seg = s0[20_000:25_000]
+    mut = bytearray(seg)
+    for p in rng.choice(len(seg), len(seg) // 100, replace=False):
+        mut[p] = b"ACGT"[(b"ACGT".index(mut[p]) + int(rng.integers(1, 4))) % 4]
+    s1 = s1[:30_000] + seg + s1[35_000:50_000] + bytes(mut) + s1[55_000:]
+    write_fasta(str(tmp / "ref.fa"), [(n0, s0), (n1, s1)])
+    write_fasta(str(tmp / "seg.fa"), [(b"segment", seg)])
+    ref, segment = load_reference(str(tmp / "ref.fa")), load_reference(str(tmp / "seg.fa"))
+    write_reads(str(tmp / "r.fq"), random_reads(
+        ref, 160, read_len=151, snp_rate=0.01, indel_rate=0.1, seed=3) + random_reads(
+        segment, 96, read_len=151, snp_rate=0.01, indel_rate=0.1, seed=4))
+    pairs = random_reads(ref, 96, read_len=151, paired=True, insert_range=(200, 500),
+                         snp_rate=0.01, seed=5) + random_reads(
+        segment, 64, read_len=151, paired=True, insert_range=(200, 500), snp_rate=0.01,
+        seed=6)
+    write_reads(str(tmp / "p1.fq"), [p[0] for p in pairs])
+    write_reads(str(tmp / "p2.fq"), [p[1] for p in pairs])
+    write_reads(str(tmp / "indel.fq"), random_reads(
+        ref, 64, read_len=151, snp_rate=0.01, indel_rate=0.6, seed=7) + random_reads(
+        segment, 32, read_len=151, snp_rate=0.01, indel_rate=0.6, seed=8))
+    return tmp
+
+
+REPEAT_CASES = {
+    "secondary_ambig_all": ["in=r.fq", "secondary=t", "ambig=all"],
+    "paired_secondary_ambig_all": ["in=p1.fq", "in2=p2.fq", "secondary=t", "ambig=all"],
+    "local": ["in=r.fq", "local=t"],
+    "fused_f": ["in=r.fq", "fused=f"],
+    "walk_cap_overflow": ["in=indel.fq", "batchreads=32"],
+}
+
+
+@pytest.mark.parametrize("case", list(REPEAT_CASES))
+def test_bbmap_cuda_equals_cpu_on_repeats(cuda, repeat_genome, case):
+    """BBMap's CUDA SAM and scafstats byte-equal to the CPU's on the
+    repeat genome, with the fill kernel launched: ties between the exact
+    copies, secondary sites on the mutated copy, the staged path
+    (fused=f), local alignment, and batches of 32 whose indel reads
+    overflow the fused phase's walk cap. The repeat reads must come out
+    ambiguous (and, for single-end secondary=t, as flag-256 lines)."""
+    from bbtools_torch.models import bbmap as tbbmap
+    from bbtools_torch.ops.msa_fill import msa_fill
+
+    d = repeat_genome
+    args = [f"ref={d / 'ref.fa'}"] + [
+        f"{f.split('=')[0]}={d / f.split('=')[1]}" if f.endswith(".fq") else f
+        for f in REPEAT_CASES[case]]
+    outs, tools = {}, {}
+    for dev in ("cuda", "cpu"):
+        sam, stats = d / f"{case}.{dev}.sam", d / f"{case}.{dev}.scafstats.txt"
+        before = msa_fill.launches + msa_fill.block_launches
+        tools[dev] = tbbmap.main([*args, f"out={sam}", f"scafstats={stats}", f"device={dev}"])
+        assert (msa_fill.launches + msa_fill.block_launches > before) == (dev == "cuda")
+        outs[dev] = (sam.read_bytes(), stats.read_bytes())
+    assert outs["cuda"] == outs["cpu"]
+    sam, stats = outs["cuda"]
+    ambiguous = sum(int(ln.split(b"\t")[6]) for ln in stats.splitlines()[1:])
+    assert ambiguous >= 20
+    if case == "secondary_ambig_all":
+        flags = [int(ln.split(b"\t")[1]) for ln in sam.splitlines() if not ln.startswith(b"@")]
+        assert sum(f & 0x100 != 0 for f in flags) >= 20
+    if case == "walk_cap_overflow":
+        assert tools["cuda"].fused_overflows >= 2 and tools["cpu"].fused_overflows >= 2
+    for tool in tools.values():
+        assert tool.reads_mapped >= 0.95 * tool.reads_in

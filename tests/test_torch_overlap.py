@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from bbtools_torch.ops import overlap as T
-from bbtools_torch.ops.overlap_scan import overlap_counts, overlap_counts_plain
+from bbtools_torch.ops.overlap_scan import (VARIANTS, overlap_counts, overlap_counts_plain,
+                                            overlap_counts_variant)
 from bbtools_tpu.ops import overlap as J
 from bbtools_tpu.ops.overlap_pallas import overlap_counts_pallas
 
@@ -50,6 +51,36 @@ def test_overlap_counts_match_xla_and_pallas(min0, D):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
         np.testing.assert_array_equal(g.numpy(), np.asarray(p))
         np.testing.assert_array_equal(g.numpy(), q.numpy())
+
+
+@pytest.mark.parametrize("codes", ["0..255", "0..15", "pad9"])
+@pytest.mark.parametrize("min0,D", [(1, 110), (12, 40)])
+def test_overlap_counts_any_code_match_xla_and_pallas(codes, min0, D):
+    """The contract the CUDA kernel keeps on codes outside 0..4: the
+    plain version equals overlap_counts_jnp and the Pallas kernel in
+    interpret mode on codes from 0..255 (half of b's bytes copied from
+    a, so every code also matches), from 0..15, and on 0..4 with the JAX
+    package's pad code 9 in the data; good counts only codes below 4."""
+    rng = np.random.default_rng(len(codes) + D)
+    a, b, alens, blens, _, _ = _pairs(13)
+    if codes == "pad9":
+        a[rng.random(a.shape) < 0.1] = 9
+        b[rng.random(b.shape) < 0.1] = 9
+    else:
+        hi = 256 if codes == "0..255" else 16
+        a = rng.integers(0, hi, a.shape).astype(np.uint8)
+        b = rng.integers(0, hi, b.shape).astype(np.uint8)
+        same = rng.random(a.shape) < 0.5
+        b[same] = a[same]
+    args = tuple(jnp.asarray(x) for x in (a, b, alens, blens))
+    ref = J.overlap_counts_jnp(*args, min0, D)
+    pal = overlap_counts_pallas(*args, min0, D, interpret=True)
+    plain = overlap_counts_plain(_t(a), _t(b), _t(alens), _t(blens), min0, D)
+    for r, p, q in zip(ref, pal, plain):
+        np.testing.assert_array_equal(q.numpy(), np.asarray(r))
+        np.testing.assert_array_equal(q.numpy(), np.asarray(p))
+    good, bad = plain[0].numpy(), plain[1].numpy()
+    assert good.sum() > 0 and bad.sum() > 0
 
 
 def test_right_justify_matches_np():
@@ -222,3 +253,15 @@ def test_entropy_min_overlap_matches_jnp_and_np(from_tail):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, wj)
     assert (got <= lens).any() and (got > lens).any()
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_overlap_variants_run_only_on_the_card(variant):
+    """The kernel's measurement variants have no plain version: CPU
+    tensors raise and count no launch."""
+    a = torch.zeros((2, 8), dtype=torch.uint8)
+    lens = torch.full((2,), 8, dtype=torch.int32)
+    before = overlap_counts.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        overlap_counts_variant(variant, a, a, lens, lens, 1, 4)
+    assert overlap_counts.launches == before

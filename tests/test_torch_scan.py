@@ -9,7 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from bbtools_torch.ops.scan import cummax_i64, cummax_plain
+from bbtools_torch.ops.scan import VARIANTS, cummax_i64, cummax_i64_variant, cummax_plain
 
 I64_MIN = np.iinfo(np.int64).min
 
@@ -42,3 +42,13 @@ def test_cummax_join_shaped_words():
 
 def test_cummax_empty():
     assert cummax_i64(torch.zeros(0, dtype=torch.int64)).shape == (0,)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_cummax_variants_run_only_on_the_card(variant):
+    """The kernel's measurement variants have no plain version: a CPU
+    tensor raises and counts no launch."""
+    before = cummax_i64.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        cummax_i64_variant(variant, torch.zeros(8, dtype=torch.int64))
+    assert cummax_i64.launches == before
