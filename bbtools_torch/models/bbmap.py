@@ -20,7 +20,7 @@ default single-end path they are one fused step per batch
 ladder, pairing, rescue selection, SAM) is a copy of the JAX package's;
 only the device calls differ. Flags whose modules are not ported yet
 raise NotImplementedError naming their ROADMAP item: tpshards (A7),
-bloomfilter (A6), covstats/basecov/covhist/bincov (A2/A5) and the pacbio
+bloomfilter (A6b), covstats/basecov/covhist/bincov (A2/A5) and the pacbio
 and skimmer presets (A4b).
 """
 
@@ -100,7 +100,7 @@ class BBMapConfig:
     #: the default single-end path; keep-sites / ambig=random / sharded
     #: runs use the staged path
     fused: bool = True
-    #: bloom prescreen (bbmap.sh bloomfilter flag; not ported, A6)
+    #: bloom prescreen (bbmap.sh bloomfilter flag; not ported, A6b)
     bloom_prescreen: bool = False
     sam_version: str = "1.4"  # sam=1.3 emits M cigars
     mhist: str | None = None  # per-position match/sub/del/ins rates
@@ -212,7 +212,7 @@ def _reject_unported(c: BBMapConfig):
     cov = [f for f in ("covstats", "basecov", "covhist", "bincov") if getattr(c, f)]
     unported = [
         (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
-        (c.bloom_prescreen, "bloomfilter (ops/cms.py)", "A6"),
+        (c.bloom_prescreen, "bloomfilter (ops/cms.py)", "A6b"),
         (bool(cov), f"{'/'.join(cov)} (models/pileup.py)", "A2/A5"),
     ]
     for on, what, item in unported:

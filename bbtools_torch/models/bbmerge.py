@@ -19,7 +19,7 @@ insert-size histogram.
 
 Flags whose stage is not ported yet raise NotImplementedError naming
 their ROADMAP item: extend2/ecct (k-mer extension and Tadpole correction,
-A3/A6), ecco and nn (the CellNet gate) (A2/A5) and tpshards (A7).
+A6b), ecco and nn (the CellNet gate) (A2/A5) and tpshards (A7).
 """
 
 from __future__ import annotations
@@ -104,8 +104,8 @@ class BBMergeConfig:
     use_entropy: bool = True
     batch_reads: int = 8192
     ziplevel: int | None = None
-    extend2: int = 0  # k-mer extension of unmerged pairs (not ported, A3/A6)
-    ecct: bool = False  # Tadpole correction before the scan (not ported, A3/A6)
+    extend2: int = 0  # k-mer extension of unmerged pairs (not ported, A6b)
+    ecct: bool = False  # Tadpole correction before the scan (not ported, A6b)
     #: CellNet gate (BBMerge.java nn= flag :425; not ported, A2/A5)
     nn: bool = False
     #: quality-weighted overlap scoring (BBMerge.java useQuality :3189,
@@ -158,8 +158,8 @@ def parse_args(argv: list[str]) -> BBMergeConfig:
 def _reject_unported(c: BBMergeConfig):
     """Raise for flags whose stage the port does not have yet."""
     unported = [
-        (c.extend2 > 0, "extend2 (k-mer extension)", "A3/A6"),
-        (c.ecct, "ecct (Tadpole error correction)", "A3/A6"),
+        (c.extend2 > 0, "extend2 (k-mer extension)", "A6b"),
+        (c.ecct, "ecct (Tadpole error correction)", "A6b"),
         (c.ecco, "ecco (error correction by overlap)", "A2/A5"),
         (c.nn, "nn (the CellNet merge gate, ml/cellnet.py)", "A2/A5"),
         (c.tpshards > 1, "tpshards>1 (multi-GPU)", "A7"),

@@ -4,10 +4,12 @@ and the host helpers around the fill.
 The PyTorch port of what BBMap needs from bbtools_tpu/ops/msa.py:
 `msa_walk` (traceback2, MultiStateAligner11ts.java:1167-1266) as a torch
 loop of R+Cc steps with one per-lane gather each, and copies of the host
-functions `col0_scores` and `match_strings_np`. The unpruned fill itself
-is ops/msa_fill.py (the B4 kernel). The pruned fill (fillLimited,
-`prune=True`) and `realign_batch` serve CallVariants and bbrealign and
-are not ported yet (ROADMAP A6).
+functions `col0_scores`, `prepare_limits_np` and `match_strings_np`,
+and `realign_batch`, CallVariants' realignment. The unpruned fill itself
+is ops/msa_fill.py: the B4 kernel over full-width windows, and its plain
+torch wavefront, which realignment runs over ragged windows on any
+device. The pruned fill (fillLimited, `prune=True`) has no caller yet
+and is not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -16,6 +18,42 @@ import numpy as np
 import torch
 
 from . import msa_constants as C
+
+
+def prepare_limits_np(read_codes, read_lens, ref_codes, ref_lens, min_score):
+    """Host precompute of vertLimit/horizLimit/floor/subfloor (:204-230).
+
+    read_codes [B, R], ref_codes [B, Cc]; min_score [B] already reduced by
+    MIN_SCORE_ADJUST. Returns vert [B, R+1], horiz [B, Cc+1], floor [B],
+    subfloor [B].
+    """
+    B, R = read_codes.shape
+    Cc = ref_codes.shape[1]
+    maxgain = (read_lens.astype(np.int64) - 1) * C.POINTS_MATCH2 + C.POINTS_MATCH
+    floor = min_score.astype(np.int64) - maxgain
+    subfloor = floor - 5 * C.POINTS_MATCH2
+    vert = np.zeros((B, R + 1), dtype=np.int64)
+    horiz = np.zeros((B, Cc + 1), dtype=np.int64)
+    pos = np.arange(R)
+    for arr, codes, lens in ((vert, read_codes, read_lens), (horiz, ref_codes, ref_lens)):
+        n = codes.shape[1]
+        defined = codes < 4
+        # step at index i (contribution when moving from i+1 to i):
+        nxt_defined = np.zeros_like(defined)
+        nxt_defined[:, : n - 1] = defined[:, 1:]
+        # cells at/after lens have no effect (we only read 0..lens)
+        within = np.arange(n)[None, :] < lens[:, None]
+        nxt_within = np.arange(n)[None, :] + 1 < lens[:, None]
+        step = np.where(
+            defined & within,
+            np.where(nxt_defined & nxt_within, C.POINTS_MATCH2, C.POINTS_MATCH),
+            0,  # NOCALL / NOREF
+        ).astype(np.int64)
+        # arr[i] = max(min_score - sum(step[i:lens]), floor) for i < lens
+        sfx = np.cumsum(step[:, ::-1], axis=1)[:, ::-1]
+        arr[:, :n] = np.maximum(min_score[:, None] - sfx, floor[:, None])
+        arr[np.arange(B), lens] = min_score
+    return vert, horiz, floor, subfloor
 
 
 def col0_scores(R: int) -> np.ndarray:
@@ -121,3 +159,44 @@ def match_strings_np(ops, nsteps, reads, read_lens, refs, ref_lens, max_col):
         n = int(nsteps[b])
         result.append(bytes(chars[b, :n][::-1]))
     return result
+
+
+def realign_batch(reads, read_lens, refs, ref_lens, device="cuda"):
+    """Full-alignment helper (the var2/Realigner use-case): glocal MSA of
+    each read against its padded reference window, with traceback, on
+    `device`: the unpruned torch wavefront over the ragged windows
+    (`msa_fill_plain` with ref_lens), the walk, then the host match
+    strings.
+
+    Returns (match_strings list[bytes], start_cols int array, scores).
+    start_col is the window column where the alignment begins.
+    """
+    from .msa_fill import msa_fill_plain
+
+    reads = np.asarray(reads, np.uint8)
+    refs = np.asarray(refs, np.uint8)
+    read_lens = np.asarray(read_lens, np.int32)
+    ref_lens = np.asarray(ref_lens, np.int32)
+    B = reads.shape[0]
+    Cc = refs.shape[1]
+    dev = torch.device(device)
+    t_lens = torch.as_tensor(read_lens, device=dev)
+    score, max_col, max_state, planes = msa_fill_plain(
+        torch.as_tensor(reads, device=dev), t_lens,
+        torch.as_tensor(refs, device=dev), torch.as_tensor(ref_lens, device=dev),
+    )
+    Rp = planes.shape[2] - 1  # the rows the fill kept
+    ops, nsteps = msa_walk(Rp, Cc, planes, t_lens, max_col, max_state)
+    ops = ops.cpu().numpy()
+    nsteps = nsteps.cpu().numpy()
+    score = score.cpu().numpy()
+    max_col = max_col.cpu().numpy()
+    matches = match_strings_np(
+        ops, nsteps, reads, read_lens, refs, ref_lens, max_col
+    )
+    start_cols = np.empty(B, dtype=np.int64)
+    for b in range(B):
+        m = matches[b]
+        ndiag = sum(m.count(x) for x in (b"m", b"S", b"N", b"D"))
+        start_cols[b] = int(max_col[b]) - ndiag
+    return matches, start_cols, score

@@ -123,10 +123,22 @@ def live_cells(read_lens, R: int, Cc: int):
     return (r <= lens) & (c >= 0) & (c <= Cc)
 
 
-def msa_fill_plain(reads, read_lens, refs):
+def msa_fill_plain(reads, read_lens, refs, ref_lens=None):
     """(max_score, max_col, max_state, planes) of the unpruned fill, one
     torch step per diagonal over [S, R'+1] planes (the XLA wavefront of
-    bbtools_tpu/ops/msa.py `msa_fill` on reads[:, :R'])."""
+    bbtools_tpu/ops/msa.py `msa_fill(prune=False, traceback=True)` on
+    reads[:, :R']).
+
+    ref_lens (int [S]) gives each window's length where the windows are
+    ragged (realignment's); the final-row capture then stops at column
+    ref_len and the late insertion barrier at ref_len - 1. None means
+    full-width windows, ref_len = Cc, the only case B4 takes. Torch ops
+    on any device.
+
+    Two roles: B4's plain yardstick (chip_smoke.py, the card tests) and
+    realignment's fill (`ops.msa.realign_batch`). A faster realignment
+    fill goes beside this function, never in its place, so that B4's
+    yardstick stays independent of the kernels it checks."""
     reads = reads[:, : trimmed_rows(reads, read_lens)]
     S, R = reads.shape
     Cc = refs.shape[1]
@@ -152,6 +164,7 @@ def msa_fill_plain(reads, read_lens, refs):
     del_barrier = (rr < C.BARRIER_D1) | (rr > lens - C.BARRIER_D1)
     ins_lo = rr < C.BARRIER_I1
     ins_hi = rr > lens - C.BARRIER_I1
+    cols = lens.new_full((S, 1), Cc) if ref_lens is None else ref_lens.to(i32)[:, None]
     fin_row = lens.clamp(0, R).long()
     fin_ok = (lens >= 0) & (lens <= R)
 
@@ -230,7 +243,7 @@ def msa_fill_plain(reads, read_lens, refs):
         planes[d - 2] = (ms_prev + torch.where(d_pick, 0, 4)
                          + torch.where(i_pick, 0, 32)).to(torch.uint8)
         # --- barriers, time clamp, boundary ---
-        ins_barrier = (ins_lo & (c > 1)) | (ins_hi & (c < Cc - 1))
+        ins_barrier = (ins_lo & (c > 1)) | (ins_hi & (c < cols - 1))
         del_score = torch.where(del_barrier, subfloor, del_score)
         del_time = torch.where(del_barrier, 0, del_time)
         ins_score = torch.where(ins_barrier, subfloor, ins_score)
@@ -246,7 +259,7 @@ def msa_fill_plain(reads, read_lens, refs):
             out.append(torch.where(in_range, v, b).to(i32))
         # --- final-row capture: r == len, 1 <= c <= Cc, strict > ---
         fin_c = d - lens[:, 0]
-        valid = fin_ok[:, 0] & (fin_c >= 1) & (fin_c <= Cc)
+        valid = fin_ok[:, 0] & (fin_c >= 1) & (fin_c <= cols[:, 0])
         for st, plane in enumerate(out[0::2]):
             fs = plane.gather(1, fin_row)[:, 0]
             cand = valid & (fs > best_s[st])

@@ -47,7 +47,7 @@ def main(argv=None) -> int:
         print("chip_profile: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import ECOLI_LEN, head_fastq, run_bbmap
+    from chip_smoke import ECOLI_LEN, head_fastq, run_tool
 
     from bbtools_torch.io.fasta import load_reference, write_fasta
     from bbtools_torch.kernels import build
@@ -73,11 +73,11 @@ def main(argv=None) -> int:
         head_fastq(fq, head, 3 * 4096)
         sam = os.path.join(work, "out.sam")
         bbmap = [f"ref={ref_fa}", f"out={sam}"]
-        run_bbmap([*bbmap, f"in={head}"], "cuda")  # warm-up
+        run_tool("bbmap", [*bbmap, f"in={head}"], "cuda")  # warm-up
 
         prof = cProfile.Profile()
         prof.enable()
-        tool, dt = run_bbmap([*bbmap, f"in={fq}"], "cuda")
+        tool, dt, _ = run_tool("bbmap", [*bbmap, f"in={fq}"], "cuda")
         torch.cuda.synchronize()
         prof.disable()
         print(f"cProfile: {args.reads} reads in {dt:.2f} s = {args.reads / dt:.0f} reads/s "
@@ -90,10 +90,10 @@ def main(argv=None) -> int:
             if key == "tottime":
                 print("\n".join(buf.getvalue().splitlines()[:40]))
 
-        _, plain_wall = run_bbmap([*bbmap, f"in={head}"], "cuda")
+        _, plain_wall, _ = run_tool("bbmap", [*bbmap, f"in={head}"], "cuda")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as p:
-            _, traced_wall = run_bbmap([*bbmap, f"in={head}"], "cuda")
+            _, traced_wall, _ = run_tool("bbmap", [*bbmap, f"in={head}"], "cuda")
             torch.cuda.synchronize()
         ka = p.key_averages()
         # the kernels themselves, not the host ops that launched them

@@ -42,22 +42,46 @@ From the root of a checkout, on a machine with a CUDA card:
      (cold, the time its HBM bound is held against);
   4. drives each path through the CLI entry point on device=cuda with
      every launch counter set to 0 just before it and read just after:
-     `bbduk` over a seeded gzipped FASTQ of N reads (500,000 by
+     `bbduk` over a seeded gzipped FASTQ of N reads (300,000 by
      default) at ref=adapters hdist=1 (sorted join, B2) and on one
      literal adapter (lane table, B1); `bbduk` on the matcher backend
      (ref=adapters,phix k=23 mink=11 hdist=2, B3) over 100,000 of those
      reads, with its index build timed on its own line; a paired `bbduk
      tbo tpe` over seeded interleaved pairs (B1, B5, B6); and `bbmerge`
-     over a seeded pair of gzipped FASTQ files of N pairs (300,000 by
+     over a seeded pair of gzipped FASTQ files of N pairs (150,000 by
      default; B5, B6); `bbmap` (B4) against a seeded genome of E. coli
-     K-12's length (4,641,652 bp) over 200,000 reads of 151 bp and over
-     50,000 pairs, with reads/s, pairs/s, the index build, the mapped
+     K-12's length (4,641,652 bp) over 50,000 reads of 151 bp and over
+     15,000 pairs, with reads/s, pairs/s, the index build, the mapped
      share, the B4 launches and the batches that overflowed the fused
      phase's walk cap on lines of their own;
-  5. runs every path but the matcher's on its first 20,000 reads (pairs)
+  5. BASELINE configs #2 and #5 on one seeded data set (a 1,000,000 bp
+     genome, a copy with planted SNPs and indels, 200,000 reads of 150 bp
+     of the copy with 0.5% errors), through the CLI on device=cuda, each
+     with the device routes of its counts required on the card
+     (DeviceSpectrum's merges, count_batch's sort-reduce, the W-word
+     sort): `kmercountexact k=31 khist= peaks=` over the reads (reads/s,
+     unique k-mers, the spectrum's capacity, the main peak, held near
+     the k-mer depth the coverage and error rate give), `kmercountexact
+     k=93` over 50,000 of them, `tadpole k=62` over the reads of the
+     copy's first 25,000 bp (its load and its host walk on lines of
+     their own; contigs, N50, and the share of the region's 31-mers the
+     contigs hold), Tadpole k=62's load (`Tadpole.load_kmers`) over all
+     200,000 reads (reads/s; the 62-mers seen 3 or more times held near
+     the genome's), then `bbmap` (B4) over 100,000 reads against the
+     genome and `callvariants` on its SAM, with defaults and realign=t
+     (variants called, recall of the planted SNPs and indels, false
+     calls, reads realigned);
+  6. runs every path but the matcher's on its first 20,000 reads (pairs)
      on device=cuda and device=cpu and requires byte-equal output files
      (the matcher's CUDA-against-CPU equality is held by the CPU tests);
-     `bbmap` on its first 4,096 reads and 2,048 pairs.
+     `bbmap` on its first 2,048 reads and 1,024 pairs; kmercountexact
+     k=31 and k=93 (khist, peaks, dump) on 20,000 reads, Tadpole k=62
+     on the region's reads and mode=correct on 500 of them, CallVariants
+     realign=t and nn=t on 4,096 records of config #5's SAM, those with
+     an indel soft-clipped from it on (realign=t: the same reads, at
+     least one, realigned on both devices; nn=t equal but for a last
+     QUAL digit that float32 rounding may flip, counted);
+  7. prints each phase's seconds.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -72,6 +96,7 @@ import gzip
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -94,7 +119,7 @@ MM_CONFIG = ["ref=adapters,phix", "k=23", "mink=11", "hdist=2", "ktrim=r",
              "minlen=40"]
 MM_READS = 100_000
 TBO_FLAGS = CONFIGS["1adapter"] + ["tbo", "tpe"]
-TBO_PAIRS = 200_000
+TBO_PAIRS = 100_000
 BATCH = 16384  # reads per batch of the bbduk main path (batchreads default)
 MERGE_BATCH = 8192  # pairs per batch of the bbmerge main path
 CHECK_READS = 20_000  # reads (pairs) of the CUDA-against-CPU comparison
@@ -107,16 +132,48 @@ MERGED_RANGE = (0.55, 0.70)
 #: substitutions and 1-10 bp indels in 10% of them, pairs from inserts of
 #: 200-500 bp
 ECOLI_LEN = 4_641_652
-MAP_READS = 200_000
-MAP_PAIRS = 50_000
-MAP_CHECK_READS = 4096  # one batch (batchreads default)
-MAP_CHECK_PAIRS = 2048
+MAP_READS = 50_000
+MAP_PAIRS = 15_000
+MAP_BATCH_READS = 4096  # one batch (batchreads default), for B4's checks
+MAP_CHECK_READS = 2048  # reads of the CUDA-against-CPU comparison
+MAP_CHECK_PAIRS = 1024
 #: mapped share predicted for reads drawn from the reference itself
 #: (PERF.md section 6, written before the first run); the CPU tests map
 #: 300 of 300 such reads on a 150 kb genome
 MAPPED_RANGE = (0.99, 1.0)
 #: share of mapped primary reads placed within 20 bp of their true start
 PLACED_MIN = 0.97
+#: BASELINE configs #2 (kmercountexact k=31 khist) and #5 (Tadpole k=62,
+#: then CallVariants on BBMap's SAM), on one seeded data set: a genome of
+#: a fifth of E. coli's length, a copy of it with planted SNPs (1 per
+#: 1,000 bp) and ~100 indels of 1-10 bp, and 150 bp reads of the copy at
+#: 30x with 0.5% base errors
+ASM_GENOME = 1_000_000
+ASM_READS = 200_000
+ASM_READ_LEN = 150
+ASM_ERR = 0.005
+ASM_SNP_RATE = 0.001
+ASM_INDELS = 100
+KCE93_READS = 50_000  # reads of the k=93 count
+CV_READS = 100_000  # reads BBMap maps for CallVariants
+CV_CHECK_READS = 4096  # SAM records of the CUDA-against-CPU CallVariants
+#: Tadpole assembles the reads that lie in the copy's first ASM_REGION bp:
+#: its contig walk is host code whose steps grow with the longest contig,
+#: ~0.8 ms a step on a CPU core, so the whole genome would take ~15 minutes
+#: (PERF.md section 4)
+ASM_REGION = 25_000
+ECC_CHECK_READS = 500  # reads of Tadpole mode=correct on both devices
+#: the least share of the region's distinct canonical 31-mers that the
+#: k=62 contigs must hold: 0.9989 on a 20,000 bp region of a 100,000 bp
+#: genome at the same depth and error rate on the CPU (PERF.md section 4)
+ASM_RECALL_MIN = 0.98
+#: CallVariants at 15x (CV_READS of the 30x reads): the least shares of
+#: the planted SNPs and indels called PASS, and the most PASS rows that
+#: match no planted variant (112 of 112 SNPs, 20 of 20 indels and no
+#: false call at 10,000 reads of a 100,000 bp genome on the CPU)
+CV_SNP_RECALL_MIN = 0.95
+CV_INDEL_RECALL_MIN = 0.8
+CV_FALSE_MAX = 10
 
 # Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
@@ -1049,18 +1106,6 @@ def run_bbmerge(fin: list[str], work: str, tag: str, device: str):
     return outs, time.perf_counter() - t0, err.getvalue()
 
 
-def run_bbmap(args: list[str], device: str):
-    """`bbmap` through the CLI's dispatch; returns the tool (its counters)
-    and the wall seconds."""
-    from bbtools_torch.cli import TOOLS
-
-    err = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        tool = TOOLS["bbmap"]([*args, f"device={device}"])
-    return tool, time.perf_counter() - t0
-
-
 def placed_share(sam: str) -> tuple[int, float]:
     """(mapped primary records, the share of them whose POS lies within
     20 bp of the read's true start, which synth writes into its name)."""
@@ -1081,6 +1126,375 @@ def placed_share(sam: str) -> tuple[int, float]:
     return mapped, placed / max(mapped, 1)
 
 
+def plant_variants(codes, rng):
+    """The copy of `codes` with SNPs at ASM_SNP_RATE and ASM_INDELS indels
+    of 1-10 bp (half insertions), at least 200 bp apart. Returns the
+    copy and the truth: {(pos0, "SUB"|"INS"|"DEL")} in the original's
+    coordinates (an insertion goes before pos0, a deletion starts
+    there)."""
+    n = len(codes)
+    snp = np.flatnonzero(rng.random(n) < ASM_SNP_RATE)
+    out = codes.copy()
+    out[snp] = (out[snp] + rng.integers(1, 4, len(snp))) % 4
+    truth = {(int(p), "SUB") for p in snp}
+    sites = np.sort(rng.choice(np.arange(1000, n - 1000, 200), ASM_INDELS, replace=False))
+    parts, prev = [], 0
+    for i, p in enumerate(sites):
+        ln = int(rng.integers(1, 11))
+        if i % 2:
+            parts += [out[prev:p], rng.integers(0, 4, ln).astype(np.uint8)]
+            prev = p
+            truth.add((int(p), "INS"))
+        else:
+            parts.append(out[prev:p])
+            prev = p + ln
+            truth.add((int(p), "DEL"))
+        # a SNP inside a deleted span is no variant of the copy
+        truth -= {(int(q), "SUB") for q in range(p, p + ln)} if i % 2 == 0 else set()
+    parts.append(out[prev:])
+    return np.concatenate(parts), truth
+
+
+def make_asm_data(work: str, seed: int) -> dict:
+    """The config #2/#5 data set (ASM_* above), written as FASTA and
+    gzipped FASTQ, with the heads the phases take."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import parse_truth, random_genome, random_reads, write_reads
+
+    rng = np.random.default_rng(seed)
+    d = {k: os.path.join(work, f"asm_{k}") for k in (
+        "ref.fa", "copy.fa", "reads.fq.gz", "kce93.fq.gz", "head.fq.gz", "cv.fq.gz",
+        "region.fq.gz", "ecc.fq.gz")}
+    write_fasta(d["ref.fa"], random_genome(ASM_GENOME, seed=seed))
+    codes = load_reference(d["ref.fa"]).scaffold_codes(0)
+    copy, d["truth"] = plant_variants(codes, rng)
+    write_fasta(d["copy.fa"], [(b"copy", CODE_TO_BASE[np.minimum(copy, 4)].tobytes())])
+    reads = random_reads(load_reference(d["copy.fa"]), ASM_READS, read_len=ASM_READ_LEN,
+                         snp_rate=ASM_ERR, seed=seed + 1)
+    write_reads(d["reads.fq.gz"], reads)
+    write_reads(d["kce93.fq.gz"], reads[:KCE93_READS])
+    write_reads(d["head.fq.gz"], reads[:CHECK_READS])
+    write_reads(d["cv.fq.gz"], reads[:CV_READS])
+    region = [r for r in reads if parse_truth(r[0])[1] + ASM_READ_LEN <= ASM_REGION]
+    write_reads(d["region.fq.gz"], region)
+    write_reads(d["ecc.fq.gz"], region[:ECC_CHECK_READS])
+    d["region_reads"] = len(region)
+    d["copy_codes"] = copy
+    d["depth31"] = (ASM_READS * ASM_READ_LEN / len(copy) * (ASM_READ_LEN - 30)
+                    / ASM_READ_LEN * (1 - ASM_ERR) ** 31)
+    return d
+
+
+def device_calls() -> dict:
+    """The device routes of the k-mer counts: calls on CUDA tensors."""
+    from bbtools_torch.ops import kmer_count, kmers2
+
+    return {"merge_spectra": kmer_count.merge_spectra.device_calls,
+            "sort_reduce": kmer_count.sort_reduce.device_calls,
+            "count_words": kmers2.count_words.device_calls}
+
+
+def run_tool(tool: str, argv: list[str], device: str):
+    """`tool` through the CLI's dispatch on `device`: (what its main
+    returns, wall seconds, its stderr)."""
+    from bbtools_torch.cli import TOOLS
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        res = TOOLS[tool]([*argv, f"device={device}"])
+    return res, time.perf_counter() - t0, err.getvalue()
+
+
+def run_routed(name: str, tool: str, argv: list[str], needs: dict):
+    """run_tool on cuda, requiring each device route in `needs` to be
+    called exactly that many times (None: at least once) in the run."""
+    return routed(name, lambda: run_tool(tool, argv, "cuda"), needs)
+
+
+def routed(name: str, fn, needs: dict):
+    """fn(), requiring each device route in `needs` to be called exactly
+    that many times (None: at least once) in the call."""
+    before = device_calls()
+    res = fn()
+    got = {k: v - before[k] for k, v in device_calls().items()}
+    print(f"device calls on the {name} path: {got}")
+    for k, n in needs.items():
+        if got[k] <= 0 if n is None else got[k] != n:
+            raise AssertionError(f"{name}: {k} called {got[k]} times on the card")
+    return res
+
+
+def kmer_recall(contigs: list[bytes], codes, k: int = 31) -> float:
+    """Share of the distinct canonical k-mers of `codes` found in the
+    contigs."""
+    from bbtools_torch.core.dna import BASE_TO_CODE
+    from bbtools_torch.ops.kmers import rolling_kmers_np
+
+    def keys(c):
+        fwd, rkm, run = rolling_kmers_np(np.asarray(c, np.uint8)[None, :], k)
+        return np.unique(np.maximum(fwd, rkm)[run >= k])
+
+    want = keys(codes)
+    got = [keys(BASE_TO_CODE[np.frombuffer(c, np.uint8)]) for c in contigs if len(c) >= k]
+    got = np.unique(np.concatenate(got)) if got else np.zeros(0, np.int64)
+    return float(np.isin(want, got).mean())
+
+
+def vcf_grade(path: str, truth: set) -> dict:
+    """PASS rows of a VCF against the planted variants: SNPs by position,
+    indels by type within 10 bp (an indel in a repeat may be placed
+    anywhere in it)."""
+    rows = []
+    with open(path, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"#"):
+                continue
+            f = line.split(b"\t")
+            if f[6] != b"PASS":
+                continue
+            typ = f[7].split(b"TYP=")[1].split(b";")[0].decode()
+            pos0 = int(f[1]) - (1 if typ == "SUB" else 0)
+            rows.append((pos0, typ))
+    found, false = set(), 0
+    for pos0, typ in rows:
+        hits = [t for t in ((pos0, typ),) if t in truth] if typ == "SUB" else [
+            (p, typ) for p in range(pos0 - 10, pos0 + 11) if (p, typ) in truth]
+        found.update(hits)
+        false += not hits
+    out = {"called": len(rows), "false": false}
+    for typ in ("SUB", "INS", "DEL"):
+        n = sum(t == typ for _, t in truth)
+        out[typ] = (sum(t == typ for _, t in found), n)
+    return out
+
+
+def clip_indels(src: str, dst: str, n: int) -> int:
+    """The header and first n records of SAM src, written to dst with each
+    record whose CIGAR holds an insertion or a deletion soft-clipped from
+    its first indel on, as a mapper that clips rather than opening a gap
+    writes them: the reads realign=t exists for. Returns how many were
+    clipped."""
+    clipped = kept = 0
+    with open(src, "rb") as fi, open(dst, "wb") as fo:
+        for line in fi:
+            if not line.startswith(b"@"):
+                kept += 1
+                if kept > n:
+                    break
+                f = line.split(b"\t")
+                ops = re.findall(rb"(\d+)([MIDNSHP=X])", f[5])
+                cut = next((i for i, (_, op) in enumerate(ops) if op in b"ID"), None)
+                aligned = cut is not None and any(op in b"M=X" for _, op in ops[:cut])
+                if aligned:
+                    tail = sum(int(x) for x, op in ops[cut:] if op in b"MIS=X")
+                    f[5] = b"".join(x + op for x, op in ops[:cut]) + b"%dS" % tail
+                    line = b"\t".join(f)
+                    clipped += 1
+            fo.write(line)
+    return clipped
+
+
+def n50(lens) -> int:
+    lens = sorted(lens, reverse=True)
+    half, acc = sum(lens) / 2, 0
+    for x in lens:
+        acc += x
+        if acc >= half:
+            return x
+    return 0
+
+
+def asm_phases(asm: dict, work: str, card: str, phase_s: dict) -> dict:
+    """BASELINE configs #2 and #5 through the CLI on device=cuda:
+    kmercountexact k=31 (khist, peaks) over the reads and k=93 over their
+    head, Tadpole k=62 over the region's reads, BBMap over CV_READS reads
+    and CallVariants on its SAM, with defaults and realign=t. Each path's
+    device routes must run on the card. Returns the outputs the CUDA
+    against CPU checks reuse."""
+    # ---- config #2: kmercountexact (DeviceSpectrum; W-word count) ----
+    t0 = time.perf_counter()
+    kh, pk = (os.path.join(work, f"asm.cuda.{x}") for x in ("khist", "peaks"))
+    (spec, dt, _), _ = run_path("kmercountexact k=31", lambda: run_routed(
+        "kmercountexact k=31", "kmercountexact",
+        [f"in={asm['reads.fq.gz']}", "k=31", f"khist={kh}", f"peaks={pk}"],
+        {"merge_spectra": None, "sort_reduce": 0, "count_words": 0}), (), {})
+    with open(pk) as fh:
+        peaks = [[int(x) for x in ln.split()] for ln in fh if not ln.startswith("#")]
+    main_peak = max((r for r in peaks if r[1] >= 5), key=lambda r: r[4])
+    print(f"kmercountexact k=31 device=cuda: {ASM_READS} reads in {dt:.2f} s = "
+          f"{ASM_READS / dt:.0f} reads/s (wall, incl. IO) on {card}; "
+          f"{spec.n_unique} unique k-mers, spectrum capacity {spec.cap}; main peak "
+          f"center {main_peak[1]} (expected depth {asm['depth31']:.1f}), volume "
+          f"{main_peak[4]}")
+    if abs(main_peak[1] - asm["depth31"]) > 0.2 * asm["depth31"]:
+        raise AssertionError(f"kmercountexact: peak at {main_peak[1]}, expected "
+                             f"{asm['depth31']:.1f}")
+    (spec, dt, _), _ = run_path("kmercountexact k=93", lambda: run_routed(
+        "kmercountexact k=93", "kmercountexact",
+        [f"in={asm['kce93.fq.gz']}", "k=93", f"khist={kh}.93"],
+        {"merge_spectra": 0, "sort_reduce": 0, "count_words": -(-KCE93_READS // BATCH)}),
+        (), {})
+    print(f"kmercountexact k=93 device=cuda: {KCE93_READS} reads in {dt:.2f} s = "
+          f"{KCE93_READS / dt:.0f} reads/s on {card}; {spec.n_unique} unique k-mers")
+    phase_s["kmercountexact"] = time.perf_counter() - t0
+
+    # ---- config #5: Tadpole k=62 (micro-assembly of a region) ----
+    t0 = time.perf_counter()
+    contigs_fa = os.path.join(work, "asm.cuda.contigs.fa")
+    (tad, dt, _), _ = run_path("tadpole k=62", lambda: run_routed(
+        "tadpole k=62", "tadpole", [f"in={asm['region.fq.gz']}", "k=62",
+                                    f"out={contigs_fa}"],
+        {"merge_spectra": 0, "sort_reduce": 0, "count_words": None}), (), {})
+    lens = [len(c) for c in tad.contigs]
+    recall = kmer_recall(tad.contigs, asm["copy_codes"][:ASM_REGION])
+    n_in = asm["region_reads"]
+    print(f"tadpole k=62 load (count on the card, spectrum): {tad.load_seconds:.2f} s "
+          f"for {n_in} reads = {n_in / tad.load_seconds:.0f} reads/s on {card}")
+    print(f"tadpole k=62 walk (host): {tad.elapsed - tad.load_seconds:.2f} s on the host "
+          f"of {card}")
+    print(f"tadpole k=62 device=cuda: {n_in} reads in {dt:.2f} s = {n_in / dt:.0f} "
+          f"reads/s (wall) on {card}; {len(lens)} contigs, {sum(lens)} bp, N50 {n50(lens)}, "
+          f"longest {max(lens, default=0)}; {recall:.4f} of the region's 31-mers "
+          f"in contigs")
+    if recall < ASM_RECALL_MIN:
+        raise AssertionError(f"tadpole: contigs hold {recall:.4f} of the region")
+    # the load at config #5's full size: the tool's own count over every
+    # read (the walk above runs on the region's reads only)
+    from bbtools_torch.models.tadpole import Tadpole, parse_args
+
+    full = Tadpole(parse_args([f"in={asm['reads.fq.gz']}", "k=62", "device=cuda"]))
+    run_path("tadpole k=62 load", lambda: routed(
+        "tadpole k=62 load", lambda: full.load_kmers(asm["reads.fq.gz"]),
+        {"merge_spectra": 0, "sort_reduce": 0, "count_words": -(-ASM_READS // BATCH)}),
+        (), {})
+    genomic = len(asm["copy_codes"]) - 61
+    solid = int((full.table.counts >= 3).sum())
+    print(f"tadpole k=62 load over all {full.reads_in} reads (count on the card, host "
+          f"spectrum): {full.load_seconds:.2f} s = {full.reads_in / full.load_seconds:.0f} "
+          f"reads/s on {card}; {len(full.table.keys)} distinct 62-mers, {solid} seen 3 "
+          f"or more times ({genomic} in the genome)")
+    if full.reads_in != ASM_READS or abs(solid - genomic) > 0.03 * genomic:
+        raise AssertionError(f"tadpole load: {full.reads_in} reads, {solid} solid 62-mers")
+    del full
+    phase_s["tadpole"] = time.perf_counter() - t0
+
+    # ---- config #5: BBMap (B4) -> CallVariants, defaults and realign=t ----
+    t0 = time.perf_counter()
+    cv_sam = os.path.join(work, "asm.cuda.sam")
+    (tool, dt, _), _ = run_path(
+        "bbmap (config #5)", lambda: run_tool(
+            "bbmap", [f"ref={asm['ref.fa']}", f"in={asm['cv.fq.gz']}", f"out={cv_sam}"],
+            "cuda"), ("msa_fill",), {})
+    print(f"bbmap (config #5) device=cuda: {CV_READS} reads in {dt:.2f} s = "
+          f"{CV_READS / dt:.0f} reads/s on {card}; {tool.reads_mapped} mapped")
+    from bbtools_torch.ops import msa
+
+    realign_batch = msa.realign_batch
+    tasks = []
+
+    def counted(reads, *a, **kw):
+        tasks.append(len(reads))
+        return realign_batch(reads, *a, **kw)
+
+    for flags in ([], ["realign=t"]):
+        vcf = os.path.join(work, f"asm.cuda{''.join(flags)}.vcf")
+        msa.realign_batch = counted
+        try:
+            cv, dt, log = run_tool("callvariants", [f"in={cv_sam}", f"ref={asm['ref.fa']}",
+                                                    f"vcf={vcf}", *flags], "cuda")
+        finally:
+            msa.realign_batch = realign_batch
+        g = vcf_grade(vcf, asm["truth"])
+        print(f"callvariants {' '.join(flags) or 'defaults'} device=cuda: {cv.reads} "
+              f"reads in {dt:.2f} s = {cv.reads / dt:.0f} reads/s on {card}; "
+              f"{g['called']} variants called (PASS); recall SNPs "
+              f"{g['SUB'][0]}/{g['SUB'][1]}, insertions {g['INS'][0]}/{g['INS'][1]}, "
+              f"deletions {g['DEL'][0]}/{g['DEL'][1]}; false calls {g['false']}; "
+              f"Realigned {cv.realigned} of {sum(tasks)} reads the gate sent to "
+              f"realign_batch ({len(tasks)} calls)")
+        indels = [g[t][0] / max(g[t][1], 1) for t in ("INS", "DEL")]
+        if (g["SUB"][0] < CV_SNP_RECALL_MIN * g["SUB"][1] or g["false"] > CV_FALSE_MAX
+                or min(indels) < CV_INDEL_RECALL_MIN):
+            raise AssertionError(f"callvariants: {g}")
+        if bool(flags) != bool(tasks):
+            raise AssertionError(f"callvariants {flags}: {len(tasks)} realign_batch calls")
+    phase_s["bbmap + callvariants"] = time.perf_counter() - t0
+    return {"contigs": contigs_fa, "sam": cv_sam}
+
+
+def asm_checks(asm: dict, work: str, main_out: dict, phase_s: dict):
+    """kmercountexact (k=31, k=93: khist, peaks, dump) on CHECK_READS
+    reads, Tadpole k=62 on the region's reads (the main phase's contigs
+    against a CPU run) and mode=correct on ECC_CHECK_READS of them, and
+    CallVariants realign=t and nn=t on CV_CHECK_READS records of the
+    main phase's SAM, its indel reads soft-clipped (clip_indels):
+    byte-equal on device=cuda and device=cpu (nn=t but for flipped last
+    QUAL digits, bbtools_torch.utils.vcfdiff), with the same reads
+    realigned, at least one."""
+    contigs_fa, cv_sam, n_in = main_out["contigs"], main_out["sam"], asm["region_reads"]
+    # ---- CUDA against CPU: kmercountexact, Tadpole, CallVariants ----
+    t0 = time.perf_counter()
+    for k in (31, 93):
+        files = {}
+        for device in ("cuda", "cpu"):
+            outs = [os.path.join(work, f"head{k}.{device}.{x}")
+                    for x in ("khist", "peaks", "dump")]
+            _, dt, _ = run_tool("kmercountexact", [
+                f"in={asm['head.fq.gz']}", f"k={k}",
+                *(f"{x}={o}" for x, o in zip(("khist", "peaks", "dump"), outs))], device)
+            files[device] = read_all(outs)
+        if files["cuda"] != files["cpu"]:
+            raise AssertionError(f"kmercountexact k={k}: cuda and cpu outputs differ")
+        print(f"kmercountexact k={k}: cuda == cpu on {CHECK_READS} reads (khist, peaks, "
+              f"dump of {len(files['cuda'][2])} bytes)")
+    for tag, fin, flags, n in (("contig k=62", asm["region.fq.gz"], ["k=62"], n_in),
+                               ("correct k=31", asm["ecc.fq.gz"],
+                                ["k=31", "mode=correct"], ECC_CHECK_READS)):
+        files = {}
+        for device in ("cuda", "cpu"):
+            if device == "cuda" and tag.startswith("contig"):
+                files[device] = read_all([contigs_fa])  # the main phase's run
+                continue
+            out = os.path.join(work, f"tad.{tag[:6]}.{device}.out")
+            _, dt, _ = run_tool("tadpole", [f"in={fin}", *flags, f"out={out}"], device)
+            files[device] = read_all([out])
+            print(f"tadpole {tag} device={device}: {n} reads in {dt:.2f} s")
+        if files["cuda"] != files["cpu"]:
+            raise AssertionError(f"tadpole {tag}: cuda and cpu outputs differ")
+        print(f"tadpole {tag}: cuda == cpu on {n} reads ({len(files['cuda'][0])} bytes)")
+    head_sam = os.path.join(work, "asm.head.sam")
+    clipped = clip_indels(cv_sam, head_sam, CV_CHECK_READS)
+    from bbtools_torch.utils.vcfdiff import qual_flips
+
+    for flags in (["realign=t"], ["nn=t", "minscore=10"]):
+        files, realigned = {}, {}
+        for device in ("cuda", "cpu"):
+            vcf = os.path.join(work, f"head.{flags[0]}.{device}.vcf")
+            cv, dt, _ = run_tool("callvariants", [f"in={head_sam}",
+                                                  f"ref={asm['ref.fa']}", f"vcf={vcf}",
+                                                  *flags], device)
+            files[device] = read_all([vcf])[0]
+            realigned[device] = cv.realigned
+        if flags[0] == "realign=t":
+            if files["cuda"] != files["cpu"]:
+                raise AssertionError("callvariants realign=t: cuda and cpu VCFs differ")
+            if not realigned["cuda"] == realigned["cpu"] > 0:
+                raise AssertionError(f"callvariants realign=t: realigned {realigned}")
+            print(f"callvariants realign=t: cuda == cpu on {CV_CHECK_READS} SAM records, "
+                  f"{clipped} of them soft-clipped from their first indel on "
+                  f"({len(files['cuda'])} VCF bytes, {realigned['cuda']} realigned on "
+                  f"each device)")
+        else:
+            flips = qual_flips(files["cuda"], files["cpu"])
+            print(f"callvariants nn=t: cuda == cpu on {CV_CHECK_READS} SAM records "
+                  f"({len(files['cuda'])} VCF bytes; {flips} rows whose QUAL's last "
+                  f"digit flips)")
+    phase_s["cuda == cpu, kmercountexact, tadpole, callvariants"] = (
+        time.perf_counter() - t0)
+
+
 def read_all(paths) -> list[bytes]:
     out = []
     for p in paths:
@@ -1091,8 +1505,8 @@ def read_all(paths) -> list[bytes]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reads", type=int, default=500_000)
-    ap.add_argument("--pairs", type=int, default=300_000)
+    ap.add_argument("--reads", type=int, default=300_000)
+    ap.add_argument("--pairs", type=int, default=150_000)
     ap.add_argument("--map-reads", type=int, default=MAP_READS)
     ap.add_argument("--map-pairs", type=int, default=MAP_PAIRS)
     ap.add_argument("--seed", type=int, default=1)
@@ -1108,6 +1522,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1128,6 +1543,7 @@ def main(argv=None) -> int:
             if "registers" in line or "Compiling entry" in line:
                 print("  " + line.strip())
 
+    phase_s: dict[str, float] = {}
     work = os.path.join(HERE, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1176,6 +1592,8 @@ def main(argv=None) -> int:
         for m in (0, 1):
             write_reads(map_pe[m], [p[m] for p in pairs])
         del pairs
+        map_batch = os.path.join(work, "map_batch.fq.gz")
+        head_fastq(map_fq, map_batch, MAP_BATCH_READS)
         map_small = os.path.join(work, "map_head.fq.gz")
         head_fastq(map_fq, map_small, MAP_CHECK_READS)
         map_small_pe = [os.path.join(work, f"map_head_{m}.fq.gz") for m in (1, 2)]
@@ -1184,11 +1602,22 @@ def main(argv=None) -> int:
         print(f"bbmap input: genome of {ECOLI_LEN} bp (seeded), {args.map_reads} reads "
               f"and {args.map_pairs} pairs of 151 bp; made in "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        asm = make_asm_data(work, args.seed + 10)
+        print(f"config #2/#5 input: genome of {ASM_GENOME} bp (seeded), a copy with "
+              f"{sum(t == 'SUB' for _, t in asm['truth'])} SNPs, "
+              f"{sum(t != 'SUB' for _, t in asm['truth'])} indels of 1-10 bp; "
+              f"{ASM_READS} reads of {ASM_READ_LEN} bp of the copy ({ASM_ERR:.1%} base "
+              f"errors), {asm['region_reads']} of them in its first {ASM_REGION} bp; "
+              f"made in {time.perf_counter() - t0:.1f} s")
+        phase_s["input"] = time.perf_counter() - t_start
 
         t0 = time.perf_counter()
         kernels = check_kernels(small, *small_pairs)
-        kernels[3:3] = check_msa_fill(ref_fa, map_small)
-        print(f"kernel timings on: {card}; kernel phase {time.perf_counter() - t0:.1f} s")
+        kernels[3:3] = check_msa_fill(ref_fa, map_batch)
+        phase_s["kernels"] = time.perf_counter() - t0
+        print(f"kernel timings on: {card}; kernel phase {phase_s['kernels']:.1f} s")
+        t0 = time.perf_counter()
 
         # ---- the BBDuk paths, through the CLI ----
         needs = {"adapters_fa": ("cummax_i64",), "1adapter": ("lane_lookup",)}
@@ -1257,9 +1686,9 @@ def main(argv=None) -> int:
 
         # ---- BBMap (B4), single end and paired ----
         sam = os.path.join(work, "map.cuda.sam")
-        (tool, dt), got = run_path(
-            "bbmap", lambda: run_bbmap([f"ref={ref_fa}", f"in={map_fq}", f"out={sam}"],
-                                       "cuda"),
+        (tool, dt, _), got = run_path(
+            "bbmap", lambda: run_tool("bbmap", [f"ref={ref_fa}", f"in={map_fq}",
+                                                f"out={sam}"], "cuda"),
             ("msa_fill", "msa_fill_block"), launches)
         share = tool.reads_mapped / max(tool.reads_in, 1)
         mapped, placed = placed_share(sam)
@@ -1278,10 +1707,10 @@ def main(argv=None) -> int:
         if placed < PLACED_MIN:
             raise AssertionError(f"bbmap: only {placed:.4f} of mapped reads placed")
         pe_sam = os.path.join(work, "map_pe.cuda.sam")
-        (tool, dt), got = run_path(
+        (tool, dt, _), got = run_path(
             "bbmap paired",
-            lambda: run_bbmap([f"ref={ref_fa}", f"in={map_pe[0]}", f"in2={map_pe[1]}",
-                               f"out={pe_sam}"], "cuda"),
+            lambda: run_tool("bbmap", [f"ref={ref_fa}", f"in={map_pe[0]}",
+                                       f"in2={map_pe[1]}", f"out={pe_sam}"], "cuda"),
             ("msa_fill", "msa_fill_block"), {})
         share = tool.reads_mapped / max(tool.reads_in, 1)
         mapped, placed = placed_share(pe_sam)
@@ -1298,6 +1727,10 @@ def main(argv=None) -> int:
             raise AssertionError(f"bbmap paired: only {placed:.4f} of mapped reads placed")
         for row in kernels:
             row["launches"] = launches[row["name"]]
+        phase_s["bbduk, bbmerge, bbmap"] = time.perf_counter() - t0
+
+        asm_out = asm_phases(asm, work, card, phase_s)
+        t0 = time.perf_counter()
 
         # ---- CUDA against CPU, byte for byte, on the first reads ----
         for name, flags, fin in (*((n, CONFIGS[n], small) for n in CONFIGS),
@@ -1322,16 +1755,21 @@ def main(argv=None) -> int:
             files = {}
             for device in ("cuda", "cpu"):
                 out = os.path.join(work, f"map_head.{device}.sam")
-                _, dt = run_bbmap([f"ref={ref_fa}", *ins, f"out={out}"], device)
+                _, dt, _ = run_tool("bbmap", [f"ref={ref_fa}", *ins, f"out={out}"], device)
                 files[device] = read_all([out])
                 print(f"bbmap {name} device={device}: {n} reads/pairs in {dt:.2f} s")
             if files["cuda"] != files["cpu"]:
                 raise AssertionError(f"bbmap {name}: cuda and cpu SAM differ")
             print(f"bbmap {name}: cuda == cpu on {n} reads/pairs "
                   f"({len(files['cuda'][0])} SAM bytes)")
+        phase_s["cuda == cpu, earlier tools"] = time.perf_counter() - t0
+
+        asm_checks(asm, work, asm_out, phase_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from bbtools_torch.ops import lane_index, scan
+from bbtools_torch.utils import vcfdiff
 
 pytestmark = pytest.mark.cuda
 
@@ -995,3 +996,239 @@ def test_bbmap_cuda_equals_cpu_on_repeats(cuda, repeat_genome, case):
         assert tools["cuda"].fused_overflows >= 2 and tools["cpu"].fused_overflows >= 2
     for tool in tools.values():
         assert tool.reads_mapped >= 0.95 * tool.reads_in
+
+
+# ---- kmercountexact, Tadpole and CallVariants: their device counts and
+# realignment on the card equal the CPU's, and the CLIs write the same
+# bytes on both devices without falling back to a host route ----
+
+
+def _kmer_batches(seed, n, B=64, L=150, fresh=False):
+    g = np.random.default_rng(seed)
+    genome = g.integers(0, 4, 20_000).astype(np.uint8)
+    out = []
+    for _ in range(n):
+        if fresh:  # mostly new keys each batch
+            bases = g.integers(0, 4, (B, L)).astype(np.uint8)
+        else:
+            starts = g.integers(0, len(genome) - L, B)
+            bases = np.stack([genome[s : s + L] for s in starts])
+            err = g.random((B, L)) < 0.01
+            bases[err] = g.integers(0, 5, err.sum())
+        out.append((bases, g.integers(L // 2, L + 1, B).astype(np.int32)))
+    return out
+
+
+@pytest.mark.parametrize("cap,sync_every,fresh", [(1 << 21, 8, False), (1 << 9, 4, True),
+                                                  (1 << 12, 3, False)])
+def test_device_spectrum_cuda_equals_cpu(cuda, cap, sync_every, fresh):
+    """DeviceSpectrum on the card against the same on CPU tensors and the
+    host KmerSpectrum: spectrum, histogram and capacity, with growth and
+    late overflows replayed after growth (a 512-row carry, sync_every=4,
+    mostly new keys each batch)."""
+    from bbtools_torch.ops import kmer_count as kc
+
+    batches = _kmer_batches(cap, 10, fresh=fresh)
+    specs = {d: kc.DeviceSpectrum(31, cap=cap, sync_every=sync_every, device=d)
+             for d in ("cuda", "cpu")}
+    host = kc.KmerSpectrum(31)
+    before = kc.merge_spectra.device_calls
+    for bases, lengths in batches:
+        for s in specs.values():
+            s.add_batch(bases, lengths)
+        host.add_batch(*kc.count_batch_np(bases, lengths, 31))
+    host.flush()
+    got, want = specs["cuda"].spectrum(), specs["cpu"].spectrum()
+    for g, w, h in zip(got, want, (host.keys, host.counts)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, h)
+    np.testing.assert_array_equal(specs["cuda"].histogram(200), specs["cpu"].histogram(200))
+    assert specs["cuda"].cap == specs["cpu"].cap
+    assert kc.merge_spectra.device_calls - before >= len(batches)
+    if fresh:
+        assert specs["cuda"].cap > cap  # grown, with replays
+
+
+@pytest.mark.parametrize("k", [31, 62, 93])
+def test_device_counts_cuda_equal_host_routes(cuda, k):
+    """count_batch (k <= 31) and the W-word device count (k > 31) on the
+    card against the host routes (np.unique; the native radix count)."""
+    from bbtools_torch.ops import kmer_count as kc
+    from bbtools_torch.ops import kmers2
+
+    for bases, lengths in _kmer_batches(k, 3, B=512):
+        if k <= 31:
+            before = kc.sort_reduce.device_calls
+            got = kc.count_batch(bases, lengths, k, device=cuda)
+            want = kc.count_batch(bases, lengths, k, device="cpu")
+            assert kc.sort_reduce.device_calls == before + 1
+        else:
+            before = kmers2.count_words.device_calls
+            got = kmers2.count_batchw_exact(bases, lengths.astype(np.int64), k, cuda)
+            want = kmers2.count_batchw_exact(bases, lengths.astype(np.int64), k, "cpu")
+            assert kmers2.count_words.device_calls == before + 1
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert want[1].max() > 1
+
+
+def test_realign_batch_cuda_equals_cpu(cuda):
+    """realign_batch's fill and walk on the card over ragged windows."""
+    from bbtools_torch.ops.msa import realign_batch
+
+    g = np.random.default_rng(5)
+    B, R, W = 128, 151, 551
+    genome = g.integers(0, 4, 20_000).astype(np.uint8)
+    reads = np.full((B, R), 4, np.uint8)
+    rl = g.integers(90, R + 1, B).astype(np.int32)
+    refs = np.full((B, W), 4, np.uint8)
+    wl = g.integers(300, W + 1, B).astype(np.int32)
+    for i in range(B):
+        s = int(g.integers(0, len(genome) - W))
+        refs[i, : wl[i]] = genome[s : s + wl[i]]
+        r = genome[s + 150 : s + 150 + rl[i] + 8].copy()
+        r[g.random(len(r)) < 0.03] = g.integers(0, 4)
+        if i % 2:
+            r = np.concatenate([r[:40], r[40 + i % 8 :]])
+        reads[i, : rl[i]] = r[: rl[i]]
+    got = realign_batch(reads, rl, refs, wl, cuda)
+    want = realign_batch(reads, rl, refs, wl, "cpu")
+    assert got[0] == want[0]
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_kmer_tools_cuda_equal_cpu(cuda, tmp_path):
+    """kmercountexact (k=31 and k=93: khist, peaks, dump) and Tadpole
+    (k=31 and k=62 contigs, k=31 mode=correct) write the same bytes on
+    both devices. On the card every batch's count runs on the device:
+    kmercountexact's k=31 merges into DeviceSpectrum (three batches,
+    three merges), Tadpole's k=31 load takes count_batch's sort-reduce,
+    and every k > 31 count the W-word device sort, one call a batch; on
+    the CPU none of them."""
+    from bbtools_torch.cli import main
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.ops import kmer_count as kc
+    from bbtools_torch.ops import kmers2
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    write_fasta(str(tmp_path / "g.fa"), random_genome(20_000, seed=31))
+    reads = random_reads(load_reference(str(tmp_path / "g.fa")), 3000, read_len=150,
+                         snp_rate=0.005, seed=32)
+    write_reads(str(tmp_path / "r.fq"), reads)
+    write_reads(str(tmp_path / "ecc.fq"), reads[:600])  # the correction is host code
+    fq = tmp_path / "r.fq"
+    runs = {
+        "kce31": (["kmercountexact", f"in={fq}", "k=31", "batchreads=1000"],
+                  ["khist", "peaks", "dump"]),
+        "kce93": (["kmercountexact", f"in={fq}", "k=93"], ["khist", "peaks", "dump"]),
+        "tad31": (["tadpole", f"in={fq}", "k=31"], ["out"]),
+        "tad62": (["tadpole", f"in={fq}", "k=62"], ["out"]),
+        "ecc31": (["tadpole", f"in={tmp_path / 'ecc.fq'}", "k=31", "mode=correct"], ["out"]),
+    }
+    #: device calls a run makes on the card: (merges, sort-reduces,
+    #: W-word sorts)
+    expect = {"kce31": [3, 0, 0], "kce93": [0, 0, 1], "tad31": [0, 1, 0],
+              "tad62": [0, 0, 1], "ecc31": [0, 1, 0]}
+
+    def calls():
+        return [kc.merge_spectra.device_calls, kc.sort_reduce.device_calls,
+                kmers2.count_words.device_calls]
+
+    files = {}
+    for dev in ("cuda", "cpu"):
+        for tag, (argv, outs) in runs.items():
+            paths = [tmp_path / f"{tag}.{dev}.{o}" for o in outs]
+            before = calls()
+            main([*argv, *(f"{o}={p}" for o, p in zip(outs, paths)), f"device={dev}"])
+            files[tag, dev] = [p.read_bytes() for p in paths]
+            moved = [a - b for a, b in zip(calls(), before)]
+            assert moved == (expect[tag] if dev == "cuda" else [0, 0, 0]), (tag, dev, moved)
+    for tag in runs:
+        assert files[tag, "cuda"] == files[tag, "cpu"], tag
+    assert files["tad62", "cuda"][0].count(b">") >= 1
+
+
+def test_callvariants_cuda_equals_cpu(cuda, tmp_path):
+    """CallVariants realign=t and nn=t on the SAM of BBMap's CUDA run:
+    the VCF equal on both devices, but for the last QUAL digit with
+    nn=t, where the card's and the CPU's float32 matmuls may round a
+    scaled score the other way (tests/test_torch_callvariants.py holds
+    the same rule against the JAX package)."""
+    from bbtools_torch.cli import main
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import mutate_genome, random_genome, random_reads, write_reads
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(30_000, seed=41))
+    ref = load_reference(str(tmp_path / "ref.fa"))
+    mutated, _ = mutate_genome(ref, sub_rate=0.003, seed=42)
+    write_fasta(str(tmp_path / "mut.fa"),
+                [(b"scaffold_0", CODE_TO_BASE[np.minimum(mutated[0], 4)].tobytes())])
+    write_reads(str(tmp_path / "r.fq"), random_reads(
+        load_reference(str(tmp_path / "mut.fa")), 2000, read_len=150, snp_rate=0.005,
+        indel_rate=0.1, indel_range=(1, 10), seed=43))
+    sam = tmp_path / "m.sam"
+    main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}", f"out={sam}",
+          "device=cuda"])
+    for flags in (["realign=t"], ["nn=t", "minscore=10"]):
+        vcf = {}
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"{flags[0]}.{dev}.vcf"
+            main(["callvariants", f"in={sam}", f"ref={tmp_path / 'ref.fa'}", f"vcf={out}",
+                  *flags, f"device={dev}"])
+            vcf[dev] = out.read_bytes()
+        if flags[0] == "realign=t":
+            assert vcf["cuda"] == vcf["cpu"]
+        else:
+            vcfdiff.qual_flips(vcf["cuda"], vcf["cpu"])
+
+
+def test_realign_recovers_deletion_cuda_equals_cpu(cuda, tmp_path):
+    """Reads spanning a 3 bp deletion, written with the tail soft-clipped
+    (the case of tests/test_torch_callvariants.py's
+    test_realign_recovers_deletion_equal_jax): realign=t realigns them
+    on both devices, the same reads, and the VCFs are byte-equal."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.io.sam import SamWriter
+    from bbtools_torch.models import callvariants
+    from bbtools_torch.ops import msa
+    from bbtools_torch.utils.synth import random_genome
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(5_000, 1, seed=77))
+    ref = load_reference(str(tmp_path / "ref.fa"))
+    codes = ref.scaffold_codes(0)
+    rows = []
+    for i in range(10):
+        start = 1950 - i * 4
+        n_pre = 2000 - start
+        read = np.concatenate([codes[start:2000], codes[2003 : 2003 + 100 - n_pre]])
+        rows.append([b"r%d" % i, b"0", ref.names[0].split()[0], str(start + 1).encode(),
+                     b"40", b"%d=%dS" % (n_pre, 100 - n_pre), b"*", b"0", b"0",
+                     CODE_TO_BASE[np.minimum(read, 4)].tobytes(), b"F" * 100])
+    w = SamWriter(str(tmp_path / "mis.sam"), ref.names, ref.lengths)
+    w.add_batch(0, b"".join(b"\t".join(r) + b"\n" for r in rows))
+    w.close()
+    vcf, tools, devs = {}, {}, []
+    realign_batch = msa.realign_batch
+
+    def spy(reads, rlens, refs, wlens, device):
+        devs.append(str(device))
+        return realign_batch(reads, rlens, refs, wlens, device)
+
+    msa.realign_batch = spy
+    try:
+        for dev in ("cuda", "cpu"):
+            out = tmp_path / f"mis.{dev}.vcf"
+            tools[dev] = callvariants.main([
+                f"in={tmp_path / 'mis.sam'}", f"ref={tmp_path / 'ref.fa'}", f"vcf={out}",
+                "minreads=2", "minscore=0", "realign=t", f"device={dev}"])
+            vcf[dev] = out.read_bytes()
+    finally:
+        msa.realign_batch = realign_batch
+    assert devs == ["cuda", "cpu"]
+    assert tools["cuda"].realigned == tools["cpu"].realigned >= 8
+    assert vcf["cuda"] == vcf["cpu"]
+    assert any(v.type == callvariants.DEL and v.start == 2000 and v.reflen() == 3
+               for v in tools["cuda"].varmap.values())

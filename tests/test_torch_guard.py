@@ -11,6 +11,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,6 +59,7 @@ COPIED_MODULES = [
     "utils/readstats.py", "native/__init__.py",
     "ops/msa_constants.py", "ops/gaps.py", "io/sam.py", "io/sam_read.py",
     "io/bam.py", "utils/synth.py", "models/bbmap_index.py",
+    "io/stream.py", "models/tadpole_ecc.py", "ml/__init__.py",
 ]
 
 
@@ -78,6 +80,66 @@ def test_copied_module_has_not_drifted(rel):
             build, '    tmp = f"{cache}.{os.getpid()}.tmp"\n' + build
         ).replace('cache + ".tmp"', "tmp")
     assert port == want
+
+
+#: modules the port copies but for the named definitions (top-level
+#: names, or Class.member), which hold its device code or its device
+#: flag; every other definition of the JAX package's module (functions,
+#: classes, constants) is in the port's, equal to the letter. A class
+#: with a named member is compared member by member.
+PARTLY_COPIED = {
+    "ops/kmer_count.py": ["batch_kmers_jnp", "sort_reduce", "count_batch",
+                          "_merge_spectra", "_accumulate_batch", "DeviceSpectrum"],
+    "ops/kmers2.py": ["count_batchw_exact", "rolling_kmersw_jnp", "canonical_words_jnp",
+                      "_count_batchw_jit", "count_batchw_device", "PADW"],
+    "models/kmercountexact.py": ["run"],
+    "models/tadpole.py": ["TadpoleConfig.device", "parse_args", "Tadpole.load_kmers"],
+    "models/callvariants.py": ["choose_net", "CallVariants.__init__",
+                               "CallVariants._realign_flush", "main"],
+    "ml/cellnet.py": ["_MSIG_YMULT", "_activations", "CellNet.device", "CellNet.forward",
+                      "CellNet.apply", "CellNet.fit"],
+}
+
+
+def _definitions(path: str, members_of: set) -> dict:
+    """name -> source of each top-level definition and constant of a
+    module (imports and docstrings left out); for the classes in
+    members_of, each member as Class.member instead of the whole."""
+    src = open(path).read()
+    out = {}
+
+    def add(prefix, body):
+        for node in body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)) or (
+                    isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant)):
+                continue
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+                name = node.name
+            elif isinstance(node, ast.Assign):
+                name = ast.unparse(node.targets[0])
+            elif isinstance(node, ast.AnnAssign):
+                name = ast.unparse(node.target)
+            else:
+                name = ast.unparse(node)
+            if isinstance(node, ast.ClassDef) and prefix + name in members_of:
+                add(prefix + name + ".", node.body)
+            else:
+                out[prefix + name] = ast.get_source_segment(src, node)
+    add("", ast.parse(src).body)
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PARTLY_COPIED))
+def test_partly_copied_module_has_not_drifted(rel):
+    skip = set(PARTLY_COPIED[rel])
+    classes = {n.split(".")[0] for n in skip if "." in n}
+    want = _definitions(os.path.join(REPO, "bbtools_tpu", rel), classes)
+    got = _definitions(os.path.join(REPO, "bbtools_torch", rel), classes)
+    assert skip <= set(want) | set(got)  # every name it skips exists
+    for name, text in want.items():
+        if name not in skip:
+            assert got.get(name) == text.replace("bbtools_tpu", "bbtools_torch"), name
+    assert len(set(want) - skip) >= 2
 
 
 #: C sources the port copies byte for byte
@@ -147,6 +209,7 @@ COPIED_FUNCTIONS = [
     ("models.bbmerge", "BBMerge.write_ihist"), ("models.bbmerge", "BBMerge.print_stats"),
     ("models.bbmerge", "_rc_batch"), ("models.bbmerge", "_rev_quals"),
     ("ops.msa", "col0_scores"), ("ops.msa", "match_strings_np"),
+    ("ops.msa", "prepare_limits_np"),
     ("ops.score_ungapped", "score_no_indels_np"),
     ("models.bbmap", "max_quality"), ("models.bbmap", "MapResult"),
     ("models.bbmap", "BBMap.seed_offsets"), ("models.bbmap", "BBMap._seed_slots"),
@@ -245,13 +308,15 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("tool,flag,item", [
     ("bbduk", "tpshards=2", "A7"), ("bbduk", "recalibrate=t", "A2/A5"),
     ("bbduk", "align=t", "A2/A5"), ("bbduk", "profile=trace", "A9"),
-    ("bbmerge", "extend2=20", "A3/A6"), ("bbmerge", "nn=t", "A2/A5"),
+    ("bbmerge", "extend2=20", "A6b"), ("bbmerge", "ecct=t", "A6b"), ("bbmerge", "nn=t", "A2/A5"),
     ("bbmerge", "tpshards=2", "A7"),
-    ("bbmap", "tpshards=2", "A7"), ("bbmap", "bloomfilter=t", "A6"),
+    ("bbmap", "tpshards=2", "A7"), ("bbmap", "bloomfilter=t", "A6b"),
     ("bbmap", "covstats=c.txt", "A2/A5"), ("bbmap", "basecov=b.txt", "A2/A5"),
     ("bbmap", "covhist=h.txt", "A2/A5"), ("bbmap", "bincov=n.txt", "A2/A5"),
     ("mappacbio", "", "A4b"), ("bbmapskimmer", "", "A4b"),
     ("mappacbioskimmer", "", "A4b"),
+    ("kmercountexact", "shards=2", "A7"), ("kmercount", "tpshards=4", "A7"),
+    ("khist", "shards=2", "A7"), ("tadpole", "shards=2", "A7"),
 ])
 def test_unported_flags_raise(tmp_path, tool, flag, item):
     from bbtools_torch.cli import main
@@ -284,6 +349,41 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["tadpole", "in=x.fq"])
+    with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
+        main(["reformat", "in=x.fq"])
+    for tool in ("bbrealign", "bbcms", "tadpipe"):
+        with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A6b)")):
+            main([tool, "in=x.fq"])
     assert main(["help"]) == 0
+
+
+def test_cellnet_fit_raises():
+    from bbtools_torch.ml.cellnet import CellNet
+
+    net = CellNet.create([4, 3, 1])
+    with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
+        net.fit(np.zeros((2, 4), np.float32), np.zeros((2, 1), np.float32))
+
+
+def test_new_tools_default_to_cuda(tmp_path):
+    """kmercountexact, Tadpole and CallVariants run on the card unless
+    asked for the CPU: without one, the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.cli import main
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.ml.cellnet import CellNet
+    from bbtools_torch.models.callvariants import CallVariants
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    write_fasta(str(tmp_path / "ref.fa"), [(b"s", b"ACGT" * 50)])
+    for argv in (["kmercountexact", f"in={fq}"], ["kmercountexact", f"in={fq}", "k=45"],
+                 ["tadpole", f"in={fq}"], ["tadpole", f"in={fq}", "k=62"],
+                 ["callvariants", f"in={fq}", f"ref={tmp_path / 'ref.fa'}"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        CallVariants(load_reference(str(tmp_path / "ref.fa")))
+    with pytest.raises(RuntimeError, match="cuda"):
+        CellNet.create([4, 1]).apply(np.zeros((1, 4), np.float32))
