@@ -2,7 +2,7 @@
 python -m bbtools_torch <tool> key=value ...
 
 Only the tools ported so far are here; any other name raises, naming the
-ROADMAP item that holds it.
+ROADMAP item that holds it (A8, the long tail).
 """
 
 from __future__ import annotations
@@ -58,6 +58,36 @@ def _callvariants(args):
     return main(args)
 
 
+def _tadpipe(args):
+    from .models.tadpipe import tadpipe
+
+    return tadpipe(args)
+
+
+def _tadpolewrapper(args):
+    from .models.tadpipe import tadpolewrapper
+
+    return tadpolewrapper(args)
+
+
+def _assemblystats(args):
+    from .models.assemblystats import main
+
+    return main(args)
+
+
+def _bbcms(args):
+    from .models.bbcms import main
+
+    return main(args)
+
+
+def _bbrealign(args):
+    from .models.bbrealign import main
+
+    return main(args)
+
+
 TOOLS = {
     "bbduk": _bbduk,
     # same-main-class launcher aliases (bbduk.BBDukS)
@@ -78,11 +108,15 @@ TOOLS = {
     "tadpole": _tadpole,
     "callvariants": _callvariants,
     "callvariants2": _callvariants,
+    "tadpipe": _tadpipe,
+    "tadwrapper": _tadpolewrapper,
+    "tadpolewrapper": _tadpolewrapper,
+    # host only: N50/L50 and the summary block of a FASTA
+    "stats": _assemblystats,
+    "assemblystats": _assemblystats,
+    "bbcms": _bbcms,
+    "bbrealign": _bbrealign,
 }
-
-#: tools that the ported Tadpole, CallVariants and MSA fill unblock, queued
-#: next (ROADMAP A6b); any other unported name is the long tail (A8)
-A6B_TOOLS = {"bbrealign", "bbcms", "tadpipe", "tadwrapper", "tadpolewrapper"}
 
 
 def main(argv=None):
@@ -95,9 +129,8 @@ def main(argv=None):
     tool = argv[0].lower().removesuffix(".sh")
     fn = TOOLS.get(tool)
     if fn is None:
-        item = "A6b" if tool in A6B_TOOLS else "A8"
         raise NotImplementedError(
-            f"bbtools_torch: tool {tool!r} is not ported (ROADMAP {item}); "
+            f"bbtools_torch: tool {tool!r} is not ported (ROADMAP A8); "
             f"ported tools: {', '.join(sorted(TOOLS))}"
         )
     fn(argv[1:])

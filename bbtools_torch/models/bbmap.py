@@ -18,10 +18,12 @@ The device phases run where `device=` says (cuda by default); on the
 default single-end path they are one fused step per batch
 (ops/map_fused.py). The host code (seeding, clustering, the clearzone
 ladder, pairing, rescue selection, SAM) is a copy of the JAX package's;
-only the device calls differ. Flags whose modules are not ported yet
-raise NotImplementedError naming their ROADMAP item: tpshards (A7),
-bloomfilter (A6b), covstats/basecov/covhist/bincov (A2/A5) and the pacbio
-and skimmer presets (A4b).
+only the device calls differ. With bloomfilter=t the reference's
+31-mers go into a count-min sketch on the device (ops/cms.py), and each
+batch is prescreened by one query of its reads' 31-mers. Flags whose
+modules are not ported yet raise NotImplementedError naming their
+ROADMAP item: tpshards (A7), covstats/basecov/covhist/bincov (A2/A5) and
+the pacbio and skimmer presets (A4b).
 """
 
 from __future__ import annotations
@@ -100,7 +102,8 @@ class BBMapConfig:
     #: the default single-end path; keep-sites / ambig=random / sharded
     #: runs use the staged path
     fused: bool = True
-    #: bloom prescreen (bbmap.sh bloomfilter flag; not ported, A6b)
+    #: bloom prescreen (bbmap.sh bloomfilter flag): reads sharing NO
+    #: 31-mer with the reference skip the alignment and come out unmapped
     bloom_prescreen: bool = False
     sam_version: str = "1.4"  # sam=1.3 emits M cigars
     mhist: str | None = None  # per-position match/sub/del/ins rates
@@ -212,7 +215,6 @@ def _reject_unported(c: BBMapConfig):
     cov = [f for f in ("covstats", "basecov", "covhist", "bincov") if getattr(c, f)]
     unported = [
         (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
-        (c.bloom_prescreen, "bloomfilter (ops/cms.py)", "A6b"),
         (bool(cov), f"{'/'.join(cov)} (models/pileup.py)", "A2/A5"),
     ]
     for on, what, item in unported:
@@ -255,7 +257,23 @@ class BBMap:
         self.index_seconds = time.perf_counter() - t0
         self.index = index
         self.ref = index.ref
+        self.bloom = None
+        if cfg.bloom_prescreen:
+            from ..ops.cms import CountMinSketch
+
+            cms = CountMinSketch(device=self.device)
+            codes = self.ref.codes
+            CHUNK = 1 << 20
+            for c0 in range(0, len(codes), CHUNK):
+                seg = codes[max(c0 - 30, 0) : c0 + CHUNK]
+                if len(seg) < 31:
+                    continue
+                fwd, rkm, runlen = rolling_kmers_np(seg[None, :], 31)
+                ok = runlen[0] >= 31
+                cms.add(np.maximum(fwd[0][ok], rkm[0][ok]))
+            self.bloom = cms
         self.reads_mapped = 0
+        self.prescreened = 0
         self.reads_unmapped = 0
         self.reads_in = 0
         self.rescued = 0
@@ -459,7 +477,7 @@ class BBMap:
         from concurrent.futures import ThreadPoolExecutor
 
         workers = max(1, min(4, (os.cpu_count() or 2) - 1))
-        fused_ok = self._fused_ok()
+        fused_ok = self._fused_ok() and self.bloom is None
 
         def work(b):
             lengths = b.lengths.astype(np.int64)
@@ -516,12 +534,34 @@ class BBMap:
             if cand is None
             else cand
         )
+        if self.bloom is not None:
+            fwd31, rkm31, run31 = rolling_kmers_np(bases, 31)
+            ok31 = (run31 >= 31) & (
+                np.arange(L)[None, :] < lengths[:, None]
+            )
+            keys31 = np.maximum(fwd31, rkm31)
+            hits = np.zeros(B, np.int64)
+            flat_ok = ok31.reshape(-1)
+            if flat_ok.any():
+                cnt = np.zeros(ok31.size, np.int64)
+                cnt[flat_ok] = self.bloom.query(
+                    keys31.reshape(-1)[flat_ok]
+                )
+                hits = (cnt.reshape(ok31.shape) > 0).sum(axis=1)
+            self.prescreened += int((hits == 0).sum())
+            tkeep = hits[t_read] != 0
+            t_read = t_read[tkeep]
+            t_diag = t_diag[tkeep]
+            t_strand = t_strand[tkeep]
+            t_votes = t_votes[tkeep]
+            t_spread = t_spread[tkeep]
+            t_anchor = t_anchor[tkeep]
         results = [MapResult() for _ in range(B)]
         if len(t_read) == 0:
             self.reads_unmapped += B
             return results
         T = len(t_read)
-        if prep is not None:
+        if prep is not None and self.bloom is None:
             (task_reads, task_lens, refwins, W), fprep = prep
         else:
             task_reads, task_lens, refwins, W = self._build_tasks(

@@ -17,14 +17,19 @@ efilter (ratio=6, offset=0.05) and pfilter (4e-5) (:3098-3104), the
 strictness presets ladder (:1359-1476), RET codes (:3292-3300), and the
 insert-size histogram.
 
-Flags whose stage is not ported yet raise NotImplementedError naming
-their ROADMAP item: extend2/ecct (k-mer extension and Tadpole correction,
-A6b), ecco and nn (the CellNet gate) (A2/A5) and tpshards (A7).
+Also ported: ecco (error correction by overlap: both mates take the
+merged consensus and come out unmerged), extend2=N and ecct (the input's
+k-mers counted on the device, then host Tadpole extension of unmerged
+pairs and Tadpole correction before the scan; tadpole_ecc.EccEngine)
+and nn (the CellNet gate: mate selection widened and collecting its
+candidate stats, the bundled bbmerge.bbnet applied on the device).
+tpshards raises NotImplementedError naming its ROADMAP item (A7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -35,12 +40,16 @@ import torch
 from ..core.parser import test_output_files, tokenize
 from ..device import resolve_device
 from ..io.batch import ReadBatch
-from ..io.fastq import FastqWriter, paired_reader
+from ..io.fastq import FastqReader, FastqWriter, paired_reader
 from ..ops.join import join_reads_np
 from ..ops.overlap import (
+    bbmerge_nn_features,
     calc_min_overlap_by_entropy_torch,
+    expected_mismatches_np,
     expected_mismatches_torch,
+    expected_tip_errors_np,
     overlap_and_mate,
+    probability_np,
     probability_torch,
 )
 
@@ -49,6 +58,9 @@ RET_AMBIG = -2
 RET_BAD = -3
 RET_SHORT = -4
 RET_LONG = -5
+#: a net score this close to the cutoff may fall on either side of it
+#: when its float32 sums run in another order (another device or library)
+NN_NEAR = 1e-5
 
 
 @dataclass
@@ -104,10 +116,14 @@ class BBMergeConfig:
     use_entropy: bool = True
     batch_reads: int = 8192
     ziplevel: int | None = None
-    extend2: int = 0  # k-mer extension of unmerged pairs (not ported, A6b)
-    ecct: bool = False  # Tadpole correction before the scan (not ported, A6b)
-    #: CellNet gate (BBMerge.java nn= flag :425; not ported, A2/A5)
+    extend2: int = 0  # kmer-extend unmerged pairs and retry (BBMerge:653)
+    ecct: bool = False  # tadpole error-correct reads pre-overlap (:657)
+    extend_k: int = 31
+    #: CellNet gate (BBMerge.java nn= flag :425): score each candidate
+    #: merge with the bundled bbmerge.bbnet; below-cutoff -> ambiguous
     nn: bool = False
+    net_file: str | None = None
+    net_cutoff: float | None = None  # default: the net's stored ##ctf
     #: quality-weighted overlap scoring (BBMerge.java useQuality :3189,
     #: default true): when quals exist, mateByOverlapRatioJava_WithQualities
     #: is the production path (BBMergeOverlapper.java:122)
@@ -144,7 +160,11 @@ def parse_args(argv: list[str]) -> BBMergeConfig:
     if a.get("ignorequality") is not None:
         c.use_quality = not a.get_bool("ignorequality", default=False)
     c.tpshards = a.get_int("tpshards", "shards", default=0)
+    c.extend_k = min(a.get_int("k", default=31), 31)
     c.nn = a.get_bool("nn", "makevector", default=False)
+    c.net_file = a.get("net")
+    nc = a.get("netcutoff", "cutoff")
+    c.net_cutoff = float(nc) if nc is not None else None
     c.device = a.get("device", default="cuda")
     test_output_files(
         a.get_bool("overwrite", "ow", default=True),
@@ -157,19 +177,11 @@ def parse_args(argv: list[str]) -> BBMergeConfig:
 
 def _reject_unported(c: BBMergeConfig):
     """Raise for flags whose stage the port does not have yet."""
-    unported = [
-        (c.extend2 > 0, "extend2 (k-mer extension)", "A6b"),
-        (c.ecct, "ecct (Tadpole error correction)", "A6b"),
-        (c.ecco, "ecco (error correction by overlap)", "A2/A5"),
-        (c.nn, "nn (the CellNet merge gate, ml/cellnet.py)", "A2/A5"),
-        (c.tpshards > 1, "tpshards>1 (multi-GPU)", "A7"),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"bbtools_torch bbmerge: {what} is not ported yet "
-                f"(ROADMAP {item})"
-            )
+    if c.tpshards > 1:
+        raise NotImplementedError(
+            "bbtools_torch bbmerge: tpshards>1 (multi-GPU) is not ported yet "
+            "(ROADMAP A7)"
+        )
 
 
 class BBMerge:
@@ -178,7 +190,32 @@ class BBMerge:
         self.device = resolve_device(cfg.device)
         # a copy: the presets table stays as defined for the next run
         self.preset = dataclasses.replace(PRESETS[cfg.preset]).resolve()
+        self.ecc_engine = None
         self.merged_by_extension = 0
+        self.net = None
+        #: names of the pairs whose net score lay within NN_NEAR of the
+        #: cutoff: a float32 sum in another order may decide them otherwise
+        self.nn_near = []
+        if cfg.nn:
+            from ..ml.cellnet import parse_bbnet
+
+            # the JAX package's bundled net, read by path, not copied
+            path = cfg.net_file or os.path.join(
+                os.path.dirname(os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__)))),
+                "bbtools_tpu", "resources", "bbmerge.bbnet",
+            )
+            self.net = parse_bbnet(path)
+            self.net.device = str(self.device)
+            self.net_cutoff = (
+                cfg.net_cutoff
+                if cfg.net_cutoff is not None
+                else self.net.cutoff
+            )
+            # MAKE_VECTOR widens the scan so the net sees marginal
+            # candidates too (BBMergeOverlapper.java:423 maxRatio=.7,
+            # :456 extraMult=4); on the run's own copy of the preset
+            self.preset.max_ratio = 0.7
         if cfg.min_insert is not None:
             self.preset.min_insert = cfg.min_insert
             self.preset.min_insert0 = -1
@@ -232,16 +269,19 @@ class BBMerge:
         # quality-weighted scoring is the reference default whenever both
         # reads carry quals (BBMergeOverlapper.java:122)
         use_q = self.cfg.use_quality and quals
-        insert, bad_int, ambig = (
-            x.cpu().numpy()
-            for x in overlap_and_mate(
-                a_d, brc_d, al_d, bl_d, p.min_insert0, n_inserts,
-                mo0, self._dev(mo), p.min_insert0, p.min_insert,
-                p.max_ratio, p.min_second_ratio, p.ratio_margin,
-                p.ratio_offset,
-                aq=aq_d if use_q else None, bq_rev=bq_d if use_q else None,
-            )
+        res = overlap_and_mate(
+            a_d, brc_d, al_d, bl_d, p.min_insert0, n_inserts,
+            mo0, self._dev(mo), p.min_insert0, p.min_insert,
+            p.max_ratio, p.min_second_ratio, p.ratio_margin,
+            p.ratio_offset,
+            extra_mult=4.0 if self.net is not None else 1.2,
+            collect=self.net is not None,
+            aq=aq_d if use_q else None, bq_rev=bq_d if use_q else None,
         )
+        insert, bad_int, ambig = (x.cpu().numpy() for x in res[:3])
+        nn_stats = None
+        if self.net is not None:
+            nn_stats = {k: v.cpu().numpy() for k, v in res[3].items()}
         # efilter (BBMerge.findOverlap :1532-1536)
         has = (insert > 0) & ~ambig
         if p.efilter_ratio >= 0 and quals and has.any():
@@ -262,6 +302,10 @@ class BBMerge:
                 self._dev(np.where(has, insert, 1)),
             ).cpu().numpy()
             insert = np.where(has & (prob < np.float32(p.pfilter_ratio)), -1, insert)
+        # CellNet gate (BBMerge.java:2561-2596): score every candidate
+        # merge; below-cutoff verdicts become ambiguous
+        if self.net is not None:
+            ambig = self._nn_gate(b1, b2, b_rc, insert, ambig, min_overlap, nn_stats)
         # result codes (processReadPair_inner :2694-2700)
         result = np.where(ambig, RET_AMBIG, insert)
         result = np.where(
@@ -285,6 +329,38 @@ class BBMerge:
             result,
         )
         return result
+
+    def _nn_gate(self, b1, b2, b_rc, insert, ambig, min_overlap, nn_stats):
+        """The net's verdict on each candidate (insert > 0): the feature
+        vector on the host, as the JAX package computes it, and the net
+        on the run's device. Returns ambig with the rejected candidates
+        set."""
+        p = self.preset
+        cand = insert > 0
+        if not cand.any():
+            return ambig
+        alens = b1.lengths.astype(np.int64)
+        blens = b2.lengths.astype(np.int64)
+        maxb = np.minimum(np.maximum(alens, blens), alens + blens - p.min_insert)
+        if b1.quals is not None:
+            bq_rev = _rev_quals(b2)
+            r1ee = expected_tip_errors_np(b1.bases, b1.quals, b1.lengths, maxb)
+            r2ee = expected_tip_errors_np(b2.bases, b2.quals, b2.lengths, maxb)
+            at = np.where(cand, insert, 1)
+            be = expected_mismatches_np(b1.bases, b_rc, b1.quals, bq_rev, alens, blens, at)
+            pr = probability_np(b1.bases, b_rc, b1.quals, bq_rev, alens, blens, at)
+        else:
+            r1ee = r2ee = be = np.zeros(b1.n, np.float32)
+            pr = np.full(b1.n, np.float32(0.1))
+        feats = bbmerge_nn_features(
+            alens.astype(np.float32), blens.astype(np.float32),
+            np.asarray(min_overlap, np.float32), r1ee, r2ee, nn_stats, be, pr,
+        )
+        score = self.net.apply(feats).reshape(-1)
+        cutoff = np.float32(self.net_cutoff)
+        near = cand & (np.abs(score - cutoff) <= np.float32(NN_NEAR))
+        self.nn_near += [b1.ids[i] for i in np.flatnonzero(near)]
+        return ambig | (cand & (score < cutoff))
 
     def process_batch(self, b1: ReadBatch, b2: ReadBatch,
                       count_stats: bool = True):
@@ -320,9 +396,70 @@ class BBMerge:
             )
         return result, ok, joined
 
+    def _build_spectrum(self):
+        """Count input kmers for extension/ecc (the loadKmers pre-pass the
+        reference runs when extendRight2/eccTadpole are set, BBMerge:824):
+        each batch counted on the run's device."""
+        from ..ops.kmer_count import KmerSpectrum, count_batch
+        from .tadpole import SpectrumTable
+        from .tadpole_ecc import EccConfig, EccEngine
+
+        cfg = self.cfg
+        spec = KmerSpectrum(cfg.extend_k)
+        for path in (cfg.in1, cfg.in2):
+            if not path:
+                continue
+            for b in FastqReader(path, batch_reads=cfg.batch_reads):
+                v, c = count_batch(b.bases, b.lengths, cfg.extend_k, self.device)
+                spec.add_batch(v, c)
+        spec.flush()
+        table = SpectrumTable(spec, cfg.extend_k)
+        self.ecc_engine = EccEngine(table, cfg.extend_k, EccConfig())
+
+    def _extend_rows(self, b: ReadBatch, rows: np.ndarray, dist: int):
+        """Extend each selected read 3' by up to `dist` bases via the kmer
+        table (extendToRight2 walk); returns new padded arrays."""
+        eng = self.ecc_engine
+        k = self.cfg.extend_k
+        L = b.bases.shape[1]
+        newL = L + dist
+        bases = np.full((b.n, newL), 4, dtype=b.bases.dtype)
+        bases[:, :L] = b.bases
+        quals = None
+        if b.quals is not None:
+            quals = np.zeros((b.n, newL), dtype=b.quals.dtype)
+            quals[:, :L] = b.quals
+        lengths = b.lengths.astype(np.int64).copy()
+        for i in rows:
+            ln = int(lengths[i])
+            if ln < k:
+                continue
+            tail = bases[i, ln - k : ln]
+            if (tail >= 4).any():
+                continue
+            kmer = 0
+            for c in tail:
+                kmer = (kmer << 2) | int(c)
+            ext, n_ext = eng._extend_right(kmer, dist)
+            if n_ext:
+                bases[i, ln : ln + n_ext] = ext
+                if quals is not None:
+                    quals[i, ln : ln + n_ext] = 20
+                lengths[i] += n_ext
+        return ReadBatch(
+            bases=bases,
+            quals=quals if quals is not None else b.quals,
+            lengths=lengths.astype(b.lengths.dtype),
+            ids=b.ids,
+            ordinal=b.ordinal,
+            numeric_id0=b.numeric_id0,
+        )
+
     def run(self):
         cfg = self.cfg
         t0 = time.time()
+        if cfg.extend2 > 0 or cfg.ecct:
+            self._build_spectrum()
         pairs = paired_reader(
             cfg.in1, cfg.in2, interleaved=cfg.interleaved,
             batch_reads=cfg.batch_reads,
@@ -338,7 +475,23 @@ class BBMerge:
                     raise ValueError(
                         "BBMerge needs paired input (in1+in2 or interleaved)"
                     )
+                if cfg.ecct and self.ecc_engine is not None:
+                    self.ecc_engine.correct_batch(b1.bases, b1.lengths, b1.quals)
+                    self.ecc_engine.correct_batch(b2.bases, b2.lengths, b2.quals)
                 result, ok, joined = self.process_batch(b1, b2)
+                if cfg.extend2 > 0 and (~ok).any():
+                    ok = self._merge_extended(b1, b2, result, ok, w_m)
+                if cfg.ecco and joined is not None:
+                    # error-correct by overlap: both reads take the
+                    # consensus (BBMerge.errorCorrectWithInsert
+                    # :1577-1625); the pair is emitted corrected, not
+                    # merged
+                    self._apply_ecco(b1, b2, result, ok, joined)
+                    if w_m:
+                        w_m.add(b1)
+                    if w_u2:
+                        w_u2.add(b2)
+                    continue
                 if w_m and joined is not None:
                     w_m.add(joined, ok)
                 if w_u1:
@@ -353,6 +506,54 @@ class BBMerge:
             self.write_ihist(cfg.ihist)
         self.elapsed = time.time() - t0
         return self
+
+    def _merge_extended(self, b1, b2, result, ok, w_m):
+        """Extend the unmerged pairs' reads by up to extend2 bases and
+        scan them again; credit only the pairs that merge now (their
+        merged reads written to w_m). Returns ok with them set."""
+        cfg = self.cfg
+        rows = np.flatnonzero(~ok)
+        e1 = self._extend_rows(b1, rows, cfg.extend2)
+        e2 = self._extend_rows(b2, rows, cfg.extend2)
+        r2nd, ok2, joined2 = self.process_batch(e1, e2, count_stats=False)
+        newly = ok2 & ~ok  # credit only previously-unmerged pairs
+        if not newly.any():
+            return ok
+        n_new = int(newly.sum())
+        self.merged_by_extension += n_new
+        self.merged += n_new
+        self.no_solution -= int((newly & (result == RET_NO_SOLUTION)).sum())
+        self.too_short -= int((newly & (result == RET_SHORT)).sum())
+        self.ambiguous -= int((newly & (result == RET_AMBIG)).sum())
+        ins2 = r2nd[newly]
+        np.add.at(self.hist, np.minimum(ins2, len(self.hist) - 1), 1)
+        self.insert_sum += int(ins2.sum())
+        if w_m and joined2 is not None:
+            w_m.add(joined2, newly)
+        return ok | newly
+
+    def _apply_ecco(self, b1, b2, result, ok, joined):
+        """Overlay consensus back onto the original pair orientation."""
+        import numpy as np
+
+        for i in np.flatnonzero(ok):
+            insert = int(result[i])
+            n1 = int(b1.lengths[i])
+            n2 = int(b2.lengths[i])
+            lim1 = min(insert, n1)
+            b1.bases[i, :lim1] = joined.bases[i, :lim1]
+            if b1.quals is not None and joined.quals is not None:
+                b1.quals[i, :lim1] = joined.quals[i, :lim1]
+            if b1.ascii_bases is not None:
+                b1.ascii_bases = None
+            lim2 = min(insert, n2)
+            tail = joined.bases[i, insert - lim2 : insert]
+            rc = np.where(tail < 4, 3 - tail.astype(np.int16), 4).astype(np.uint8)
+            b2.bases[i, :lim2] = rc[::-1]
+            if b2.quals is not None and joined.quals is not None:
+                b2.quals[i, :lim2] = joined.quals[i, insert - lim2 : insert][::-1]
+            if b2.ascii_bases is not None:
+                b2.ascii_bases = None
 
     def write_ihist(self, path: str):
         """Insert-size histogram, BBMerge format: header stats + rows."""

@@ -865,3 +865,50 @@ def expected_tip_errors_np(bases, quals, lengths, max_bases):
     pe = PROB_ERROR[np.minimum(quals, 127)]
     return np.where(live, pe, 0).astype(np.float32).sum(axis=1,
                                                         dtype=np.float32)
+
+
+def bbmerge_nn_features(alens, blens, min_overlap, r1ee, r2ee, stats,
+                        best_expected, probability):
+    """The 23-float vector the BBMerge net gate consumes, in reference
+    order (jgi/BBMerge.java:2440-2546 + BBMergeOverlapper.java:552-575;
+    best/second Good stay at their ratio-mode inits so features 8/14/19
+    are constants 0.2/0.2/0.0)."""
+    f32 = np.float32
+    B = len(alens)
+    s = stats
+    bo = s["best_overlap"].astype(np.float32)
+    so = s["second_overlap"].astype(np.float32)
+    bb = s["best_bad"].astype(np.float32)
+    sb = s["second_bad"].astype(np.float32)
+    bbi = s["best_bad_int"].astype(np.float32)
+    sbi = s["second_bad_int"].astype(np.float32)
+    feats = np.stack(
+        [
+            np.broadcast_to(np.asarray(min_overlap), (B,)) * f32(0.1),
+            r1ee,
+            r2ee,
+            (alens - 100) * f32(0.01),
+            (blens - 100) * f32(0.01),
+            s["best_insert"] * f32(0.004),
+            bo / (bo + f32(50)),
+            (bb + 1) / (bb + 5),
+            np.full(B, f32(0.2)),  # (bestGood+1)/(bestGood+5), good==0
+            s["best_ratio"],
+            (bbi + 1) / (bbi + 5),
+            s["second_insert"] * f32(0.004),
+            so / (so + f32(50)),
+            (sb + 1) / (sb + 5),
+            np.full(B, f32(0.2)),  # (secondBestGood+1)/(+5)
+            s["second_ratio"],
+            sbi / (sbi + 5),
+            (s["second_ratio"] + 1) / (s["best_ratio"] + 1),
+            sb / (bb + 8),
+            np.zeros(B, np.float32),  # secondBestGood/(bestGood+8)
+            bo + 1,  # placeholder, fixed below
+            np.asarray(best_expected, np.float32),
+            np.asarray(probability, np.float32),
+        ],
+        axis=1,
+    ).astype(np.float32)
+    feats[:, 20] = (bo + 1) / (so + bo + 1)
+    return feats

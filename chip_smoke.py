@@ -42,16 +42,16 @@ From the root of a checkout, on a machine with a CUDA card:
      (cold, the time its HBM bound is held against);
   4. drives each path through the CLI entry point on device=cuda with
      every launch counter set to 0 just before it and read just after:
-     `bbduk` over a seeded gzipped FASTQ of N reads (300,000 by
+     `bbduk` over a seeded gzipped FASTQ of N reads (200,000 by
      default) at ref=adapters hdist=1 (sorted join, B2) and on one
      literal adapter (lane table, B1); `bbduk` on the matcher backend
-     (ref=adapters,phix k=23 mink=11 hdist=2, B3) over 100,000 of those
+     (ref=adapters,phix k=23 mink=11 hdist=2, B3) over 50,000 of those
      reads, with its index build timed on its own line; a paired `bbduk
-     tbo tpe` over seeded interleaved pairs (B1, B5, B6); and `bbmerge`
+     tbo tpe` over 50,000 seeded interleaved pairs (B1, B5, B6); and `bbmerge`
      over a seeded pair of gzipped FASTQ files of N pairs (150,000 by
      default; B5, B6); `bbmap` (B4) against a seeded genome of E. coli
-     K-12's length (4,641,652 bp) over 50,000 reads of 151 bp and over
-     15,000 pairs, with reads/s, pairs/s, the index build, the mapped
+     K-12's length (4,641,652 bp) over 20,000 reads of 151 bp and over
+     4,000 pairs, with reads/s, pairs/s, the index build, the mapped
      share, the B4 launches and the batches that overflowed the fused
      phase's walk cap on lines of their own;
   5. BASELINE configs #2 and #5 on one seeded data set (a 1,000,000 bp
@@ -67,21 +67,34 @@ From the root of a checkout, on a machine with a CUDA card:
      their own; contigs, N50, and the share of the region's 31-mers the
      contigs hold), Tadpole k=62's load (`Tadpole.load_kmers`) over all
      200,000 reads (reads/s; the 62-mers seen 3 or more times held near
-     the genome's), then `bbmap` (B4) over 100,000 reads against the
+     the genome's), then `bbmap` (B4) over 50,000 reads against the
      genome and `callvariants` on its SAM, with defaults and realign=t
      (variants called, recall of the planted SNPs and indels, false
      calls, reads realigned);
-  6. runs every path but the matcher's on its first 20,000 reads (pairs)
+  6. runs every path but the matcher's on its first 10,000 reads (pairs)
      on device=cuda and device=cpu and requires byte-equal output files
      (the matcher's CUDA-against-CPU equality is held by the CPU tests);
-     `bbmap` on its first 2,048 reads and 1,024 pairs; kmercountexact
-     k=31 and k=93 (khist, peaks, dump) on 20,000 reads, Tadpole k=62
+     `bbmap` on its first 256 reads and 128 pairs; kmercountexact
+     k=31 and k=93 (khist, peaks, dump) on 10,000 reads, Tadpole k=62
      on the region's reads and mode=correct on 500 of them, CallVariants
      realign=t and nn=t on 4,096 records of config #5's SAM, those with
      an indel soft-clipped from it on (realign=t: the same reads, at
      least one, realigned on both devices; nn=t equal but for a last
      QUAL digit that float32 rounding may flip, counted);
-  7. prints each phase's seconds.
+  7. the A6b tools through the CLI on device=cuda, each with its kernels
+     or its device routes required: `tadpipe` at TadPipe's defaults
+     (k=31,62,93, every stage) on 2,500 pairs of config #5's copy's
+     first 25,000 bp (each stage's seconds, the recommended k, the
+     contigs and their share of the region's 31-mers), its trim stage
+     (`bbduk ref=adapters ... tbo tpe qtrim=r`) and ecco stage (`bbmerge
+     ecco=t mix=t strict`) over 100,000 pairs of the whole copy, `bbmerge
+     nn=t` over the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
+     config #2's 200,000 reads (one add of a batch timed alone) and with
+     ecc=t on 500 of the region's reads, `bbmap bloomfilter=t` over
+     20,000 map reads and 2,000 foreign ones, and `bbrealign` on the
+     clipped SAM; then each on both devices, byte for byte (BBMerge nn=t
+     but for pairs whose net score lay within 1e-5 of the cutoff);
+  8. prints each phase's seconds.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -117,12 +130,12 @@ CONFIGS = {
 #: hdist=2, so the panel adds phiX (19,494,221 keys; PERF.md section 4)
 MM_CONFIG = ["ref=adapters,phix", "k=23", "mink=11", "hdist=2", "ktrim=r",
              "minlen=40"]
-MM_READS = 100_000
+MM_READS = 50_000
 TBO_FLAGS = CONFIGS["1adapter"] + ["tbo", "tpe"]
-TBO_PAIRS = 100_000
+TBO_PAIRS = 50_000
 BATCH = 16384  # reads per batch of the bbduk main path (batchreads default)
 MERGE_BATCH = 8192  # pairs per batch of the bbmerge main path
-CHECK_READS = 20_000  # reads (pairs) of the CUDA-against-CPU comparison
+CHECK_READS = 10_000  # reads (pairs) of the CUDA-against-CPU comparison
 #: merged share of the seeded pairs (inserts 100-400 bp, 150 bp reads):
 #: the overlapping ones (insert <= ~290) that are neither ambiguous nor
 #: too noisy; 0.6215 on the first 16,384 pairs (CPU run)
@@ -132,11 +145,11 @@ MERGED_RANGE = (0.55, 0.70)
 #: substitutions and 1-10 bp indels in 10% of them, pairs from inserts of
 #: 200-500 bp
 ECOLI_LEN = 4_641_652
-MAP_READS = 50_000
-MAP_PAIRS = 15_000
+MAP_READS = 20_000
+MAP_PAIRS = 4_000
 MAP_BATCH_READS = 4096  # one batch (batchreads default), for B4's checks
-MAP_CHECK_READS = 2048  # reads of the CUDA-against-CPU comparison
-MAP_CHECK_PAIRS = 1024
+MAP_CHECK_READS = 256  # reads of the CUDA-against-CPU comparison
+MAP_CHECK_PAIRS = 128
 #: mapped share predicted for reads drawn from the reference itself
 #: (PERF.md section 6, written before the first run); the CPU tests map
 #: 300 of 300 such reads on a 150 kb genome
@@ -155,7 +168,7 @@ ASM_ERR = 0.005
 ASM_SNP_RATE = 0.001
 ASM_INDELS = 100
 KCE93_READS = 50_000  # reads of the k=93 count
-CV_READS = 100_000  # reads BBMap maps for CallVariants
+CV_READS = 50_000  # reads BBMap maps for CallVariants
 CV_CHECK_READS = 4096  # SAM records of the CUDA-against-CPU CallVariants
 #: Tadpole assembles the reads that lie in the copy's first ASM_REGION bp:
 #: its contig walk is host code whose steps grow with the longest contig,
@@ -167,13 +180,47 @@ ECC_CHECK_READS = 500  # reads of Tadpole mode=correct on both devices
 #: k=62 contigs must hold: 0.9989 on a 20,000 bp region of a 100,000 bp
 #: genome at the same depth and error rate on the CPU (PERF.md section 4)
 ASM_RECALL_MIN = 0.98
-#: CallVariants at 15x (CV_READS of the 30x reads): the least shares of
+#: CallVariants at 7.5x (CV_READS of the 30x reads): the least shares of
 #: the planted SNPs and indels called PASS, and the most PASS rows that
 #: match no planted variant (112 of 112 SNPs, 20 of 20 indels and no
 #: false call at 10,000 reads of a 100,000 bp genome on the CPU)
 CV_SNP_RECALL_MIN = 0.95
 CV_INDEL_RECALL_MIN = 0.8
 CV_FALSE_MAX = 10
+#: tadpipe at assemble/TadPipe.java's defaults (k=31,62,93, every stage
+#: on), on pairs of 2x150 bp from inserts of 100-450 bp of config #5's
+#: copy's first ASM_REGION bp at ~30x, each mate running into its adapter
+#: past a short insert, with ASM_ERR base errors. Its stages past trim and
+#: ecco (Tadpole's correction and walks, BBMerge's extension) are host
+#: code, so the whole pipeline runs on the region; its two device stages
+#: run on their own over PIPE_FULL_PAIRS pairs (30x) of the whole copy
+PIPE_PAIRS = 2_500
+PIPE_FULL_PAIRS = 100_000
+PIPE_INSERTS = (100, 450)
+PIPE_TRIM = ["ref=adapters", "ktrim=r", "k=23", "mink=11", "hdist=1", "qtrim=r",
+             "trimq=10", "tbo", "tpe", "minlen=62"]
+PIPE_ECCO = ["ecco=t", "mix=t", "strict"]
+PIPE_MERGE = ["k=75", "extend2=120", "rem=t", "ecct=t"]
+PIPE_CHECK_BP = 5_000  # the region's head, for tadpipe's CUDA against CPU
+#: pairs of BBMerge's CUDA-against-CPU checks of ecco and nn=t, and of its
+#: merge stage with extend2 and ecct, whose host correction and extension
+#: run ~35 pairs/s on a CPU core (PERF.md section 4)
+MERGE_CHECK_PAIRS = 20_000
+MERGE_ECCT_CHECK_PAIRS = 500
+#: bbcms: all of config #2's reads with the depth filter; the default
+#: ecc=t on the region's reads (host correction)
+CMS_FILTER = ["ecc=f", "mincount=2", "hcf=0.5"]
+CMS_CHECK_READS = 2_000
+#: BBMap bloomfilter=t over the map reads' head and seeded foreign reads,
+#: one of them after every ten real reads. At E. coli's length the
+#: sketch (3 x 2^22 cells, the JAX package's) holds ~4.6M 31-mers, so a
+#: foreign 31-mer hits all three lanes ~30% of the time and a foreign
+#: read of 121 of them is prescreened only by chance; the CUDA-against-
+#: CPU check maps BLOOM_CHECK_READS reads of the region plus foreign ones
+#: against the region alone, where every foreign read is prescreened
+BLOOM_READS = 20_000
+BLOOM_FOREIGN = 2_000
+BLOOM_CHECK_READS = 2_048
 
 # Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
@@ -224,13 +271,15 @@ def make_fastq(path: str, n: int, seed: int) -> int:
 
 
 def make_pairs(paths: list[str], n: int, seed: int, lo: int, hi: int,
-               L: int = 150) -> int:
+               L: int = 150, genome=None, err: float | None = None) -> int:
     """Seeded pairs of L bp from inserts of lo..hi bp: r1 is the insert's
     start, r2 its reverse-complemented end, each read running into its
     adapter past the insert; phred 2-40, mostly high (41 - an exponential
-    of mean 7), with sequencing errors drawn at each base's phred rate and
-    an N in every 25th r1. Written to two files (r1, r2) or, given one
-    path, interleaved. Returns the number of pairs."""
+    of mean 7), with sequencing errors drawn at each base's phred rate
+    (or, given `err`, at that rate whatever the phred) and an N in every
+    25th r1. The inserts are random sequence, or given `genome` (codes
+    0-3) drawn from it at seeded starts. Written to two files (r1, r2)
+    or, given one path, interleaved. Returns the number of pairs."""
     rng = np.random.default_rng(seed)
     ascii_ = np.frombuffer(b"ACGTN", np.uint8)
     p_err = (10.0 ** (-np.arange(41) / 10.0)).astype(np.float32)
@@ -239,7 +288,11 @@ def make_pairs(paths: list[str], n: int, seed: int, lo: int, hi: int,
         for c0 in range(0, n, 100_000):
             m = min(n, c0 + 100_000) - c0
             ins = rng.integers(lo, hi + 1, m)
-            frag = rng.integers(0, 4, (m, hi), dtype=np.uint8)
+            if genome is None:
+                frag = rng.integers(0, 4, (m, hi), dtype=np.uint8)
+            else:
+                start = rng.integers(0, len(genome) - hi + 1, m)
+                frag = np.asarray(genome, np.uint8)[start[:, None] + np.arange(hi)[None, :]]
             pos = np.arange(L)[None, :]
             reads = []
             for mate, adapter in ((0, ADAPTER), (1, ADAPTER2)):
@@ -255,8 +308,9 @@ def make_pairs(paths: list[str], n: int, seed: int, lo: int, hi: int,
                 s[ad_pos] = ad[past[ad_pos]]
                 s[past >= len(ad)] = ord("A")
                 q = np.clip(41 - rng.exponential(7, (m, L)), 2, 40).astype(np.uint8)
-                err = rng.random((m, L), dtype=np.float32) < p_err[q]
-                s[err] = ascii_[rng.integers(0, 4, int(err.sum()))]
+                rate = p_err[q] if err is None else np.float32(err)
+                e = rng.random((m, L), dtype=np.float32) < rate
+                s[e] = ascii_[rng.integers(0, 4, int(e.sum()))]
                 if mate == 0:
                     n_rows = np.arange(0, m, 25)
                     s[n_rows, rng.integers(0, L, len(n_rows))] = ord("N")
@@ -1187,12 +1241,14 @@ def make_asm_data(work: str, seed: int) -> dict:
 
 
 def device_calls() -> dict:
-    """The device routes of the k-mer counts: calls on CUDA tensors."""
-    from bbtools_torch.ops import kmer_count, kmers2
+    """The device routes of the k-mer counts and the count-min sketch's
+    adds: calls on CUDA tensors."""
+    from bbtools_torch.ops import cms, kmer_count, kmers2
 
     return {"merge_spectra": kmer_count.merge_spectra.device_calls,
             "sort_reduce": kmer_count.sort_reduce.device_calls,
-            "count_words": kmers2.count_words.device_calls}
+            "count_words": kmers2.count_words.device_calls,
+            "cms_add": cms.cms_add.device_calls}
 
 
 def run_tool(tool: str, argv: list[str], device: str):
@@ -1495,6 +1551,396 @@ def asm_checks(asm: dict, work: str, main_out: dict, phase_s: dict):
         time.perf_counter() - t0)
 
 
+def make_bloom_reads(map_fq: str, dst: str, seed: int, n_real: int | None = None):
+    """n_real (BLOOM_READS) reads of map_fq's head with a seeded foreign
+    read of the same length (random sequence) after every ten."""
+    from bbtools_torch.io.fastq import FastqReader
+
+    n_real = BLOOM_READS if n_real is None else n_real
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ascii_ = np.frombuffer(b"ACGTN", np.uint8)
+    recs, real = [], 0
+    for b in FastqReader(map_fq):
+        for i in range(b.n):
+            if real == n_real:
+                break
+            L = int(b.lengths[i])
+            seq = ascii_[np.minimum(b.bases[i, :L], 4)].tobytes()
+            recs.append(b"@%s\n%s\n+\n%s\n" % (b.ids[i], seq, bytes(b.quals[i, :L] + 33)))
+            real += 1
+            if real % 10 == 0:
+                junk = acgt[rng.integers(0, 4, L)].tobytes()
+                recs.append(b"@junk%d_scaf0_pos0_strand0_insert0\n%s\n+\n%s\n"
+                            % (real // 10, junk, b"F" * L))
+        if real == n_real:
+            break
+    with gzip.open(dst, "wb", compresslevel=1) as fh:
+        fh.write(b"".join(recs))
+
+
+def make_pipe_data(asm: dict, work: str, seed: int) -> dict:
+    """tadpipe's inputs (PIPE_* above): pairs of the region, of its first
+    PIPE_CHECK_BP bp, and of the whole copy, and the heads BBMerge's
+    checks take; the region as a FASTA and its reads with foreign ones,
+    for bloomfilter's check (the main bloomfilter reads are made in
+    main)."""
+    copy = asm["copy_codes"]
+    d = {}
+    for tag, codes, n, s in (("region", copy[:ASM_REGION], PIPE_PAIRS, 0),
+                             ("check", copy[:PIPE_CHECK_BP],
+                              PIPE_PAIRS * PIPE_CHECK_BP // ASM_REGION, 1),
+                             ("full", copy, PIPE_FULL_PAIRS, 2)):
+        d[tag] = [os.path.join(work, f"pipe_{tag}_{m}.fq.gz") for m in (1, 2)]
+        make_pairs(d[tag], n, seed + s, *PIPE_INSERTS, genome=codes, err=ASM_ERR)
+        d[tag + "_pairs"] = n
+    # bloomfilter's check: the region as the reference, its reads with a
+    # foreign read after every ten
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import write_fasta
+
+    d["region.fa"] = os.path.join(work, "pipe_region.fa")
+    write_fasta(d["region.fa"], [(b"region", CODE_TO_BASE[copy[:ASM_REGION]].tobytes())])
+    d["bloom_check"] = os.path.join(work, "pipe_bloom_check.fq.gz")
+    make_bloom_reads(asm["region.fq.gz"], d["bloom_check"], seed + 3,
+                     BLOOM_CHECK_READS - BLOOM_CHECK_READS // 11)
+    d["merge_check"] = [os.path.join(work, f"pipe_mcheck_{m}.fq.gz") for m in (1, 2)]
+    d["ecct_check"] = [os.path.join(work, f"pipe_echeck_{m}.fq.gz") for m in (1, 2)]
+    for m in (0, 1):
+        head_fastq(d["full"][m], d["merge_check"][m], MERGE_CHECK_PAIRS)
+        head_fastq(d["full"][m], d["ecct_check"][m], MERGE_ECCT_CHECK_PAIRS)
+    return d
+
+
+@contextlib.contextmanager
+def stage_timer(stage_s: dict):
+    """Add the seconds of each stage tadpipe runs in-process into stage_s:
+    BBDuk (trim), BBMerge (ecco; merge), Tadpole (correct; each k of the
+    wrapper's assembly)."""
+    from bbtools_torch.models import bbduk, bbmerge, tadpole
+
+    def label(mod, argv):
+        if mod is bbduk:
+            return "trim (bbduk)"
+        if mod is bbmerge:
+            return "ecco (bbmerge)" if "ecco=t" in argv else "merge (bbmerge extend2 ecct)"
+        if "mode=correct" in argv:
+            return "ecc (tadpole correct)"
+        return "assemble " + next(a for a in argv if a.startswith("k="))
+
+    saved = {m: m.main for m in (bbduk, bbmerge, tadpole)}
+
+    def wrap(mod):
+        def timed(argv=None, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return saved[mod](argv, *a, **kw)
+            finally:
+                key = label(mod, argv)
+                stage_s[key] = stage_s.get(key, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for m in saved:
+        m.main = wrap(m)
+    try:
+        yield stage_s
+    finally:
+        for m, fn in saved.items():
+            m.main = fn
+
+
+def bloom_recount(sketch, fq: str) -> tuple[int, float]:
+    """(reads of fq none of whose valid 31-mers hit the sketch, the share
+    of the foreign reads' 31-mers that hit it), from the sketch's own
+    queries."""
+    from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.ops.kmers import rolling_kmers_np
+
+    zero, hits, total = 0, 0, 0
+    for b in FastqReader(fq):
+        L = b.bases.shape[1]
+        fwd, rkm, run = rolling_kmers_np(b.bases, 31)
+        ok = (run >= 31) & (np.arange(L)[None, :] < b.lengths[:, None].astype(np.int64))
+        cnt = np.zeros(ok.shape, np.int64)
+        cnt[ok] = sketch.query(np.maximum(fwd, rkm)[ok])
+        hit = cnt > 0
+        zero += int((hit.sum(axis=1) == 0).sum())
+        junk = np.array([i.startswith(b"junk") for i in b.ids])
+        hits += int(hit[junk].sum())
+        total += int(ok[junk].sum())
+    return zero, hits / max(total, 1)
+
+
+def time_cms_add(fq: str, card: str) -> float:
+    """Device ms of one add at a batch's shape (CUDA events): the k-mers of
+    fq's first batch into a fresh sketch. Not counted as the path's."""
+    import torch
+
+    from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.models.bbcms import _batch_keys
+    from bbtools_torch.ops import cms
+
+    b = next(iter(FastqReader(fq)))
+    keys = _batch_keys(b.bases, b.lengths, 31, torch.device("cuda"))
+    keys = keys[keys != np.iinfo(np.int64).max]
+    sk = cms.CountMinSketch(device="cuda")
+    calls = cms.cms_add.device_calls
+    ms = cuda_ms(lambda: cms.cms_add(sk.table, keys, sk.max_count), 10)
+    cms.cms_add.device_calls = calls
+    print(f"bbcms add: {ms:.3f} ms for one batch's {keys.numel()} k-mers ({b.n} reads; "
+          f"sort, runs, index_add_ over unique slots, saturation) on {card}")
+    return ms
+
+
+def a6b_phases(asm: dict, pipe: dict, ctx: dict, work: str, card: str,
+               phase_s: dict) -> dict:
+    """The A6b tools through the CLI on device=cuda, each with its kernels'
+    launch counts or its counts' device routes required: tadpipe whole on
+    the region, its trim and ecco stages at full size, BBMerge nn=t over
+    the smoke's pairs, bbcms over config #2's reads and with ecc=t on the
+    region's, BBMap bloomfilter=t, and bbrealign on the clipped SAM.
+    Returns the outputs the CUDA-against-CPU checks reuse."""
+    out = {}
+    # ---- tadpipe whole, at TadPipe's defaults ----
+    t0 = time.perf_counter()
+    asm_fa = os.path.join(work, "pipe.cuda.fa")
+    stage_s: dict[str, float] = {}
+    with stage_timer(stage_s):
+        (best_k, dt, log), got = run_path("tadpipe", lambda: routed(
+            "tadpipe", lambda: run_tool("tadpipe", [
+                f"in={pipe['region'][0]}", f"in2={pipe['region'][1]}", f"out={asm_fa}",
+                f"tmpdir={os.path.join(work, 'pipe_tmp')}"], "cuda"),
+            {"sort_reduce": None, "count_words": None}),
+            ("cummax_i64", "overlap_scan", "lane_table"), {})
+    from bbtools_torch.io.fasta import iter_fasta
+
+    contigs = [r.seq for r in iter_fasta(asm_fa)]
+    lens = [len(c) for c in contigs]
+    recall = kmer_recall(contigs, asm["copy_codes"][:ASM_REGION])
+    merged_ext = log.split("Merged by extension: \t")[1].split()[0]
+    print(f"tadpipe (k=31,62,93, every stage) device=cuda: {PIPE_PAIRS} pairs in {dt:.2f} s "
+          f"= {PIPE_PAIRS / dt:.0f} pairs/s (wall) on {card}; stages: "
+          + ", ".join(f"{k} {v:.2f} s ({v / dt:.1%})" for k, v in stage_s.items())
+          + f"; other {dt - sum(stage_s.values()):.2f} s")
+    print(f"tadpipe: Recommended K {best_k}; {len(lens)} contigs, {sum(lens)} bp, N50 "
+          f"{n50(lens)}, max contig {max(lens, default=0)}; {recall:.4f} of the region's "
+          f"31-mers in the assembly; merged by extension {merged_ext}; launches "
+          f"cummax_i64 {got['cummax_i64']}, overlap_scan {got['overlap_scan']}, "
+          f"lane_table {got['lane_table']}")
+    if recall < ASM_RECALL_MIN:
+        raise AssertionError(f"tadpipe: the assembly holds {recall:.4f} of the region")
+    out["tadpipe_launches"] = got
+    phase_s["tadpipe"] = time.perf_counter() - t0
+
+    # ---- tadpipe's two device stages at full size ----
+    t0 = time.perf_counter()
+    n = pipe["full_pairs"]
+    trimmed = [os.path.join(work, f"pipe_full_trim_{m}.fq") for m in (1, 2)]
+    (_, dt, _), got = run_path("tadpipe trim (full)", lambda: run_tool("bbduk", [
+        f"in={pipe['full'][0]}", f"in2={pipe['full'][1]}", f"out={trimmed[0]}",
+        f"out2={trimmed[1]}", *PIPE_TRIM], "cuda"),
+        ("cummax_i64", "overlap_scan", "lane_table"), {})
+    print(f"tadpipe trim stage (bbduk {' '.join(PIPE_TRIM)}) device=cuda: {n} pairs in "
+          f"{dt:.2f} s = {n / dt:.0f} pairs/s (wall) on {card}; launches {got}")
+    ecco = [os.path.join(work, f"pipe_full_ecco_{m}.fq") for m in (1, 2)]
+    (tool, dt, _), got = run_path("tadpipe ecco (full)", lambda: run_tool("bbmerge", [
+        f"in1={trimmed[0]}", f"in2={trimmed[1]}", f"out={ecco[0]}", f"outu2={ecco[1]}",
+        *PIPE_ECCO], "cuda"), ("overlap_scan", "lane_table"), {})
+    print(f"tadpipe ecco stage (bbmerge {' '.join(PIPE_ECCO)}) device=cuda: {tool.pairs} "
+          f"pairs in {dt:.2f} s = {tool.pairs / dt:.0f} pairs/s (wall) on {card}; "
+          f"{tool.merged} corrected by their overlap")
+    phase_s["tadpipe device stages (full)"] = time.perf_counter() - t0
+
+    # ---- BBMerge nn=t over the smoke's pairs ----
+    t0 = time.perf_counter()
+    nn_out = [os.path.join(work, f"nn.cuda.{x}") for x in ("m.fq", "u1.fq", "u2.fq")]
+    (tool, dt, _), got = run_path("bbmerge nn=t", lambda: run_tool("bbmerge", [
+        f"in1={ctx['pairs'][0]}", f"in2={ctx['pairs'][1]}", f"out={nn_out[0]}",
+        f"outu1={nn_out[1]}", f"outu2={nn_out[2]}", "nn=t"], "cuda"),
+        ("overlap_scan", "lane_table"), {})
+    share = tool.merged / tool.pairs
+    print(f"bbmerge nn=t device=cuda: {tool.pairs} pairs in {dt:.2f} s = "
+          f"{tool.pairs / dt:.0f} pairs/s (wall) on {card}, against {ctx['merge_rate']:.0f} "
+          f"pairs/s at defaults; merged share {share:.4f} against {ctx['merge_share']:.4f} "
+          f"at defaults; {tool.ambiguous} ambiguous; {len(tool.nn_near)} scores within "
+          f"1e-5 of the cutoff {tool.net_cutoff}")
+    # the gate moves decisions both ways: the widened scan (max_ratio 0.7)
+    # finds more candidates, and the net rejects some
+    if not 0 < share != ctx["merge_share"]:
+        raise AssertionError(f"bbmerge nn=t: merged share {share:.4f}")
+    phase_s["bbmerge nn=t"] = time.perf_counter() - t0
+
+    # ---- bbcms ----
+    t0 = time.perf_counter()
+    kept_fq = os.path.join(work, "cms.cuda.fq")
+    batches = -(-ASM_READS // BATCH)
+    ((kept, tossed, _), dt, _), _ = run_path("bbcms", lambda: routed("bbcms", lambda: run_tool(
+        "bbcms", [f"in={asm['reads.fq.gz']}", f"out={kept_fq}", *CMS_FILTER], "cuda"),
+        {"cms_add": batches}), (), {})
+    table_bytes = 3 * (1 << 22) * 4
+    print(f"bbcms {' '.join(CMS_FILTER)} device=cuda: {ASM_READS} reads in {dt:.2f} s = "
+          f"{ASM_READS / dt:.0f} reads/s (wall, count and filter passes) on {card}; "
+          f"{kept} kept, {tossed} tossed; the sketch (3 x 2^22 int32) holds {table_bytes} "
+          f"bytes on the card; {batches} adds")
+    if not 0.9 * ASM_READS <= kept < ASM_READS:
+        raise AssertionError(f"bbcms: kept {kept} of {ASM_READS}")
+    out["cms_add_ms"] = time_cms_add(asm["reads.fq.gz"], card)
+    ecc_fq = os.path.join(work, "cms_ecc.cuda.fq")
+    ((kept, _, errors), dt, _), _ = run_path("bbcms ecc=t", lambda: routed(
+        "bbcms ecc=t", lambda: run_tool("bbcms", [
+            f"in={asm['ecc.fq.gz']}", f"out={ecc_fq}"], "cuda"),
+        {"cms_add": None}), (), {})
+    n_in = ECC_CHECK_READS
+    print(f"bbcms ecc=t device=cuda: the region's first {n_in} reads in {dt:.2f} s = "
+          f"{n_in / dt:.0f} reads/s (wall; the correction is host code) on {card}; "
+          f"{errors} errors corrected")
+    if errors <= 0:
+        raise AssertionError("bbcms ecc=t corrected nothing")
+    phase_s["bbcms"] = time.perf_counter() - t0
+
+    # ---- BBMap bloomfilter=t (B4) ----
+    t0 = time.perf_counter()
+    sam = os.path.join(work, "bloom.cuda.sam")
+    (tool, dt, _), got = run_path("bbmap bloomfilter=t", lambda: routed(
+        "bbmap bloomfilter=t", lambda: run_tool("bbmap", [
+            f"ref={ctx['ref_fa']}", f"in={ctx['bloom_fq']}", f"out={sam}",
+            "bloomfilter=t"], "cuda"), {"cms_add": None}), ("msa_fill",), {})
+    foreign = mapped_foreign = 0
+    with open(sam, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"junk"):
+                foreign += 1
+                mapped_foreign += not int(line.split(b"\t", 2)[1]) & 4
+    # the prescreen recounted from the tool's own sketch: the reads none of
+    # whose 31-mers hit it, and the foreign 31-mers' share that hits
+    zero, hit_share = bloom_recount(tool.bloom, ctx["bloom_fq"])
+    share = tool.reads_mapped / BLOOM_READS
+    n = BLOOM_READS + BLOOM_FOREIGN
+    print(f"bbmap bloomfilter=t device=cuda: {n} reads in {dt:.2f} s = {n / dt:.0f} reads/s "
+          f"(wall, incl. the index and sketch build) on {card}, against {ctx['map_rate']:.0f} "
+          f"reads/s for the fused default; {tool.prescreened} prescreened ({zero} recounted), "
+          f"{foreign} foreign reads ({mapped_foreign} mapped), {hit_share:.4f} of their 31-mers "
+          f"hit the sketch (3 x 2^22 cells over the genome's 31-mers); {tool.reads_mapped} "
+          f"of {BLOOM_READS} real reads mapped ({share:.4f}); B4 launches {got['msa_fill']} "
+          f"(warp), {got['msa_fill_block']} (block)")
+    if (foreign != BLOOM_FOREIGN or mapped_foreign or tool.prescreened != zero
+            or not MAPPED_RANGE[0] <= share <= MAPPED_RANGE[1]):
+        raise AssertionError(f"bbmap bloomfilter=t: {tool.prescreened} prescreened "
+                             f"({zero} recounted), {mapped_foreign} foreign mapped, share "
+                             f"{share:.4f}")
+    phase_s["bbmap bloomfilter=t"] = time.perf_counter() - t0
+
+    # ---- bbrealign on the clipped SAM of config #5 ----
+    t0 = time.perf_counter()
+    clip_sam = os.path.join(work, "realign.in.sam")
+    clipped = clip_indels(ctx["cv_sam"], clip_sam, CV_CHECK_READS)
+    re_out = os.path.join(work, "realign.cuda.sam")
+    ((realigned, total), dt, _), _ = run_path("bbrealign", lambda: run_tool("bbrealign", [
+        f"in={clip_sam}", f"ref={asm['ref.fa']}", f"out={re_out}"], "cuda"), (), {})
+    print(f"bbrealign device=cuda: {total} alignments ({clipped} soft-clipped from their "
+          f"first indel on) in {dt:.2f} s = {total / dt:.0f} records/s on {card}; "
+          f"{realigned} realigned")
+    if realigned < 1:
+        raise AssertionError("bbrealign realigned nothing")
+    out.update(clip_sam=clip_sam, realign_out=re_out, realigned=realigned)
+    phase_s["bbrealign"] = time.perf_counter() - t0
+    return out
+
+
+def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
+               phase_s: dict):
+    """The A6b tools on device=cuda and device=cpu, byte for byte: tadpipe
+    k=31,62 on the region's first PIPE_CHECK_BP bp (the final contigs and
+    every stage file), BBMerge ecco and nn=t on MERGE_CHECK_PAIRS pairs
+    and its merge stage (extend2 ecct) on MERGE_ECCT_CHECK_PAIRS (nn=t:
+    only pairs whose score lay within 1e-5 of the cutoff may differ),
+    bbcms ecc=t and mincount=2 on CMS_CHECK_READS of the region's reads,
+    BBMap bloomfilter=t on BLOOM_CHECK_READS reads against the region
+    (every foreign read prescreened), and bbrealign on the clipped
+    SAM."""
+    from bbtools_torch.utils.fqdiff import differing_names
+
+    t0 = time.perf_counter()
+    files = {}
+    for device in ("cuda", "cpu"):
+        tmp = os.path.join(work, f"pipe_check.{device}")
+        fa = tmp + ".fa"
+        _, dt, _ = run_tool("tadpipe", [f"in={pipe['check'][0]}", f"in2={pipe['check'][1]}",
+                                        f"out={fa}", f"tmpdir={tmp}", "k=31,62",
+                                        "deletetemp=f"], device)
+        names = sorted(os.listdir(tmp))
+        files[device] = read_all([fa] + [os.path.join(tmp, x) for x in names])
+        print(f"tadpipe k=31,62 device={device}: {pipe['check_pairs']} pairs in {dt:.2f} s")
+    if files["cuda"] != files["cpu"] or len(names) != 12:
+        raise AssertionError("tadpipe: cuda and cpu outputs differ")
+    print(f"tadpipe: cuda == cpu on {pipe['check_pairs']} pairs of the region's first "
+          f"{PIPE_CHECK_BP} bp (the assembly and {len(names)} stage files, "
+          f"{sum(map(len, files['cuda']))} bytes)")
+    for tag, ins, flags, n in (
+            ("ecco", pipe["merge_check"], PIPE_ECCO, MERGE_CHECK_PAIRS),
+            ("nn", pipe["merge_check"], ["nn=t"], MERGE_CHECK_PAIRS),
+            ("merge", pipe["ecct_check"], PIPE_MERGE, MERGE_ECCT_CHECK_PAIRS)):
+        files, near = {}, set()
+        for device in ("cuda", "cpu"):
+            outs = [os.path.join(work, f"mcheck.{tag}.{device}.{x}")
+                    for x in ("m.fq", "u1.fq", "u2.fq", "ihist.txt")]
+            tool, dt, _ = run_tool("bbmerge", [
+                f"in1={ins[0]}", f"in2={ins[1]}", *(f"{k}={o}" for k, o in zip(
+                    ("out", "outu1", "outu2", "ihist"), outs)), *flags], device)
+            files[device] = read_all(outs)
+            near |= set(tool.nn_near)
+            print(f"bbmerge {' '.join(flags)} device={device}: {n} pairs in {dt:.2f} s")
+        differ = set()
+        for a, b in zip(files["cuda"], files["cpu"]):
+            if a != b:
+                if tag != "nn":
+                    raise AssertionError(f"bbmerge {tag}: cuda and cpu outputs differ")
+                differ |= differing_names(a, b)
+        if not differ <= near:
+            raise AssertionError(f"bbmerge nn=t: {len(differ - near)} pairs differ away "
+                                 "from the cutoff")
+        print(f"bbmerge {' '.join(flags)}: cuda == cpu on {n} pairs"
+              + (f" but for {len(differ)} pairs of the {len(near)} whose score lay within "
+                 f"1e-5 of the cutoff" if tag == "nn" else "")
+              + f" ({sum(map(len, files['cuda']))} bytes)")
+    cms_in = os.path.join(work, "cms_check.fq.gz")
+    head_fastq(asm["region.fq.gz"], cms_in, CMS_CHECK_READS)
+    for flags in (["k=25"], ["ecc=f", "mincount=2"]):
+        files = {}
+        for device in ("cuda", "cpu"):
+            outs = [os.path.join(work, f"cms_check.{device}.{x}.fq") for x in ("out", "bad")]
+            run_tool("bbcms", [f"in={cms_in}", f"out={outs[0]}", f"outb={outs[1]}", *flags],
+                     device)
+            files[device] = read_all(outs)
+        if files["cuda"] != files["cpu"]:
+            raise AssertionError(f"bbcms {flags}: cuda and cpu outputs differ")
+        print(f"bbcms {' '.join(flags)}: cuda == cpu on {CMS_CHECK_READS} reads")
+    files, pre = {}, {}
+    for device in ("cuda", "cpu"):
+        sam = os.path.join(work, f"bloom_check.{device}.sam")
+        tool, dt, _ = run_tool("bbmap", [f"ref={pipe['region.fa']}", f"in={pipe['bloom_check']}",
+                                         f"out={sam}", "bloomfilter=t"], device)
+        files[device] = read_all([sam])
+        pre[device] = tool.prescreened
+        print(f"bbmap bloomfilter=t (the region as reference) device={device}: "
+              f"{BLOOM_CHECK_READS} reads in {dt:.2f} s")
+    n_foreign = BLOOM_CHECK_READS // 11
+    if files["cuda"] != files["cpu"] or not pre["cuda"] == pre["cpu"] >= n_foreign:
+        raise AssertionError(f"bbmap bloomfilter=t: cuda and cpu SAM differ or too few "
+                             f"prescreened ({pre})")
+    print(f"bbmap bloomfilter=t: cuda == cpu on {BLOOM_CHECK_READS} reads against the "
+          f"region ({pre['cuda']} prescreened on each device, {n_foreign} foreign)")
+    out = os.path.join(work, "realign.cpu.sam")
+    (realigned, _), dt, _ = run_tool("bbrealign", [
+        f"in={main_out['clip_sam']}", f"ref={asm['ref.fa']}", f"out={out}"], "cpu")
+    if read_all([out]) != read_all([main_out["realign_out"]]) or (
+            realigned != main_out["realigned"]):
+        raise AssertionError("bbrealign: cuda and cpu outputs differ")
+    print(f"bbrealign: cuda == cpu on {CV_CHECK_READS} records ({realigned} realigned on "
+          f"each device; cpu {dt:.2f} s)")
+    phase_s["cuda == cpu, a6b tools"] = time.perf_counter() - t0
+
+
 def read_all(paths) -> list[bytes]:
     out = []
     for p in paths:
@@ -1505,7 +1951,7 @@ def read_all(paths) -> list[bytes]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reads", type=int, default=300_000)
+    ap.add_argument("--reads", type=int, default=200_000)
     ap.add_argument("--pairs", type=int, default=150_000)
     ap.add_argument("--map-reads", type=int, default=MAP_READS)
     ap.add_argument("--map-pairs", type=int, default=MAP_PAIRS)
@@ -1562,6 +2008,10 @@ def main(argv=None) -> int:
 
         small = os.path.join(work, "head.fq.gz")
         head_fastq(fq, small, CHECK_READS)
+        # the kernels are checked on one batch of the main path: BATCH reads
+        # (CHECK_READS >= MERGE_BATCH covers BBMerge's batch of pairs)
+        kern_fq = os.path.join(work, "head_batch.fq.gz")
+        head_fastq(fq, kern_fq, BATCH)
         small_pairs = [os.path.join(work, f"head_pairs_{m}.fq.gz") for m in (1, 2)]
         head_fastq(r1, small_pairs[0], CHECK_READS)
         head_fastq(r2, small_pairs[1], CHECK_READS)
@@ -1610,10 +2060,19 @@ def main(argv=None) -> int:
               f"{ASM_READS} reads of {ASM_READ_LEN} bp of the copy ({ASM_ERR:.1%} base "
               f"errors), {asm['region_reads']} of them in its first {ASM_REGION} bp; "
               f"made in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pipe = make_pipe_data(asm, work, args.seed + 20)
+        bloom_fq = os.path.join(work, "bloom.fq.gz")
+        make_bloom_reads(map_fq, bloom_fq, args.seed + 21)
+        print(f"A6b input: {PIPE_PAIRS} pairs of the region, {pipe['check_pairs']} of its "
+              f"first {PIPE_CHECK_BP} bp and {PIPE_FULL_PAIRS} of the whole copy (2x150 bp, "
+              f"inserts {PIPE_INSERTS[0]}-{PIPE_INSERTS[1]}, adapters past short inserts, "
+              f"{ASM_ERR:.1%} base errors); {BLOOM_READS} map reads and {BLOOM_FOREIGN} "
+              f"foreign reads; made in {time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
 
         t0 = time.perf_counter()
-        kernels = check_kernels(small, *small_pairs)
+        kernels = check_kernels(kern_fq, *small_pairs)
         kernels[3:3] = check_msa_fill(ref_fa, map_batch)
         phase_s["kernels"] = time.perf_counter() - t0
         print(f"kernel timings on: {card}; kernel phase {phase_s['kernels']:.1f} s")
@@ -1683,6 +2142,8 @@ def main(argv=None) -> int:
         print(f"bbmerge device=cuda: {args.pairs} pairs in {dt:.2f} s = "
               f"{args.pairs / dt:.0f} pairs/s, {2 * args.pairs / dt:.0f} reads/s "
               f"(wall, incl. IO) on {card}")
+        ctx = {"pairs": (r1, r2), "merge_share": share, "merge_rate": args.pairs / dt,
+               "ref_fa": ref_fa, "bloom_fq": bloom_fq}
 
         # ---- BBMap (B4), single end and paired ----
         sam = os.path.join(work, "map.cuda.sam")
@@ -1699,6 +2160,7 @@ def main(argv=None) -> int:
         print(f"bbmap device=cuda: {args.map_reads} reads in {dt:.2f} s = "
               f"{args.map_reads / dt:.0f} reads/s (wall, incl. the index build and IO) "
               f"on {card}")
+        ctx["map_rate"] = args.map_reads / dt
         print(f"bbmap B4 launches: warp kernel {got['msa_fill']}, block kernel "
               f"{got['msa_fill_block']}; batches whose fused phase "
               f"overflowed its walk cap and ran staged: {tool.fused_overflows}")
@@ -1730,6 +2192,8 @@ def main(argv=None) -> int:
         phase_s["bbduk, bbmerge, bbmap"] = time.perf_counter() - t0
 
         asm_out = asm_phases(asm, work, card, phase_s)
+        ctx["cv_sam"] = asm_out["sam"]
+        a6b_out = a6b_phases(asm, pipe, ctx, work, card, phase_s)
         t0 = time.perf_counter()
 
         # ---- CUDA against CPU, byte for byte, on the first reads ----
@@ -1765,6 +2229,7 @@ def main(argv=None) -> int:
         phase_s["cuda == cpu, earlier tools"] = time.perf_counter() - t0
 
         asm_checks(asm, work, asm_out, phase_s)
+        a6b_checks(asm, pipe, ctx, a6b_out, work, phase_s)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from bbtools_torch.cli import main as torch_main
 from bbtools_torch.models import bbmerge as port_bbmerge
@@ -41,6 +42,18 @@ def pristine_jax_presets(monkeypatch):
     """Every test sees a fresh copy of the JAX package's published
     BBMerge presets, whatever ran earlier in this process."""
     monkeypatch.setattr(jax_bbmerge, "PRESETS", copy.deepcopy(JAX_PRESETS))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU runs: the suite runs several
+    test processes on shared cores, where torch's thread pool, woken at
+    each of the many small ops of the mate selection and the fills,
+    stalls (as in tests/test_torch_bbmap.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def make_pairs(n, seed, L, lo, hi):

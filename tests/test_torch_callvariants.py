@@ -338,3 +338,70 @@ def test_invcf_forced_equal_jax(mapped, tmp_path):
         f"invcf={tmp_path / 'force.vcf'}"])
     assert sum(v.forced for v in tool.varmap.values()) == sum(
         v.forced for v in jtool.varmap.values()) >= len(fails)
+
+
+def _clip_indels(src, dst):
+    """SAM src to dst with each record whose CIGAR holds an insertion or a
+    deletion after an aligned op soft-clipped from that indel on (the
+    reads bbrealign exists for). Returns how many were clipped."""
+    import re
+
+    clipped = 0
+    with open(src, "rb") as fi, open(dst, "wb") as fo:
+        for line in fi:
+            if not line.startswith(b"@"):
+                f = line.split(b"\t")
+                ops = re.findall(rb"(\d+)([MIDNSHP=X])", f[5])
+                cut = next((i for i, (_, op) in enumerate(ops) if op in b"ID"), None)
+                if cut is not None and any(op in b"M=X" for _, op in ops[:cut]):
+                    tail = sum(int(x) for x, op in ops[cut:] if op in b"MIS=X")
+                    f[5] = b"".join(x + op for x, op in ops[:cut]) + b"%dS" % tail
+                    line = b"\t".join(f)
+                    clipped += 1
+            fo.write(line)
+    return clipped
+
+
+def _bbrealign_both(tmp, sam, ref):
+    """`bbrealign` in both packages; returns each one's (realigned,
+    total) and output bytes."""
+    from bbtools_torch.models.bbrealign import main as trealign
+    from bbtools_tpu.models.bbrealign import main as jrealign
+
+    res = {}
+    for pkg, main in (("jax", jrealign), ("torch", trealign)):
+        out = tmp / f"realigned.{pkg}.sam"
+        argv = [f"in={sam}", f"ref={ref}", f"out={out}"]
+        counts = main(argv + (["device=cpu"] if pkg == "torch" else []))
+        res[pkg] = (counts, out.read_bytes())
+    return res
+
+
+def test_bbrealign_equals_jax_on_clipped_indels(mapped, tmp_path):
+    clipped = _clip_indels(mapped / "m.sam", tmp_path / "clip.sam")
+    res = _bbrealign_both(tmp_path, tmp_path / "clip.sam", mapped / "ref.fa")
+    assert res["torch"] == res["jax"]
+    realigned, total = res["torch"][0]
+    assert clipped > 20 and total >= 1100 and realigned >= clipped // 2
+    # through the CLI name as well
+    out = tmp_path / "cli.sam"
+    assert tmain(["bbrealign", f"in={tmp_path / 'clip.sam'}", f"ref={mapped / 'ref.fa'}",
+                  f"out={out}", "device=cpu"]) == 0
+    assert out.read_bytes() == res["jax"][1]
+
+
+def test_bbrealign_sloppy_record_equals_jax(tmp_path):
+    """tests/test_longtail3.py's case: a read of ref[100:160] written at
+    the wrong position with a noisy CIGAR is moved to 101, 60=."""
+    rng = np.random.default_rng(3)
+    ref = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 400))
+    (tmp_path / "ref.fa").write_bytes(b">c\n" + ref + b"\n")
+    seg = ref[100:160]
+    (tmp_path / "in.sam").write_bytes(
+        b"@SQ\tSN:c\tLN:400\n"
+        b"r\t0\tc\t95\t10\t20S40M\t*\t0\t0\t" + seg + b"\t" + b"I" * 60 + b"\n")
+    res = _bbrealign_both(tmp_path, tmp_path / "in.sam", tmp_path / "ref.fa")
+    assert res["torch"] == res["jax"]
+    assert res["torch"][0] == (1, 1)
+    f = res["torch"][1].splitlines()[1].split(b"\t")
+    assert int(f[3]) == 101 and f[5] == b"60="

@@ -1232,3 +1232,209 @@ def test_realign_recovers_deletion_cuda_equals_cpu(cuda, tmp_path):
     assert vcf["cuda"] == vcf["cpu"]
     assert any(v.type == callvariants.DEL and v.start == 2000 and v.reflen() == 3
                for v in tools["cuda"].varmap.values())
+
+
+def test_cms_cuda_equals_cpu(cuda):
+    """The count-min sketch's add (sort, runs, index_add_ over unique
+    slots, saturation) and query on the card against the same sketch on
+    the CPU and against the host hash: duplicates, a key repeated past
+    max_count, several adds; each CUDA add counted."""
+    from bbtools_torch.ops import cms
+
+    rng = np.random.default_rng(5)
+    sk = {d: cms.CountMinSketch(1 << 14, 3, max_count=50, device=d) for d in ("cuda", "cpu")}
+    before = cms.cms_add.device_calls
+    for r in range(4):
+        keys = rng.integers(0, 1 << 62, 200_000).astype(np.int64)
+        keys = np.concatenate([keys, keys[:5000], np.full(70, keys[0])])
+        for d in sk:
+            sk[d].add(keys)
+        assert torch.equal(sk["cuda"].table.cpu(), sk["cpu"].table)
+    assert cms.cms_add.device_calls == before + 4
+    q = np.concatenate([keys[:1000], rng.integers(0, 1 << 62, 1000)])
+    np.testing.assert_array_equal(sk["cuda"].query(q), sk["cpu"].query(q))
+    assert sk["cuda"].query(keys[:1])[0] == 50
+    np.testing.assert_array_equal(
+        cms.cms_slots(torch.as_tensor(q, device=cuda), 3, 1 << 14).cpu().numpy(),
+        sk["cpu"]._slots_np(q))
+
+
+def _error_reads(path, n, seed, glen=3000, L=100):
+    """Deep reads of a random genome, every fourth with one substitution,
+    and 20 random reads."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, glen)
+    with open(path, "w") as fh:
+        for i in range(n + 20):
+            if i < n:
+                p = int(rng.integers(0, glen - L))
+                s = genome[p : p + L].copy()
+                if i % 4 == 0:
+                    s[int(rng.integers(10, L - 10))] ^= 1
+            else:
+                s = rng.integers(0, 4, L)
+            fh.write(f"@r{i}\n{bytes(b'ACGT'[c] for c in s).decode()}\n+\n{'D' * L}\n")
+    return path
+
+
+@pytest.mark.parametrize("flags", [["k=25"], ["ecc=f", "mincount=2", "hcf=0.5"]],
+                         ids=["ecc", "mincount"])
+def test_bbcms_cuda_equals_cpu(cuda, tmp_path, flags):
+    from bbtools_torch.cli import main
+    from bbtools_torch.ops import cms
+
+    fin = _error_reads(tmp_path / "in.fq", 1500, 8)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        outs = [tmp_path / f"{dev}.{x}.fq" for x in ("out", "bad")]
+        before = cms.cms_add.device_calls
+        main(["bbcms", f"in={fin}", f"out={outs[0]}", f"outb={outs[1]}", *flags,
+              f"device={dev}"])
+        assert cms.cms_add.device_calls - before == (1 if dev == "cuda" else 0)
+        files[dev] = [p.read_bytes() for p in outs]
+    assert files["cuda"] == files["cpu"]
+    assert files["cuda"][0].count(b"\n") >= 4 * 1400
+
+
+def test_bbmap_bloomfilter_cuda_equals_cpu(cuda, tmp_path):
+    """bloomfilter=t: the reference's 31-mers in a sketch on the card, each
+    batch prescreened by one query; the foreign reads come out unmapped,
+    the SAM equal to the CPU's, and B4 runs for the rest."""
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.models import bbmap
+    from bbtools_torch.ops import msa_fill
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(150_000, seed=17))
+    reads = random_reads(load_reference(str(tmp_path / "ref.fa")), 600, read_len=151,
+                         snp_rate=0.01, seed=5)
+    rng = np.random.default_rng(3)
+    reads += [(b"junk%d_scaf0_pos0_strand0_insert0" % i,
+               bytes(b"ACGT"[c] for c in rng.integers(0, 4, 151)), b"F" * 151)
+              for i in range(200)]
+    write_reads(str(tmp_path / "r.fq"), reads)
+    sams, tools = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.sam"
+        def b4():
+            return msa_fill.msa_fill.launches + msa_fill.msa_fill.block_launches
+
+        before = b4()
+        tools[dev] = bbmap.main([f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}",
+                                 f"out={out}", "bloomfilter=t", f"device={dev}"])
+        assert (b4() > before) == (dev == "cuda")
+        sams[dev] = out.read_bytes()
+    assert sams["cuda"] == sams["cpu"]
+    # nearly every foreign read shares no 31-mer with the sketch (a few
+    # hit it by chance: 150,000 31-mers in 3 x 2^22 cells); none maps
+    assert tools["cuda"].prescreened == tools["cpu"].prescreened >= 190
+    assert not [ln for ln in sams["cuda"].splitlines()
+                if ln.startswith(b"junk") and not int(ln.split(b"\t")[1]) & 4]
+    assert tools["cuda"].reads_mapped >= 590
+
+
+@pytest.mark.parametrize("flags", [["ecco=t", "mix=t", "strict"],
+                                   ["k=75", "extend2=120", "rem=t", "ecct=t"],
+                                   ["nn=t"]], ids=["ecco", "extend2_ecct", "nn"])
+def test_bbmerge_flags_cuda_equal_cpu(cuda, tmp_path, flags):
+    """BBMerge's ecco, tadpipe's merge stage (extension and correction on
+    k-mers counted on the card) and the net gate, CUDA against CPU; with
+    nn=t only pairs whose score lay within NN_NEAR of the cutoff may
+    differ (none expected)."""
+    from bbtools_torch.models import bbmerge
+    from bbtools_torch.ops import kmer_count, overlap_scan
+    from bbtools_torch.utils.fqdiff import differing_names
+
+    fin = _pairs_fastq(tmp_path / "pairs.fq", 3000, 19, lo=100, hi=330)
+    files, tools = {}, {}
+    for dev in ("cuda", "cpu"):
+        outs = [tmp_path / f"{dev}.{x}" for x in ("m.fq", "u1.fq", "u2.fq", "ih.txt")]
+        before = (overlap_scan.overlap_counts.launches, kmer_count.sort_reduce.device_calls)
+        tools[dev] = bbmerge.main([f"in={fin}", f"out={outs[0]}", f"outu1={outs[1]}",
+                                   f"outu2={outs[2]}", f"ihist={outs[3]}", *flags,
+                                   f"device={dev}"])
+        moved = (overlap_scan.overlap_counts.launches - before[0],
+                 kmer_count.sort_reduce.device_calls - before[1])
+        if dev == "cuda":
+            assert moved[0] > 0 and (moved[1] > 0) == ("ecct=t" in flags)
+        else:
+            assert moved == (0, 0)
+        files[dev] = [p.read_bytes() for p in outs]
+    near = set(tools["cpu"].nn_near) | set(tools["cuda"].nn_near)
+    for got, want in zip(files["cuda"], files["cpu"]):
+        if got != want:
+            assert "nn=t" in flags and differing_names(got, want) <= near
+    # nn=t merges about half as many pairs as the default gate
+    assert tools["cuda"].merged > 300
+
+
+def test_bbrealign_cuda_equals_cpu(cuda, tmp_path):
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.io.sam import SamWriter
+    from bbtools_torch.models.bbrealign import main as bbrealign
+    from bbtools_torch.utils.synth import random_genome
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(5_000, 1, seed=77))
+    ref = load_reference(str(tmp_path / "ref.fa"))
+    codes = ref.scaffold_codes(0)
+    rows = []
+    for i in range(40):
+        start = 1950 - i
+        n_pre = 2000 - start
+        read = np.concatenate([codes[start:2000], codes[2003 : 2003 + 100 - n_pre]])
+        rows.append([b"r%d" % i, b"0", ref.names[0].split()[0], str(start + 1).encode(),
+                     b"40", b"%d=%dS" % (n_pre, 100 - n_pre), b"*", b"0", b"0",
+                     CODE_TO_BASE[np.minimum(read, 4)].tobytes(), b"F" * 100])
+    w = SamWriter(str(tmp_path / "mis.sam"), ref.names, ref.lengths)
+    w.add_batch(0, b"".join(b"\t".join(r) + b"\n" for r in rows))
+    w.close()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.sam"
+        counts = bbrealign([f"in={tmp_path / 'mis.sam'}", f"ref={tmp_path / 'ref.fa'}",
+                            f"out={out}", f"device={dev}"])
+        res[dev] = (counts, out.read_bytes())
+    assert res["cuda"] == res["cpu"]
+    assert res["cuda"][0][0] >= 30
+
+
+def test_tadpipe_cuda_equals_cpu(cuda, tmp_path):
+    """tadpipe k=31 with every stage on and deletetemp=f on pairs of a
+    5 kb genome: the final contigs and every stage file equal; on the
+    card the trim stage runs B2 (the sorted join) and B5/B6 (tbo), the
+    merge stages B5/B6, and the counts their device routes."""
+    import os
+
+    from bbtools_torch.models.tadpipe import tadpipe
+    from bbtools_torch.ops import kmer_count, overlap_scan, scan
+
+    rng = np.random.default_rng(4)
+    g = bytes(b"ACGT"[c] for c in rng.integers(0, 4, 5000))
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    ad = (b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA", b"AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT")
+    for m in (0, 1):
+        with open(tmp_path / f"r{m + 1}.fq", "wb") as fh:
+            r2 = np.random.default_rng(5)
+            for i in range(600):
+                ins = int(r2.integers(100, 320))
+                p = int(r2.integers(0, len(g) - ins))
+                frag = g[p : p + ins]
+                s = (frag if m == 0 else frag.translate(comp)[::-1]) + ad[m] + b"A" * 150
+                fh.write(b"@r%d /%d\n%s\n+\n%s\n" % (i, m + 1, s[:150], b"I" * 150))
+    stage_files = {}
+    for dev in ("cuda", "cpu"):
+        before = (scan.cummax_i64.launches, overlap_scan.overlap_counts.launches,
+                  kmer_count.sort_reduce.device_calls)
+        tadpipe([f"in={tmp_path / 'r1.fq'}", f"in2={tmp_path / 'r2.fq'}",
+                 f"out={tmp_path / dev}.fa", f"tmpdir={tmp_path / dev}", "k=31",
+                 "deletetemp=f", f"device={dev}"])
+        moved = [scan.cummax_i64.launches - before[0],
+                 overlap_scan.overlap_counts.launches - before[1],
+                 kmer_count.sort_reduce.device_calls - before[2]]
+        assert all(moved) if dev == "cuda" else not any(moved), (dev, moved)
+        d = tmp_path / dev
+        stage_files[dev] = {n: (d / n).read_bytes() for n in sorted(os.listdir(d))}
+        stage_files[dev]["out"] = (tmp_path / f"{dev}.fa").read_bytes()
+    assert stage_files["cuda"] == stage_files["cpu"]
+    assert len(stage_files["cuda"]) == 12 and stage_files["cuda"]["out"].count(b">") >= 1

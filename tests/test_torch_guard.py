@@ -60,6 +60,7 @@ COPIED_MODULES = [
     "ops/msa_constants.py", "ops/gaps.py", "io/sam.py", "io/sam_read.py",
     "io/bam.py", "utils/synth.py", "models/bbmap_index.py",
     "io/stream.py", "models/tadpole_ecc.py", "ml/__init__.py",
+    "models/assemblystats.py",
 ]
 
 
@@ -98,6 +99,12 @@ PARTLY_COPIED = {
                                "CallVariants._realign_flush", "main"],
     "ml/cellnet.py": ["_MSIG_YMULT", "_activations", "CellNet.device", "CellNet.forward",
                       "CellNet.apply", "CellNet.fit"],
+    # tadpipe passes its device= to every stage
+    "models/tadpipe.py": ["tadpipe"],
+    "models/bbrealign.py": ["main"],
+    "ops/cms.py": ["_jax", "_slots_jnp", "make_cms_add", "make_cms_query",
+                   "CountMinSketch.__init__", "CountMinSketch.add", "CountMinSketch.query",
+                   "CountMinSketch.query_jnp"],
 }
 
 
@@ -201,13 +208,14 @@ COPIED_FUNCTIONS = [
     ("ops.overlap", "find_best_ratio_np"), ("ops.overlap", "mate_by_overlap_ratio_np"),
     ("ops.overlap", "expected_mismatches_np"), ("ops.overlap", "probability_np"),
     ("ops.overlap", "calc_min_overlap_by_entropy_np"),
-    ("ops.overlap", "expected_tip_errors_np"),
+    ("ops.overlap", "expected_tip_errors_np"), ("ops.overlap", "bbmerge_nn_features"),
     ("ops.mm_match", "_field_onehot_np"), ("ops.mm_match", "_canonical_realizable_np"),
     ("ops.mm_match", "_masked_safety"), ("ops.mm_match", "MMKmerIndex.build"),
     ("ops.mm_match", "MMKmerIndex.lookup_np"), ("ops.mm_match", "_query_onehot_np"),
     ("models.bbmerge", "Preset"), ("models.bbmerge", "BBMerge.process_batch"),
     ("models.bbmerge", "BBMerge.write_ihist"), ("models.bbmerge", "BBMerge.print_stats"),
     ("models.bbmerge", "_rc_batch"), ("models.bbmerge", "_rev_quals"),
+    ("models.bbmerge", "BBMerge._extend_rows"), ("models.bbmerge", "BBMerge._apply_ecco"),
     ("ops.msa", "col0_scores"), ("ops.msa", "match_strings_np"),
     ("ops.msa", "prepare_limits_np"),
     ("ops.score_ungapped", "score_no_indels_np"),
@@ -308,9 +316,8 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("tool,flag,item", [
     ("bbduk", "tpshards=2", "A7"), ("bbduk", "recalibrate=t", "A2/A5"),
     ("bbduk", "align=t", "A2/A5"), ("bbduk", "profile=trace", "A9"),
-    ("bbmerge", "extend2=20", "A6b"), ("bbmerge", "ecct=t", "A6b"), ("bbmerge", "nn=t", "A2/A5"),
     ("bbmerge", "tpshards=2", "A7"),
-    ("bbmap", "tpshards=2", "A7"), ("bbmap", "bloomfilter=t", "A6b"),
+    ("bbmap", "tpshards=2", "A7"),
     ("bbmap", "covstats=c.txt", "A2/A5"), ("bbmap", "basecov=b.txt", "A2/A5"),
     ("bbmap", "covhist=h.txt", "A2/A5"), ("bbmap", "bincov=n.txt", "A2/A5"),
     ("mappacbio", "", "A4b"), ("bbmapskimmer", "", "A4b"),
@@ -349,10 +356,8 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
-        main(["reformat", "in=x.fq"])
-    for tool in ("bbrealign", "bbcms", "tadpipe"):
-        with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A6b)")):
+    for tool in ("reformat", "bbnorm", "bbwrap", "bbsplit", "fungalrelease"):
+        with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
 
@@ -387,3 +392,70 @@ def test_new_tools_default_to_cuda(tmp_path):
         CallVariants(load_reference(str(tmp_path / "ref.fa")))
     with pytest.raises(RuntimeError, match="cuda"):
         CellNet.create([4, 1]).apply(np.zeros((1, 4), np.float32))
+
+
+#: the tools of ROADMAP A6b and the argv that reaches their first device
+#: work; stats/assemblystats have none (host FASTA statistics)
+A6B_TOOLS = {
+    "tadpipe": ["in={fq}", "in2={fq}", "out={tmp}/asm.fa", "tmpdir={tmp}/t"],
+    "tadwrapper": ["in={fq}", "out={tmp}/c_%.fa", "k=31"],
+    "tadpolewrapper": ["in={fq}", "out={tmp}/c_%.fa", "k=31"],
+    "bbcms": ["in={fq}", "out={tmp}/o.fq"],
+    "bbrealign": ["in={tmp}/in.sam", "ref={tmp}/ref.fa", "out={tmp}/o.sam"],
+    "stats": ["in={tmp}/ref.fa"],
+    "assemblystats": ["in={tmp}/ref.fa"],
+}
+
+
+@pytest.mark.parametrize("tool", list(A6B_TOOLS))
+def test_a6b_tools_default_to_cuda(tmp_path, tool):
+    """The A6b tools run on the card unless asked for the CPU: without
+    one, the default raises before any output is written. stats and
+    assemblystats do no device work and run anywhere."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import contextlib
+    import io
+
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n")
+    (tmp_path / "in.sam").write_text("@SQ\tSN:s\tLN:200\n")
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A6B_TOOLS[tool]]
+    if tool in ("stats", "assemblystats"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main([tool, *argv]) == 0
+        assert "Main genome scaffold total:         \t1" in out.getvalue()
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([tool, *argv])
+    assert not [p for p in tmp_path.rglob("*") if p.name.startswith(("o.", "asm", "c_"))]
+
+
+@pytest.mark.parametrize("flag", ["ecco=t", "extend2=20", "ecct=t", "nn=t"])
+def test_bbmerge_flags_default_to_cuda(tmp_path, flag):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["bbmerge", f"in1={fq}", f"in2={fq}", flag])
+
+
+def test_bbmap_bloomfilter_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.cli import main
+    from bbtools_torch.ops.cms import CountMinSketch
+
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'ref.fa'}",
+              "bloomfilter=t"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        CountMinSketch(1 << 10)
