@@ -1,8 +1,10 @@
 """Unified CLI of the port — the `tool.sh key=value` surface:
 python -m bbtools_torch <tool> key=value ...
 
-Only the tools ported so far are here; any other name raises, naming the
-ROADMAP item that holds it (A8, the long tail).
+The tools ported so far are registered in TOOLS, each running on the
+card unless given device=cpu (the host-only ones, stats, pileup,
+calctruequality and gradesam, run anywhere). A name not in TOOLS raises,
+naming the ROADMAP item that holds it (A8, the long tail).
 """
 
 from __future__ import annotations
@@ -28,6 +30,57 @@ def _bbmap(args):
     return main(args)
 
 
+def _remove_preset(args, what: str):
+    """removehuman.sh / removemicrobes.sh / removecatdogmousehuman.sh:
+    BBMap decontamination presets (minratio=0.9 maxindel=3 maxsites=1
+    k=14 bloomfilter; mapped reads -> outm, clean reads -> outu). The
+    reference hardcodes JGI-filesystem masked references; here ref= (or
+    path= with a prebuilt index) must point at the local masked genome.
+    """
+    from .models.bbmap import main
+
+    keys = {t.split("=")[0].lower() for t in args if "=" in t}
+    if not ({"ref", "path", "indexpath"} & keys):
+        raise ValueError(
+            f"{what} requires ref= (masked {what} genome) or path= "
+            "(prebuilt index); the reference's hardcoded JGI paths "
+            "are not portable"
+        )
+    preset = [
+        "minratio=0.9", "maxindel=3", "maxsites=1", "k=14",
+        "bloomfilter=t",
+    ]
+    return main(preset + list(args))
+
+
+def _bbwrap(args):
+    """bbwrap.sh: map MULTIPLE in=/out= comma-lists against one reference
+    without rebuilding the index (BBWrap.java role)."""
+    from .core.parser import tokenize
+    from .models.bbmap import BBMap, parse_args
+
+    a = tokenize(args)
+    ins = (a.get("in", "in1") or "").split(",")
+    in2s = (a.get("in2") or "").split(",") if a.get("in2") else [None] * len(ins)
+    outs = (a.get("out", "outm") or "").split(",") if a.get("out", "outm") else [None] * len(ins)
+    base = [t for t in args if not t.split("=")[0] in ("in", "in1", "in2", "out", "outm")]
+    tool = None
+    for i, inp in enumerate(ins):
+        sub = base + [f"in={inp}"]
+        if i < len(in2s) and in2s[i]:
+            sub.append(f"in2={in2s[i]}")
+        if i < len(outs) and outs[i]:
+            sub.append(f"out={outs[i]}")
+        cfg = parse_args(sub)
+        if tool is None:
+            tool = BBMap(cfg)
+        else:
+            tool = BBMap(cfg, index=tool.index)  # reuse the index
+        tool.run()
+        tool.print_stats()
+    return tool
+
+
 def _mappacbio(args):
     from .models.bbmap import main
 
@@ -38,6 +91,30 @@ def _bbmapskimmer(args):
     from .models.bbmap import main
 
     return main(args, preset="skimmer")
+
+
+def _pileup(args):
+    from .models.pileup import main
+
+    return main(args)
+
+
+def _calctruequality(args):
+    from .models.calctruequality import main
+
+    return main(args)
+
+
+def _gradesam(args):
+    from .models.gradesam import main
+
+    return main(args)
+
+
+def _bbsplit(args):
+    from .models.bbsplit import main
+
+    return main(args)
 
 
 def _kmercountexact(args):
@@ -98,10 +175,24 @@ TOOLS = {
     # align2.BBMap5 / BBMapAcc: generations of the same pipeline
     "bbmap5": _bbmap,
     "bbmapacc": _bbmap,
-    # the long-read presets raise, naming ROADMAP A4b
+    # mapPacBio.sh / bbmapskimmer.sh: the long-read presets
     "mappacbio": _mappacbio,
     "bbmapskimmer": _bbmapskimmer,
     "mappacbioskimmer": _bbmapskimmer,
+    # BBWrap: many inputs against one index
+    "bbwrap": _bbwrap,
+    # BBMap decontamination presets; ref= or path= required
+    "removehuman": lambda a: _remove_preset(a, "human"),
+    "removehuman2": lambda a: _remove_preset(a, "human"),
+    "removemicrobes": lambda a: _remove_preset(a, "microbe"),
+    "removecatdogmousehuman": lambda a: _remove_preset(a, "catdogmousehuman"),
+    "bbsplit": _bbsplit,
+    # host only: coverage from SAM, quality matrices from SAM, grading
+    "pileup": _pileup,
+    "coveragepileup": _pileup,
+    "pileup2": _pileup,
+    "calctruequality": _calctruequality,
+    "gradesam": _gradesam,
     "kmercountexact": _kmercountexact,
     "kmercount": _kmercountexact,
     "khist": _kmercountexact,

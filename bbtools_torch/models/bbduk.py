@@ -9,13 +9,17 @@ the host logic is the JAX package's, unchanged: it orchestrates stage
 order, applies trims, and routes reads to outputs, preserving the
 reference's exact stage order and discard semantics:
 
-  force-trim -> minlen -> [remove] -> ktrim/kfilter -> minlen -> tpe ->
-  qtrim -> minlen/maxlen -> maq/mbq/maxNs/consec filters -> entropy ->
-  route to out/outm/outs
+  [recalibrate] -> force-trim -> minlen -> [remove] -> ktrim/kfilter ->
+  minlen -> tpe -> qtrim -> minlen/maxlen -> maq/mbq/maxNs/consec
+  filters -> entropy -> route to out/outm/outs -> [align side channel]
 
-Flags replicate the bbduk.sh key=value surface (subset; unknown flags
-raise). Flags whose stage is not ported yet raise NotImplementedError
-naming their ROADMAP item. Stats counters mirror BBDukS's summary lines.
+recalibrate=t applies calctruequality's matrices (models/
+calctruequality.py, host numpy); align=t maps the surviving reads to a
+small reference, phiX by default, on the device (models/sidechannel.py)
+and writes them to alignout=. Flags replicate the bbduk.sh key=value
+surface (subset; unknown flags raise). tpshards (A7) and profile= (A9)
+raise NotImplementedError naming their ROADMAP item. Stats counters
+mirror BBDukS's summary lines.
 Every result the host needs leaves the device through an explicit
 `.cpu().numpy()`.
 """
@@ -399,18 +403,11 @@ def parse_args(argv: list[str]) -> BBDukConfig:
 
 def _reject_unported(c: BBDukConfig):
     """Raise for flags whose stage the port does not have yet."""
-    unported = [
-        (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
-        (c.recalibrate, "recalibrate (models/calctruequality.py)", "A2/A5"),
-        (c.align, "align/side channel (models/sidechannel.py on ops/microalign.py)",
-         "A2/A5"),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"bbtools_torch bbduk: {what} is not ported yet "
-                f"(ROADMAP {item})"
-            )
+    if c.tp_shards > 1:
+        raise NotImplementedError(
+            "bbtools_torch bbduk: tpshards>1 (multi-GPU) is not ported yet "
+            "(ROADMAP A7)"
+        )
 
 
 @dataclass
@@ -572,6 +569,13 @@ class BBDuk:
         self.table_dev = (
             self.index.device_arrays(self.device) if self.index else None
         )
+        self.recalibrator = None
+        if cfg.recalibrate:
+            from .calctruequality import Recalibrator
+
+            self.recalibrator = Recalibrator(
+                cfg.recal_path, passes=cfg.recal_passes
+            )
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the scan device."""
@@ -596,6 +600,14 @@ class BBDuk:
         )
         disc1 = np.zeros(n, dtype=bool)
         disc2 = np.zeros(n, dtype=bool)
+
+        # ---- quality recalibration (BBDuk.java:2634-2640) ----
+        if self.recalibrator is not None:
+            for pairnum, b in enumerate((b1, b2) if b2 is not None else (b1,)):
+                if b.quals is not None:
+                    b.quals = self.recalibrator.recalibrate(
+                        b.bases, b.quals, b.lengths, pairnum=pairnum
+                    )
 
         # ---- force trim (BBDukProcessorS:889-927) ----
         if (
@@ -1274,10 +1286,23 @@ class BBDuk:
             from ..utils.readstats import ReadStats
 
             rstats = ReadStats()
+        side = None
+        if cfg.align and cfg.align_ref:
+            from .sidechannel import SideChannel
+
+            side = SideChannel(
+                cfg.align_ref, cfg.align_out, cfg.align_k1, cfg.align_k2,
+                cfg.align_minid1, cfg.align_minid2, cfg.align_mm1,
+                cfg.align_mm2, device=self.device,
+            )
+            self.side = side
         for b1, b2 in pairs:
             # interleaved input with single outputs -> interleaved output
             inter_out = b2 is not None and not cfg.in2 and cfg.out2 is None
             b1, b2, keep, s1, s2 = self.process_pair(b1, b2)
+            if side is not None:
+                # map surviving pairs (BBDukProcessorS.java:1411-1417)
+                side.map_batch(b1, b2, np.asarray(keep))
             if inter_out:
                 bi = interleave(b1, b2)
                 keep2 = np.repeat(keep, 2)
@@ -1305,6 +1330,8 @@ class BBDuk:
         for w in (w_out1, w_out2, w_outm1, w_outm2, w_outs):
             if w:
                 w.close()
+        if side is not None:
+            side.close()
         self.elapsed = time.time() - t0
         self.write_stats_file()
         if rstats is not None:
@@ -1383,6 +1410,8 @@ class BBDuk:
         if self.cfg.qtrim_left or self.cfg.qtrim_right:
             print(f"QTrimmed:               \t{st.reads_qtrimmed} reads ({100.0*st.reads_qtrimmed/max(st.reads_in,1):.2f}%) \t{st.bases_qtrimmed} bases ({100.0*st.bases_qtrimmed/max(st.bases_in,1):.2f}%)", file=stream)
         print(f"Result:                 \t{st.reads_out} reads ({100.0*st.reads_out/max(st.reads_in,1):.2f}%) \t{st.bases_out} bases ({100.0*st.bases_out/max(st.bases_in,1):.2f}%)", file=stream)
+        if getattr(self, "side", None) is not None:
+            print(self.side.stats_line(st.reads_in, st.bases_in), file=stream)
         print(f"Time:                         \t{t:.3f} seconds.", file=stream)
         rps = st.reads_in / t
         bps = st.bases_in / t

@@ -20,10 +20,14 @@ default single-end path they are one fused step per batch
 ladder, pairing, rescue selection, SAM) is a copy of the JAX package's;
 only the device calls differ. With bloomfilter=t the reference's
 31-mers go into a count-min sketch on the device (ops/cms.py), and each
-batch is prescreened by one query of its reads' 31-mers. Flags whose
-modules are not ported yet raise NotImplementedError naming their
-ROADMAP item: tpshards (A7), covstats/basecov/covhist/bincov (A2/A5) and
-the pacbio and skimmer presets (A4b).
+batch is prescreened by one query of its reads' 31-mers. The mapPacBio
+and bbmapskimmer presets widen the window classes to 7,640 extra columns
+and take reads of up to 6,000 bases; a class whose traceback planes
+would not fit the plane budget (ops/msa_fill.plane_budget: a share of
+the card's free memory) sends its batch to the staged path, which fills
+and walks the class in groups of tasks; no output changes. covstats=/basecov=/covhist=/bincov= write the
+coverage of the primary alignments (models/pileup.py's writers). Only
+tpshards (A7) raises NotImplementedError, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.parser import tokenize
 from ..device import resolve_device
@@ -53,7 +58,7 @@ from ..io.sam import (
 from ..ops import msa_constants as MC
 from ..ops.kmers import rolling_kmers_np
 from ..ops.msa import match_strings_np, msa_walk
-from ..ops.msa_fill import msa_fill
+from ..ops.msa_fill import fill_groups, msa_fill, plane_budget, task_bytes
 from ..ops.score_ungapped import score_no_indels, score_no_indels_offsets
 from .bbmap_index import SeedIndex
 
@@ -111,12 +116,14 @@ class BBMapConfig:
     #: per-scaffold hit table (BBMap scafstats= flag,
     #: align2/BBSplitter scafstats/refstats machinery)
     scafstats: str | None = None
-    #: inline coverage outputs (covstats=/basecov=/covhist=/bincov=;
-    #: not ported, A2/A5)
+    #: inline coverage outputs, emitted by the mapper itself
+    #: (align2/AbstractMapper.printOutput -> CoveragePileup; covstats=/
+    #: basecov=/covhist=/bincov= flags) — no separate pileup pass needed
     covstats: str | None = None
     basecov: str | None = None
     covhist: str | None = None
     bincov: str | None = None
+    binsize: int = 1000
     #: fastq split outputs (BBMap outu=/outm= flags): unmapped reads /
     #: mapped reads as fastq; pairs stay together (a pair counts as
     #: mapped when EITHER mate maps — AbstractMapThread pair semantics
@@ -144,17 +151,36 @@ class BBMapConfig:
     device: str = "cuda"
 
 
+def pacbio_preset(c: "BBMapConfig"):
+    """mapPacBio.sh defaults: align2.BBMapPacBio (minratio=0.40
+    fastareadlen=6000, ALIGN_ROWS=6020 / ALIGN_COLUMNS=7600)."""
+    c.k = 12
+    c.min_ratio = 0.40
+    c.fastareadlen = 6000
+    c.max_indel = 16000
+    c.window_extras = (24, 536, 2072, 7640)
+    c.batch_reads = 512
+    return c
+
+
+def skimmer_preset(c: "BBMapConfig"):
+    """bbmapskimmer.sh defaults: align2.BBMapPacBioSkimmer with
+    ambig=all + secondary-site printing."""
+    pacbio_preset(c)
+    c.ambig = "all"
+    c.secondary = True
+    return c
+
+
 def parse_args(argv, preset: str | None = None):
-    """The JAX package's flag surface, plus `device=`. The pacbio and
-    skimmer presets and the flags whose modules are not ported raise."""
-    if preset is not None:
-        raise NotImplementedError(
-            f"bbtools_torch bbmap: the {preset} preset (mapPacBio.sh / "
-            "bbmapskimmer.sh: 7,640-column windows, ambig=all) is not "
-            "ported yet (ROADMAP A4b)"
-        )
+    """The JAX package's flag surface, plus `device=`. tpshards>1 raises
+    (ROADMAP A7)."""
     a = tokenize(argv)
     c = BBMapConfig()
+    if preset == "pacbio":
+        pacbio_preset(c)
+    elif preset == "skimmer":
+        skimmer_preset(c)
     c.ref = a.get("ref")
     if not a.get_bool("nodisk", default=True):
         c.index_path = a.get("path", "indexpath", default=".") or "."
@@ -199,6 +225,7 @@ def parse_args(argv, preset: str | None = None):
     c.basecov = a.get("basecov")
     c.covhist = a.get("covhist")
     c.bincov = a.get("bincov")
+    c.binsize = a.get_int("binsize", default=1000)
     c.device = a.get("device", default="cuda")
     from ..core.parser import test_output_files
 
@@ -212,16 +239,11 @@ def parse_args(argv, preset: str | None = None):
 
 def _reject_unported(c: BBMapConfig):
     """Raise for flags whose modules the port does not have yet."""
-    cov = [f for f in ("covstats", "basecov", "covhist", "bincov") if getattr(c, f)]
-    unported = [
-        (c.tp_shards > 1, "tpshards>1 (multi-GPU)", "A7"),
-        (bool(cov), f"{'/'.join(cov)} (models/pileup.py)", "A2/A5"),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"bbtools_torch bbmap: {what} is not ported yet (ROADMAP {item})"
-            )
+    if c.tp_shards > 1:
+        raise NotImplementedError(
+            "bbtools_torch bbmap: tpshards>1 (multi-GPU) is not ported yet "
+            "(ROADMAP A7)"
+        )
 
 
 def max_quality(length) -> np.ndarray:
@@ -277,8 +299,13 @@ class BBMap:
         self.reads_unmapped = 0
         self.reads_in = 0
         self.rescued = 0
-        #: batches whose fused phase overflowed its walk cap and ran staged
+        #: batches whose fused phase overflowed its walk cap or the plane
+        #: budget and ran staged
         self.fused_overflows = 0
+        #: fill calls of the DP: one a window class in the fused phase,
+        #: one per group of a class's tasks (ops.msa_fill.fill_groups) on
+        #: the staged path
+        self.plane_groups = 0
         self._mhist = np.zeros((4, 1024), np.int64)  # m, S, D, I by pos
         self._idhist = np.zeros(101, np.int64)
         self._scaf_counts = None  # [nscaf, 4]: reads_u, reads_a, bases_u, bases_a
@@ -650,16 +677,33 @@ class BBMap:
             srefs = self._ref_windows(dp_start[sel], Wc)
             sreads = task_reads[sel]
             slens = task_lens[sel].astype(np.int32)
-            slens_d = self._dev(slens)
-            bs, bc, bst, planes = msa_fill(
-                self._dev(sreads), slens_d, self._dev(srefs)
+            # the class in groups of tasks whose planes fit the budget;
+            # one group where they all fit
+            groups = fill_groups(len(sel), L, Wc, plane_budget(
+                self.device, len(sel) * task_bytes(L, Wc)))
+            self.plane_groups += len(groups)
+            parts = []
+            for g in groups:
+                slens_d = self._dev(slens[g])
+                bs, bc, bst, planes = msa_fill(
+                    self._dev(sreads[g]), slens_d, self._dev(srefs[g])
+                )
+                # the walk over every DP task of the group, on the device,
+                # over the R' rows the fill kept; only the winners' rows
+                # come back (below)
+                ops_d, nst_d = msa_walk(
+                    planes.shape[2] - 1, Wc, planes, slens_d, bc, bst
+                )
+                del planes
+                if len(groups) > 1:
+                    # rows of one width across the groups; the walk's
+                    # rows read 0 past their end
+                    ops_d = F.pad(ops_d, (0, L + Wc - ops_d.shape[1]))
+                parts.append((bs, bc, bst, ops_d, nst_d))
+            dp_dev[c] = (
+                parts[0] if len(parts) == 1
+                else tuple(torch.cat(x) for x in zip(*parts))
             )
-            # the walk over every DP task of the class, on the device, over
-            # the R' rows the fill kept; only the winners' rows come back
-            # (below)
-            ops_d, nst_d = msa_walk(planes.shape[2] - 1, Wc, planes, slens_d, bc, bst)
-            del planes
-            dp_dev[c] = (bs, bc, bst, ops_d, nst_d)
             dp_planes[c] = (slens, sel, srefs, Wc)
         if dp_dev:
             # pull only the small per-task arrays now; the [T, steps] ops
@@ -886,10 +930,11 @@ class BBMap:
         )
         cls_host = prep["cls_host"]
         (eff, win_task, win_score, second_s, win_used, win_cls, win_pos,
-         win_bc, overflow, ops_subs, nst_subs) = fused_map_step(*prep["args"])
+         win_bc, overflow, ops_subs, nst_subs, n_fills) = fused_map_step(*prep["args"])
+        self.plane_groups += n_fills
         if overflow:
-            # more DP-improved winners than the walk cap (pathological
-            # batch): redo on the staged path
+            # more DP-improved winners than the walk cap, or a class past
+            # the plane budget: redo on the staged path
             return None
         (eff, win_task, win_score, second_s, win_used, win_cls, win_pos,
          win_bc) = (x.cpu().numpy() for x in (
@@ -1424,6 +1469,10 @@ class BBMap:
                 self._scafstats_add(batch, results)
                 if it2 is not None:
                     self._scafstats_add(batch2, results2)
+            if self._want_coverage():
+                self._coverage_add(results)
+                if results2 is not None:
+                    self._coverage_add(results2)
             if writer:
                 writer.add_batch(batch.ordinal, payload)
         if writer:
@@ -1437,6 +1486,8 @@ class BBMap:
             self._write_hists()
         if cfg.scafstats:
             self._write_scafstats()
+        if self._want_coverage():
+            self._write_coverage()
         self.elapsed = time.time() - t0
         return self
 
@@ -1455,6 +1506,87 @@ class BBMap:
                 results[i].blacklisted = True
                 blk[i] = True
         return blk
+
+    # ---- inline coverage (AbstractMapper.printOutput pileup role) ----
+    def _want_coverage(self) -> bool:
+        c = self.cfg
+        return bool(c.covstats or c.basecov or c.covhist or c.bincov)
+
+    def _cov_init(self):
+        # the Reference flat space may carry separators between
+        # scaffolds; use its own starts for exact bounds
+        starts = np.asarray(self.ref.starts, dtype=np.int64)
+        lens = np.asarray(self.ref.lengths, dtype=np.int64)
+        self._cov_lo = starts
+        self._cov_hi = starts + lens
+        self._cov_diff = np.zeros(int(self._cov_hi[-1]) + 1, np.int64)
+        self._cov_plus = np.zeros(len(lens), np.int64)
+        self._cov_minus = np.zeros(len(lens), np.int64)
+
+    def _coverage_add(self, results):
+        """Accumulate coverage intervals as a flat diff array: one +1/-1
+        pair per mapped primary site; cumsum at the end materializes
+        per-base depth with no per-base work in the batch loop."""
+        if getattr(self, "_cov_diff", None) is None:
+            self._cov_init()
+        starts = []
+        spans = []
+        strands = []
+        for r in results:
+            if not r.mapped:
+                continue
+            m = r.match
+            span = (
+                m.count(b"m") + m.count(b"S") + m.count(b"N")
+                + m.count(b"D")
+            )
+            starts.append(max(r.flat_start, 0))
+            spans.append(span)
+            strands.append(r.strand)
+        if not starts:
+            return
+        st = np.asarray(starts, np.int64)
+        sp = np.asarray(spans, np.int64)
+        scaf = self.ref.scaffold_of(st)
+        # clamp to the scaffold: columns outside [0, reflen) soft-clip in
+        # the emitted CIGAR (io/sam.match_to_cigar14), so coverage from
+        # the mapper's own SAM starts/ends at the scaffold bounds
+        end = np.minimum(st + sp, self._cov_hi[scaf])
+        st = np.maximum(st, self._cov_lo[scaf])
+        end = np.maximum(end, st)
+        np.add.at(self._cov_diff, st, 1)
+        np.add.at(self._cov_diff, end, -1)
+        strands = np.asarray(strands)
+        np.add.at(self._cov_plus, scaf[strands == 0], 1)
+        np.add.at(self._cov_minus, scaf[strands == 1], 1)
+
+    def _write_coverage(self):
+        from .pileup import (
+            write_basecov,
+            write_bincov,
+            write_covhist,
+            write_covstats,
+        )
+
+        cfg = self.cfg
+        if getattr(self, "_cov_diff", None) is None:
+            self._cov_init()
+        flat = np.cumsum(self._cov_diff[:-1]).astype(np.int32)
+        cov = [
+            flat[int(self._cov_lo[i]) : int(self._cov_hi[i])]
+            for i in range(len(self.ref.lengths))
+        ]
+        if cfg.covstats:
+            write_covstats(
+                cfg.covstats, self.ref, cov, self._cov_plus,
+                self._cov_minus,
+            )
+        if cfg.basecov:
+            write_basecov(cfg.basecov, self.ref, cov)
+        if cfg.covhist:
+            write_covhist(cfg.covhist, cov)
+        if cfg.bincov:
+            write_bincov(cfg.bincov, self.ref, cov, cfg.binsize)
 
     def _scafstats_add(self, batch, results):
         """Per-scaffold hit accumulation (scafstats= flag; the

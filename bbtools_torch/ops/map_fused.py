@@ -22,6 +22,11 @@ Differences from the JAX version, none of which reaches an output:
   (the caller redoes the batch on the staged path). JAX caps at
   min(wcap, Sc), which decides the same, since a class never has more
   winners than its Sc tasks.
+- A class whose planes would pass the plane budget
+  (`msa_fill.plane_budget`) also sets `overflow`, before any work: the
+  staged path fills and walks such a class in groups and writes the
+  same bytes, as it does after a walk-cap overflow. The JAX package has
+  no budget.
 - Each class walks exactly its winners, in ascending read order, and a
   class without winners walks nothing; JAX walks a padded set of
   min(wcap, Sc) lanes whose pad rows the host never reads.
@@ -36,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from .msa import msa_walk
-from .msa_fill import msa_fill
+from .msa_fill import msa_fill, plane_budget, task_bytes
 from .score_ungapped import score_no_indels
 
 NEG = -(1 << 30)
@@ -57,15 +62,23 @@ def fused_map_step(L: int, W: int, K: int, cls_shapes, wcap: int,
     Returns (eff [T] i32, win_task [B] i32, win_score [B] i32, second
     [B] i32, win_used [B] bool, win_cls [B] i32, win_pos [B] i32, win_bc
     [B] i32, overflow bool, ops_subs tuple of [n_c, L+Wc] u8, nst_subs
-    tuple of [n_c] i32), where n_c is class c's number of DP-improved
-    winners; with overflow the two tuples are empty. Winner b's walk row
-    is ops_subs[win_cls[b]][rank of b among its class's winners by read
-    id].
+    tuple of [n_c] i32, n_fills int), where n_c is class c's number of
+    DP-improved winners; with overflow the two tuples are empty. Winner
+    b's walk row is ops_subs[win_cls[b]][rank of b among its class's
+    winners by read id]. n_fills counts the fill calls, one a class.
+
+    Where a class's planes (Sc tasks of `msa_fill.task_bytes` at L rows
+    and Wc columns) pass the device's plane budget, the step returns
+    overflow at once, with n_fills 0 and every other output None.
     """
     T = task_reads.shape[0]
     B = slot_map.shape[0]
     dev = task_reads.device
     i32 = torch.int32
+    for Wc, Sc in cls_shapes:
+        need = Sc * task_bytes(L, Wc)
+        if need > plane_budget(dev, need):
+            return (None,) * 8 + (True, (), (), 0)
     pad = (W - L) // 2
     ug = score_no_indels(
         L, task_reads, task_lens, refwins,
@@ -143,5 +156,5 @@ def fused_map_step(L: int, W: int, K: int, cls_shapes, wcap: int,
             nst_subs.append(nst_s)
     return (
         eff, win_task, win_score, second, win_used, win_cls, win_pos, win_bc,
-        overflow, tuple(ops_subs), tuple(nst_subs),
+        overflow, tuple(ops_subs), tuple(nst_subs), len(per_cls),
     )

@@ -318,6 +318,49 @@ VARIANTS = {"warp": 0, "block": 1}
 WARP_MIN_TASKS_PER_SM = 8
 
 
+#: the share of the card's free memory that one fill call's planes and
+#: walk output may take; the rest leaves room for the fused phase's copy
+#: of its winners' planes (up to its walk cap of tasks). Fewer groups
+#: mean fewer walk calls, each a loop of R'+Cc steps
+PLANE_SHARE = 0.6
+#: the plane budget of the plain version on the CPU, in bytes
+CPU_PLANE_BUDGET = 1 << 30
+
+
+def plane_budget(device, need: int = 0) -> int:
+    """Bytes one fill call may give its traceback planes and its walk
+    output: PLANE_SHARE of what the card has free now, or
+    CPU_PLANE_BUDGET on the CPU. Where `need` (the bytes of the whole
+    call) passes that, the allocator's unused cached segments are handed
+    back first: a segment that also holds a small live tensor cannot
+    serve a large request, so the budget counts only what the card then
+    has free."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_PLANE_BUDGET
+    free, _total = torch.cuda.mem_get_info(device)
+    if need > PLANE_SHARE * free:
+        torch.cuda.empty_cache()
+        free, _total = torch.cuda.mem_get_info(device)
+    return int(free * PLANE_SHARE)
+
+
+def task_bytes(R: int, Cc: int) -> int:
+    """The most bytes one task of reads of up to R bases in a window of
+    Cc columns takes in a fill call and the walk after it: its planes
+    [R+Cc-1, R+1], and three copies of its walk row of R+Cc steps (the
+    walk's output, its transpose and the padded row)."""
+    return (R + Cc - 1) * (R + 1) + 3 * (R + Cc)
+
+
+def fill_groups(n: int, R: int, Cc: int, budget: int) -> list[slice]:
+    """Contiguous groups of the n tasks of one window class, each of at
+    most budget bytes by `task_bytes` (and at least one task): every task
+    is filled and walked alone, so the grouping changes no output."""
+    per = max(1, int(budget) // task_bytes(R, Cc))
+    return [slice(a, min(a + per, n)) for a in range(0, n, per)]
+
+
 def msa_fill_variant(variant: str, reads, read_lens, refs, trim: bool = True):
     """One of VARIANTS on CUDA tensors, for timing beside `msa_fill`;
     with trim=False over all R rows, as the fill first ran. No path of

@@ -94,7 +94,30 @@ From the root of a checkout, on a machine with a CUDA card:
      20,000 map reads and 2,000 foreign ones, and `bbrealign` on the
      clipped SAM; then each on both devices, byte for byte (BBMerge nn=t
      but for pairs whose net score lay within 1e-5 of the cutoff);
-  8. prints each phase's seconds.
+  8. the A2/A5 and A4b paths through the CLI on device=cuda:
+     calctruequality on BBMap's SAM; `mappacbio` over one full batch of
+     512 FASTA records on the E. coli-length genome (486 long reads of
+     1,000-6,000 bp, 13 of them of 6,100-12,000 bp that fastareadlen=6000
+     cuts in two: 26 chunk records), printing reads/s, the mapped share
+     and the share placed within 50 bp, B4's launches, the fused phase's
+     walk-cap overflows, the plane groups and the walk's seconds; then
+     `bbmapskimmer` on the first 128 of them (its flag-256 lines) and `gradesam`
+     on mapPacBio's SAM; B4's block kernel at mapPacBio's widest class
+     (4 tasks, R=6,000, Cc=13,640) against its plain version, in the
+     kernel phase; `bbduk` config #1 with align=t over its reads with one
+     in ten replaced by phiX (the side SAM's mapped count within 1% of
+     the planted, every planted read kept in out=); `bbduk
+     recalibrate=t`; `bbmap` with covstats= basecov= covhist= bincov=,
+     then `pileup` on its SAM (the files byte-equal); `bbsplit` (the
+     genome and a second seeded one), `bbwrap` over two inputs with one
+     index build, and `removehuman ref=`; then each on both devices,
+     byte for byte, at a small size (coverage and bbsplit against 250 kb
+     of each genome);
+  9. runs the CPU halves of the checks of 7 and 8 whose outputs are
+     files alone in CPU_SIDE_WORKERS processes once the last rate above
+     is taken (their plain fill of long reads takes minutes), beside
+     the checks' CUDA halves, so that no rate is taken under their load;
+ 10. prints each phase's seconds.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -221,6 +244,47 @@ CMS_CHECK_READS = 2_000
 BLOOM_READS = 20_000
 BLOOM_FOREIGN = 2_000
 BLOOM_CHECK_READS = 2_048
+
+#: mapPacBio (ROADMAP A4b) on the E. coli-length genome: one full batch
+#: (the preset's batchreads=512 records) of FASTA reads of 1,000-6,000 bp
+#: with 1% substitutions, three indels of 1-3 bp and, in every other
+#: read, a 50 bp deletion, every third reverse-complemented; LONG_CHUNKED
+#: of them are of 6,100-12,000 bp, which fastareadlen=6000 cuts in two
+#: chunks each (26 of the 512 records, 5%). One batch, not two: the
+#: walk, a torch loop of ~12,000-19,600 steps a call, costs ~9 s a call
+#: on the card and runs ~7 calls a batch (PERF.md section 6).
+#: bbmapskimmer maps the first SKIM_READS of the same records: its walk
+#: calls cost the same at any count, and fewer tasks need fewer groups
+LONG_READS = 486
+LONG_RANGE = (1000, 6000)
+LONG_CHUNKED = 13
+LONG_CHUNKED_RANGE = (6100, 12000)
+SKIM_READS = 128
+LONG_CHECK_READS = 8  # the CUDA-against-CPU check, reads of 1,000-1,500 bp
+LONG_CHECK_RANGE = (1000, 1500)
+#: the least share of mapped unchunked long reads placed within 50 bp
+LONG_PLACED_MIN = 0.9
+#: B4's block kernel at mapPacBio's widest window class: (tasks, rows,
+#: columns, shortest read), reads of up to 6,000 bases in windows of
+#: 6,000 + 7,640 columns
+B4_LONG = (4, 6000, 6000 + 7640, 1000)
+#: BBDuk config #1 with align=t: config #1's reads, one in SIDE_EVERY
+#: replaced by a phiX segment of its length
+SIDE_EVERY = 10
+A2_CHECK_READS = 2_000  # BBDuk align and recalibrate, CUDA against CPU
+COV_CHECK_READS = 2_048  # BBMap's coverage and bbsplit, CUDA against CPU
+COV_FLAGS = ("covstats", "basecov", "covhist", "bincov")
+#: bbsplit: the genome and a second seeded one; reads of each
+SECOND_GENOME = 1_000_000
+SPLIT_READS = 2_048
+RH_READS = 2_200  # removehuman: the head of the bloom reads (200 foreign)
+#: the coverage and bbsplit checks map to a region of the genome (and of
+#: the second genome): the CPU's BBMap over the whole genome and its
+#: 4.6M-line basecov= took 60-114 s beside the card's phases
+CHECK_REGION = 250_000
+#: processes running the CPU halves of the checks at once
+CPU_SIDE_WORKERS = 4
+CTQ_RECORDS = 4_096  # calctruequality's input: the head of BBMap's SAM
 
 # Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
@@ -960,8 +1024,9 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     compared, plane bytes on live cells, for the wrapper and for each
     kernel over every task. The wrapper's choice is timed in turns with
     the warp kernel and the block kernel over every task, on the
-    trimmed rows and over all R rows (the fill's first design, whole);
-    then both kernels at 256 to 2,048 class-0 tasks (`b4_crossover`)."""
+    trimmed rows and over all R rows (the fill's first design, whole),
+    the plain version on its compared call; then both kernels at 256 to
+    2,048 class-0 tasks (`b4_crossover`)."""
     import torch
 
     from bbtools_torch.kernels import build
@@ -1007,8 +1072,15 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
         blocks = msa_fill.block_launches
         got = msa_fill(reads, lens, refs)
         block_ran = msa_fill.block_launches > blocks
-        want = msa_fill_plain(reads, lens, refs)
+        # the plain version timed on the call that is compared (one call:
+        # it takes seconds at class 3)
         torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = msa_fill_plain(reads, lens, refs)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
         live_bytes = b4_equal(label, got, want, lens, Cc)
         for v in ("warp", "block"):
             b4_equal(f"{label}, {v} kernel", msa_fill_variant(v, reads, lens, refs), want,
@@ -1019,13 +1091,13 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
                "warp": lambda: msa_fill_variant("warp", reads, lens, refs),
                "block": lambda: msa_fill_variant("block", reads, lens, refs),
                "block_untrimmed": lambda: msa_fill_variant("block", reads, lens, refs,
-                                                           trim=False),
-               "plain": lambda: msa_fill_plain(reads, lens, refs)}
+                                                           trim=False)}
         t = {f: [] for f in fns}
         for order in (tuple(fns), tuple(fns)[::-1]):
             for f in order:
-                t[f].append(cuda_ms(fns[f], 1 if f == "plain" else 5))
+                t[f].append(cuda_ms(fns[f], 5))
         ms = {f: sum(v) / len(v) for f, v in t.items()}
+        ms["plain"] = plain_ms
         # live cells: rows 0..min(len, R'), columns 0..Cc
         nrows = (lens.clamp(max=Rp).to(torch.int64) + 1).clamp(min=0)
         live = int((nrows * (Cc + 1)).sum().item())
@@ -1131,14 +1203,30 @@ def run_path(name: str, fn, needs: tuple[str, ...], launches: dict):
     return result, got
 
 
+def bbduk_argv(name: str, flags: list[str], fin: str, work: str, device: str):
+    """bbduk's argv on `device` and its output files (out=, stats=)."""
+    out = os.path.join(work, f"{name}.{device}.fq")
+    stats = os.path.join(work, f"{name}.{device}.stats.txt")
+    return (["bbduk", f"in={fin}", f"out={out}", f"stats={stats}", f"device={device}",
+             *flags], [out, stats])
+
+
+def bbmerge_argv(fin: list[str], work: str, tag: str, device: str, flags=()):
+    """bbmerge's argv on `device` and its output files (out=, outu1=,
+    outu2=, ihist=)."""
+    outs = [os.path.join(work, f"merge.{tag}.{device}.{x}")
+            for x in ("merged.fq", "u1.fq", "u2.fq", "ihist.txt")]
+    return (["bbmerge", f"in1={fin[0]}", f"in2={fin[1]}", f"out={outs[0]}",
+             f"outu1={outs[1]}", f"outu2={outs[2]}", f"ihist={outs[3]}", f"device={device}",
+             *flags], outs)
+
+
 def run_bbduk(name: str, flags: list[str], fin: str, work: str, device: str,
               showtimes: bool = False) -> tuple[str, str, float, str]:
     from bbtools_torch.cli import main as cli_main
 
-    out = os.path.join(work, f"{name}.{device}.fq")
-    stats = os.path.join(work, f"{name}.{device}.stats.txt")
-    argv = ["bbduk", f"in={fin}", f"out={out}", f"stats={stats}",
-            f"device={device}", *flags] + (["showtimes=t"] if showtimes else [])
+    argv, (out, stats) = bbduk_argv(name, flags, fin, work, device)
+    argv += ["showtimes=t"] if showtimes else []
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
@@ -1149,14 +1237,11 @@ def run_bbduk(name: str, flags: list[str], fin: str, work: str, device: str,
 def run_bbmerge(fin: list[str], work: str, tag: str, device: str):
     from bbtools_torch.cli import main as cli_main
 
-    outs = [os.path.join(work, f"merge.{tag}.{device}.{x}")
-            for x in ("merged.fq", "u1.fq", "u2.fq", "ihist.txt")]
-    ins = [f"in1={fin[0]}", f"in2={fin[1]}"]
+    argv, outs = bbmerge_argv(fin, work, tag, device)
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        cli_main(["bbmerge", *ins, f"out={outs[0]}", f"outu1={outs[1]}",
-                  f"outu2={outs[2]}", f"ihist={outs[3]}", f"device={device}"])
+        cli_main(argv)
     return outs, time.perf_counter() - t0, err.getvalue()
 
 
@@ -1492,31 +1577,27 @@ def asm_checks(asm: dict, work: str, main_out: dict, phase_s: dict):
     contigs_fa, cv_sam, n_in = main_out["contigs"], main_out["sam"], asm["region_reads"]
     # ---- CUDA against CPU: kmercountexact, Tadpole, CallVariants ----
     t0 = time.perf_counter()
+    side = main_out["cpu_side"]
     for k in (31, 93):
-        files = {}
-        for device in ("cuda", "cpu"):
-            outs = [os.path.join(work, f"head{k}.{device}.{x}")
-                    for x in ("khist", "peaks", "dump")]
-            _, dt, _ = run_tool("kmercountexact", [
-                f"in={asm['head.fq.gz']}", f"k={k}",
-                *(f"{x}={o}" for x, o in zip(("khist", "peaks", "dump"), outs))], device)
-            files[device] = read_all(outs)
+        argv, _ = kce_check_argv(asm, k, work, "cuda")
+        run_tool("kmercountexact", argv[1:-1], "cuda")
+        side.wait(f"kmercountexact k={k}")
+        files = {d: read_all(kce_check_argv(asm, k, work, d)[1]) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"kmercountexact k={k}: cuda and cpu outputs differ")
         print(f"kmercountexact k={k}: cuda == cpu on {CHECK_READS} reads (khist, peaks, "
               f"dump of {len(files['cuda'][2])} bytes)")
-    for tag, fin, flags, n in (("contig k=62", asm["region.fq.gz"], ["k=62"], n_in),
-                               ("correct k=31", asm["ecc.fq.gz"],
-                                ["k=31", "mode=correct"], ECC_CHECK_READS)):
+    for tag, n in (("contig k=62", n_in), ("correct k=31", ECC_CHECK_READS)):
         files = {}
-        for device in ("cuda", "cpu"):
-            if device == "cuda" and tag.startswith("contig"):
-                files[device] = read_all([contigs_fa])  # the main phase's run
-                continue
-            out = os.path.join(work, f"tad.{tag[:6]}.{device}.out")
-            _, dt, _ = run_tool("tadpole", [f"in={fin}", *flags, f"out={out}"], device)
-            files[device] = read_all([out])
-            print(f"tadpole {tag} device={device}: {n} reads in {dt:.2f} s")
+        if tag.startswith("contig"):
+            files["cuda"] = read_all([contigs_fa])  # the main phase's run
+        else:
+            argv, out = tadpole_check_argv(asm, tag, work, "cuda")
+            run_tool("tadpole", argv[1:-1], "cuda")
+            files["cuda"] = read_all(out)
+        dt = side.wait(f"tadpole {tag}")
+        files["cpu"] = read_all(tadpole_check_argv(asm, tag, work, "cpu")[1])
+        print(f"tadpole {tag} device=cpu: {n} reads in {dt:.2f} s (in a process of its own)")
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"tadpole {tag}: cuda and cpu outputs differ")
         print(f"tadpole {tag}: cuda == cpu on {n} reads ({len(files['cuda'][0])} bytes)")
@@ -1599,6 +1680,7 @@ def make_pipe_data(asm: dict, work: str, seed: int) -> dict:
     from bbtools_torch.core.dna import CODE_TO_BASE
     from bbtools_torch.io.fasta import write_fasta
 
+    d["region.fq.gz"] = asm["region.fq.gz"]
     d["region.fa"] = os.path.join(work, "pipe_region.fa")
     write_fasta(d["region.fa"], [(b"region", CODE_TO_BASE[copy[:ASM_REGION]].tobytes())])
     d["bloom_check"] = os.path.join(work, "pipe_bloom_check.fq.gz")
@@ -1861,35 +1943,38 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
     from bbtools_torch.utils.fqdiff import differing_names
 
     t0 = time.perf_counter()
+    side = ctx["cpu_side"]
+    argv, _ = tadpipe_check_argv(pipe, work, "cuda")
+    _, dt, _ = run_tool("tadpipe", argv[1:-1], "cuda")
+    cpu_dt = side.wait("tadpipe")
     files = {}
     for device in ("cuda", "cpu"):
-        tmp = os.path.join(work, f"pipe_check.{device}")
-        fa = tmp + ".fa"
-        _, dt, _ = run_tool("tadpipe", [f"in={pipe['check'][0]}", f"in2={pipe['check'][1]}",
-                                        f"out={fa}", f"tmpdir={tmp}", "k=31,62",
-                                        "deletetemp=f"], device)
+        tmp = tadpipe_check_argv(pipe, work, device)[1]
         names = sorted(os.listdir(tmp))
-        files[device] = read_all([fa] + [os.path.join(tmp, x) for x in names])
-        print(f"tadpipe k=31,62 device={device}: {pipe['check_pairs']} pairs in {dt:.2f} s")
+        files[device] = read_all([tmp + ".fa"] + [os.path.join(tmp, x) for x in names])
+    print(f"tadpipe k=31,62: {pipe['check_pairs']} pairs in {dt:.2f} s on cuda, {cpu_dt:.2f} s "
+          f"on cpu (in a process of its own)")
     if files["cuda"] != files["cpu"] or len(names) != 12:
         raise AssertionError("tadpipe: cuda and cpu outputs differ")
     print(f"tadpipe: cuda == cpu on {pipe['check_pairs']} pairs of the region's first "
           f"{PIPE_CHECK_BP} bp (the assembly and {len(names)} stage files, "
           f"{sum(map(len, files['cuda']))} bytes)")
-    for tag, ins, flags, n in (
-            ("ecco", pipe["merge_check"], PIPE_ECCO, MERGE_CHECK_PAIRS),
-            ("nn", pipe["merge_check"], ["nn=t"], MERGE_CHECK_PAIRS),
-            ("merge", pipe["ecct_check"], PIPE_MERGE, MERGE_ECCT_CHECK_PAIRS)):
-        files, near = {}, set()
-        for device in ("cuda", "cpu"):
-            outs = [os.path.join(work, f"mcheck.{tag}.{device}.{x}")
-                    for x in ("m.fq", "u1.fq", "u2.fq", "ihist.txt")]
-            tool, dt, _ = run_tool("bbmerge", [
-                f"in1={ins[0]}", f"in2={ins[1]}", *(f"{k}={o}" for k, o in zip(
-                    ("out", "outu1", "outu2", "ihist"), outs)), *flags], device)
-            files[device] = read_all(outs)
+    for tag, ins, flags, n in a6b_merge_checks(pipe):
+        # nn=t runs both halves here: the pairs near its cutoff come from
+        # the tool objects; ecco and the merge stage's CPU halves ran in
+        # cpu_side's processes
+        files, near, secs = {}, set(), {}
+        for device in ("cuda", "cpu") if tag == "nn" else ("cuda",):
+            argv, _ = bbmerge_argv(ins, work, f"mcheck_{tag}", device, flags)
+            tool, secs[device], _ = run_tool("bbmerge", [a for a in argv[1:] if
+                                                         not a.startswith("device=")], device)
             near |= set(tool.nn_near)
-            print(f"bbmerge {' '.join(flags)} device={device}: {n} pairs in {dt:.2f} s")
+        if tag != "nn":
+            secs["cpu"] = side.wait(f"bbmerge {tag}")
+        files = {d: read_all(bbmerge_argv(ins, work, f"mcheck_{tag}", d, flags)[1])
+                 for d in ("cuda", "cpu")}
+        print(f"bbmerge {' '.join(flags)}: {n} pairs in {secs['cuda']:.2f} s on cuda, "
+              f"{secs['cpu']:.2f} s on cpu")
         differ = set()
         for a, b in zip(files["cuda"], files["cpu"]):
             if a != b:
@@ -1903,15 +1988,11 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
               + (f" but for {len(differ)} pairs of the {len(near)} whose score lay within "
                  f"1e-5 of the cutoff" if tag == "nn" else "")
               + f" ({sum(map(len, files['cuda']))} bytes)")
-    cms_in = os.path.join(work, "cms_check.fq.gz")
-    head_fastq(asm["region.fq.gz"], cms_in, CMS_CHECK_READS)
-    for flags in (["k=25"], ["ecc=f", "mincount=2"]):
-        files = {}
-        for device in ("cuda", "cpu"):
-            outs = [os.path.join(work, f"cms_check.{device}.{x}.fq") for x in ("out", "bad")]
-            run_tool("bbcms", [f"in={cms_in}", f"out={outs[0]}", f"outb={outs[1]}", *flags],
-                     device)
-            files[device] = read_all(outs)
+    for flags in CMS_CHECKS:
+        argv, _ = bbcms_check_argv(pipe, flags, work, "cuda")
+        run_tool("bbcms", argv[1:-1], "cuda")
+        side.wait(f"bbcms {' '.join(flags)}")
+        files = {d: read_all(bbcms_check_argv(pipe, flags, work, d)[1]) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"bbcms {flags}: cuda and cpu outputs differ")
         print(f"bbcms {' '.join(flags)}: cuda == cpu on {CMS_CHECK_READS} reads")
@@ -1939,6 +2020,603 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
     print(f"bbrealign: cuda == cpu on {CV_CHECK_READS} records ({realigned} realigned on "
           f"each device; cpu {dt:.2f} s)")
     phase_s["cuda == cpu, a6b tools"] = time.perf_counter() - t0
+
+
+def make_long_reads(path: str, codes, rng, n: int, lo: int, hi: int, tag: str = "l"):
+    """n FASTA reads of lo-hi bp of `codes` (one scaffold): 1%
+    substitutions, three indels of 1-3 bp, a 50 bp deletion in every
+    other read, every third reverse-complemented; truth names (synth's
+    format) give the forward start of the read's window."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+
+    G = len(codes)
+    with open(path, "wb") as fh:
+        for i in range(n):
+            ln = int(rng.integers(lo, hi + 1))
+            start = int(rng.integers(0, G - ln - 200))
+            read = codes[start : start + ln + 100].copy()
+            if i % 2:
+                read = np.concatenate([read[: ln // 2], read[ln // 2 + 50 :]])
+            for _ in range(3):
+                p = int(rng.integers(100, len(read) - 100))
+                cut = int(rng.integers(1, 4))
+                read = (np.concatenate([read[:p], read[p + cut :]]) if rng.random() < 0.5 else
+                        np.concatenate([read[:p], rng.integers(0, 4, cut).astype(np.uint8),
+                                        read[p:]]))
+            read = read[:ln]
+            m = rng.random(ln) < 0.01
+            read[m] = (read[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            strand = int(i % 3 == 1)
+            if strand:
+                read = (3 - read)[::-1]
+            fh.write(b">%s%d_scaf0_pos%d_strand%d_insert0\n%s\n"
+                     % (tag.encode(), i, start, strand, CODE_TO_BASE[read].tobytes()))
+
+
+def plant_phix(src: str, dst: str, every: int, seed: int, n: int | None = None) -> int:
+    """src's reads (its first n), every `every`-th replaced by a phiX
+    segment of its length (either strand); returns the planted count."""
+    from bbtools_torch.core.dna import CODE_TO_BASE, encode
+    from bbtools_torch.io.fastq import FastqReader
+
+    with gzip.open(os.path.join(HERE, "bbtools_tpu", "resources", "phix2.fa.gz")) as fh:
+        phix = encode(b"".join(ln for ln in fh.read().splitlines() if not ln.startswith(b">")))
+    rng = np.random.default_rng(seed)
+    ascii_ = np.frombuffer(b"ACGTN", np.uint8)
+    recs, i, planted = [], 0, 0
+    for b in FastqReader(src):
+        for j in range(b.n):
+            if i == n:
+                break
+            L = int(b.lengths[j])
+            if i % every == 0:
+                p = int(rng.integers(0, len(phix) - L))
+                seg = phix[p : p + L]
+                seq = CODE_TO_BASE[(3 - seg)[::-1] if rng.random() < 0.5 else seg].tobytes()
+                name = b"phix%d" % i
+                planted += 1
+            else:
+                seq, name = ascii_[np.minimum(b.bases[j, :L], 4)].tobytes(), b.ids[j]
+            recs.append(b"@%s\n%s\n+\n%s\n" % (name, seq, bytes(b.quals[j, :L] + 33)))
+            i += 1
+    with open(dst, "wb") as fh:
+        fh.write(b"".join(recs))
+    return planted
+
+
+def make_a2_data(work: str, genome, fq: str, map_fq: str, bloom_fq: str, seed: int) -> dict:
+    """The inputs of the A2/A5 and A4b phases: the long reads (a full
+    mapPacBio batch and LONG_CHUNKED reads past fastareadlen), the 8 of
+    the CUDA-against-CPU check, config #1's reads with phiX planted, a
+    second seeded genome and reads of it for bbsplit, and the heads of the
+    checks."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    rng = np.random.default_rng(seed)
+    codes = genome.scaffold_codes(0)
+    d = {"long": os.path.join(work, "long.fa"), "long_chunked": os.path.join(work, "long_c.fa"),
+         "long_check": os.path.join(work, "long_check.fa"),
+         "long_skim": os.path.join(work, "long_skim.fa")}
+    make_long_reads(d["long"], codes, rng, LONG_READS, *LONG_RANGE)
+    make_long_reads(d["long_chunked"], codes, rng, LONG_CHUNKED, *LONG_CHUNKED_RANGE, tag="c")
+    with open(d["long"], "ab") as fh, open(d["long_chunked"], "rb") as src:
+        fh.write(src.read())
+    with open(d["long"], "rb") as src, open(d["long_skim"], "wb") as fh:
+        fh.write(b"".join(src.read().splitlines(keepends=True)[: 2 * SKIM_READS]))
+    make_long_reads(d["long_check"], codes, rng, LONG_CHECK_READS, *LONG_CHECK_RANGE)
+    d["side"] = os.path.join(work, "side.fq")
+    d["side_planted"] = plant_phix(fq, d["side"], SIDE_EVERY, seed + 1)
+    with open(d["side"], "rb") as fh:
+        d["side_total"] = fh.read().count(b"\n") // 4
+    d["side_check"] = os.path.join(work, "side_check.fq")
+    plant_phix(fq, d["side_check"], SIDE_EVERY, seed + 1, A2_CHECK_READS)
+    d["recal_check"] = os.path.join(work, "a2_recal_check.fq.gz")
+    head_fastq(map_fq, d["recal_check"], A2_CHECK_READS)
+    d["rh_fq"] = os.path.join(work, "rh.fq.gz")
+    head_fastq(bloom_fq, d["rh_fq"], RH_READS)
+    d["second_fa"] = os.path.join(work, "second.fa")
+    write_fasta(d["second_fa"], random_genome(SECOND_GENOME, seed=seed + 2))
+    second = load_reference(d["second_fa"])
+    d["split_fq"] = os.path.join(work, "split.fq")
+    write_reads(d["split_fq"], random_reads(genome, SPLIT_READS, read_len=151,
+                                            snp_rate=0.01, seed=seed + 3)
+                + random_reads(second, SPLIT_READS, read_len=151, snp_rate=0.01,
+                               seed=seed + 4))
+    # the checks' references: CHECK_REGION bp of each genome, and reads
+    # of them (COV_CHECK_READS of the first; half of each for bbsplit)
+    regions = []
+    for tag, ref in (("region", genome), ("second_region", second)):
+        d[tag + "_fa"] = os.path.join(work, f"{tag}.fa")
+        write_fasta(d[tag + "_fa"], [(tag.encode(), CODE_TO_BASE[
+            ref.scaffold_codes(0)[:CHECK_REGION]].tobytes())])
+        regions.append(load_reference(d[tag + "_fa"]))
+    d["map_check"] = os.path.join(work, "a2_map_check.fq")
+    write_reads(d["map_check"], random_reads(regions[0], COV_CHECK_READS, read_len=151,
+                                             snp_rate=0.01, indel_rate=0.1, seed=seed + 5))
+    d["split_check"] = os.path.join(work, "split_check.fq")
+    write_reads(d["split_check"], [
+        r for i, g in enumerate(regions) for r in random_reads(
+            g, COV_CHECK_READS // 2, read_len=151, snp_rate=0.01, seed=seed + 6 + i)])
+    return d
+
+
+def check_b4_long() -> dict:
+    """B4's block kernel at mapPacBio's widest window class (B4_LONG:
+    tasks of reads of up to 6,000 bases in windows of 6,000 + 7,640
+    columns) against its plain version on the same tasks: every output and
+    live plane byte; both timed with CUDA events (the plain version on its
+    one call, it takes seconds); the bound on live cells, by the method of
+    the main B4 row."""
+    import torch
+
+    from bbtools_torch.kernels import build
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+
+    S, R, Cc, lmin = B4_LONG
+    rng = np.random.default_rng(6)
+    reads, lens, refs = (torch.from_numpy(x).to("cuda")
+                         for x in near_match_tasks(rng, S, R, Cc, lmin))
+    blocks = msa_fill.block_launches
+    got = msa_fill(reads, lens, refs)
+    if msa_fill.block_launches != blocks + 1:
+        raise AssertionError("B4 long reads: the block kernel did not take the tasks")
+    # the plain version once (~20,000 diagonal steps of torch ops), timed
+    # with CUDA events on the call that is compared
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = msa_fill_plain(reads, lens, refs)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    live_bytes = b4_equal("mapPacBio widest class", got, want, lens, Cc)
+    Rp = got[3].shape[2] - 1
+    del got, want
+    ms = cuda_ms(lambda: msa_fill(reads, lens, refs), 3)
+    n_ins = sass_loop_instructions(build.library_path(),
+                                   f"msa_fill_warp_kernelILi{B4_MAIN_SLICES}E")
+    ops_per_cell = n_ins / B4_MAIN_SLICES if n_ins else B4_OPS_PER_CELL
+    block_ins = sass_loop_instructions(build.library_path(), "msa_fill_block_kernelILi8E")
+    nrows = (lens.clamp(max=Rp).to(torch.int64) + 1).clamp(min=0)
+    live = int((nrows * (Cc + 1)).sum().item())
+    r = {"S": S, "R": R, "R_trimmed": Rp, "Cc": Cc, "live_cells": live, "ms": ms,
+         "plain_ms": plain_ms, "max_abs_err": 0,
+         "block_loop_instructions_k8": block_ins, "gcells_s": live / ms / 1e6}
+    r.update(bound(nbytes(reads, lens, refs) + 12 * S + live_bytes, ops_per_cell * live,
+                   INSTR_S))
+    print(f"B4 mapPacBio widest class (S={S}, R={R} trimmed to {Rp}, Cc={Cc}): the block "
+          f"kernel exact on outputs and {live_bytes} live plane bytes; kernel {ms:.2f} ms, "
+          f"plain {plain_ms:.1f} ms; bound {r['bound_ms']:.3f} ms ({r['bound_by']}) on {live} "
+          f"live cells at {ops_per_cell:.1f} instructions a cell ({r['bound_ms'] / ms:.3f} of "
+          f"it); the block kernel's diagonal loop at K=8 holds {block_ins} instructions")
+    return r
+
+
+def long_stats(sam: str) -> dict:
+    """Primary records, mapped ones, those placed within 50 bp of their
+    origin, chunk records and flag-256 lines of a long-read SAM."""
+    from bbtools_torch.utils.synth import parse_truth
+
+    s = {"primary": 0, "mapped": 0, "placed": 0, "chunks": 0, "secondary": 0}
+    with open(sam, "rb") as fh:
+        for line in fh:
+            if line.startswith(b"@"):
+                continue
+            f = line.split(b"\t", 5)
+            flag = int(f[1])
+            if flag & 0x100:
+                s["secondary"] += 1
+                continue
+            s["primary"] += 1
+            s["chunks"] += b"_chunk" in f[0]
+            if flag & 4:
+                continue
+            s["mapped"] += 1
+            if b"_chunk" not in f[0]:
+                s["placed"] += abs(int(f[3]) - 1 - parse_truth(f[0])[1]) <= 50
+    return s
+
+
+def timed_walk():
+    """Wrap the traceback walk where BBMap's two phases call it so that
+    each call is timed (a sync on each side); returns (the seconds list,
+    a function that undoes the wrapping)."""
+    import torch
+
+    from bbtools_torch.models import bbmap
+    from bbtools_torch.ops import map_fused
+
+    orig = map_fused.msa_walk
+    secs: list[float] = []
+
+    def walk(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    map_fused.msa_walk = bbmap.msa_walk = walk
+
+    def undo():
+        map_fused.msa_walk = bbmap.msa_walk = orig
+
+    return secs, undo
+
+
+def a2_phases(a2: dict, ctx: dict, work: str, card: str, phase_s: dict):
+    """The A2/A5 and A4b paths on device=cuda, each with its kernels
+    required: calctruequality (host), mapPacBio and bbmapskimmer over the
+    long reads, BBDuk config #1 with align=t, BBDuk recalibrate=t, BBMap
+    with the four coverage outputs then pileup, bbsplit, bbwrap,
+    removehuman and gradesam."""
+    ref_fa = ctx["ref_fa"]
+    sams = {}
+
+    # ---- calctruequality on BBMap's SAM: the matrices recalibrate=t
+    # reads, here and in the CPU runs of the checks ----
+    t0 = time.perf_counter()
+    mat = a2["matrices"] = os.path.join(work, "ctq")
+    os.makedirs(mat, exist_ok=True)
+    head_sam = os.path.join(work, "ctq_head.sam")
+    with open(ctx["map_sam"], "rb") as src, open(head_sam, "wb") as fh:
+        lines = src.read().split(b"\n")
+        n_hdr = sum(ln.startswith(b"@") for ln in lines[:100])
+        fh.write(b"\n".join(lines[: n_hdr + CTQ_RECORDS]) + b"\n")
+    _, dt_ctq, _ = run_tool("calctruequality", [f"in={head_sam}", f"path={mat}"], "cuda")
+    print(f"calctruequality on the first {CTQ_RECORDS} records of BBMap's SAM: {dt_ctq:.2f} s "
+          f"(host)")
+    phase_s["calctruequality"] = time.perf_counter() - t0
+
+    # ---- mapPacBio (B4 on long reads), then the skimmer ----
+    t0 = time.perf_counter()
+    for tool, fin in (("mappacbio", a2["long"]), ("bbmapskimmer", a2["long_skim"])):
+        sam = os.path.join(work, f"{tool}.cuda.sam")
+        walks, undo = timed_walk()
+        try:
+            (mapper, dt, _), got = run_path(tool, lambda: run_tool(tool, [
+                f"ref={ref_fa}", f"in={fin}", f"out={sam}"], "cuda"),
+                ("msa_fill_block",), {})
+        finally:
+            undo()
+        s = long_stats(sam)
+        sams[tool] = sam
+        n_reads = mapper.reads_in - s["chunks"] // 2
+        print(f"{tool} device=cuda: {n_reads} reads of {LONG_RANGE[0]}-{LONG_CHUNKED_RANGE[1]} "
+              f"bp ({mapper.reads_in} after chunking: {s['chunks']} chunk records) in "
+              f"{dt:.2f} s = {n_reads / dt:.1f} reads/s, {mapper.reads_in / dt:.1f} chunked "
+              f"reads/s (wall, incl. the k=12 index build of {mapper.index_seconds:.2f} s) on "
+              f"{card}; mapped {mapper.reads_mapped} of {mapper.reads_in} "
+              f"({mapper.reads_mapped / max(mapper.reads_in, 1):.4f}), {s['placed']} of "
+              f"{s['mapped'] - s['chunks']} unchunked mapped reads within 50 bp of their "
+              f"origin; B4 launches {got['msa_fill']} (warp) {got['msa_fill_block']} (block); "
+              f"fused overflows {mapper.fused_overflows}; plane groups {mapper.plane_groups}; "
+              f"walk {sum(walks):.2f} s in {len(walks)} calls "
+              f"({sum(walks) / dt:.3f} of the wall); flag-256 lines {s['secondary']}")
+        unchunked = s["mapped"] - s["chunks"]
+        if tool == "mappacbio" and (s["placed"] < LONG_PLACED_MIN * max(unchunked, 1)
+                                    or mapper.reads_mapped < 0.95 * mapper.reads_in
+                                    or s["chunks"] < 2 * LONG_CHUNKED):
+            raise AssertionError(f"mappacbio: {s}")
+        if tool == "bbmapskimmer" and s["primary"] != mapper.reads_in:
+            raise AssertionError(f"bbmapskimmer: {s}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        report, _, _ = run_tool("gradesam", [f"in={sams['mappacbio']}",
+                                             f"ref={ref_fa}"], "cuda")
+    print(f"gradesam on the mapPacBio SAM: {report.total} primary, {report.mapped} mapped, "
+          f"{report.correct_loose} within 20 bp (loose), {report.correct_strict} exact, "
+          f"{report.wrong} wrong (chunks graded against their read's start)")
+    phase_s["mappacbio, bbmapskimmer"] = time.perf_counter() - t0
+
+    # ---- BBDuk config #1 with the phiX side channel ----
+    t0 = time.perf_counter()
+    side_sam = os.path.join(work, "side.cuda.sam")
+    (o, _, dt, log), got = run_path("bbduk align=t", lambda: run_bbduk(
+        "side", CONFIGS["adapters_fa"] + ["align=t", f"alignout={side_sam}"], a2["side"],
+        work, "cuda"), ("cummax_i64",), {})
+    mapped = 0
+    with open(side_sam, "rb") as fh:
+        for line in fh:
+            if not line.startswith(b"@") and not int(line.split(b"\t", 2)[1]) & 4:
+                mapped += 1
+    with open(o, "rb") as fh:
+        names = fh.read().split(b"\n")[0::4]
+    planted_kept = sum(n.startswith(b"@phix") for n in names)
+    n = sum(1 for x in names if x)
+    planted, total = a2["side_planted"], a2["side_total"]
+    print(f"bbduk config #1 align=t device=cuda: {total} reads in {dt:.2f} s = "
+          f"{total / dt:.0f} reads/s (wall) on {card}; side SAM mapped {mapped} against "
+          f"{planted} planted phiX reads ({mapped / planted:.4f}); out= kept {n} reads, "
+          f"{planted_kept} of the planted; {[ln for ln in log.splitlines() if 'Aligned' in ln]}")
+    if abs(mapped - planted) > 0.01 * planted or planted_kept != planted:
+        raise AssertionError(f"bbduk align=t: {mapped} mapped, {planted_kept} of {planted} kept")
+    phase_s["bbduk align=t"] = time.perf_counter() - t0
+
+    # ---- BBDuk recalibrate=t with calctruequality's matrices ----
+    t0 = time.perf_counter()
+    (_, _, dt, _), got = run_path("bbduk recalibrate=t", lambda: run_bbduk(
+        "recal", CONFIGS["adapters_fa"] + ["recalibrate=t", f"path={mat}"], ctx["map_fq"],
+        work, "cuda"), ("cummax_i64",), {})
+    print(f"bbduk config #1 recalibrate=t device=cuda: {MAP_READS} reads in {dt:.2f} s = "
+          f"{MAP_READS / dt:.0f} reads/s (wall) on {card}")
+    phase_s["bbduk recalibrate=t"] = time.perf_counter() - t0
+
+    # ---- BBMap's coverage outputs, then pileup on the same SAM ----
+    t0 = time.perf_counter()
+    cov = [os.path.join(work, f"cov.inline.{c}.txt") for c in COV_FLAGS]
+    sam = os.path.join(work, "cov.cuda.sam")
+    (mapper, dt, _), got = run_path("bbmap coverage", lambda: run_tool("bbmap", [
+        f"ref={ref_fa}", f"in={ctx['map_batch']}", f"out={sam}",
+        *(f"{c}={p}" for c, p in zip(COV_FLAGS, cov))], "cuda"), ("msa_fill",), {})
+    pile = [os.path.join(work, f"cov.pileup.{c}.txt") for c in COV_FLAGS]
+    _, dt_p, _ = run_tool("pileup", [f"in={sam}", f"ref={ref_fa}", f"out={pile[0]}",
+                                     *(f"{c}={p}" for c, p in zip(COV_FLAGS[1:], pile[1:]))],
+                          "cuda")
+    if read_all(cov) != read_all(pile):
+        raise AssertionError("bbmap coverage: the inline files differ from pileup's")
+    print(f"bbmap covstats= basecov= covhist= bincov= device=cuda: {MAP_BATCH_READS} reads in "
+          f"{dt:.2f} s on {card}; pileup over its SAM {dt_p:.2f} s (host); the four files "
+          f"byte-equal ({sum(os.path.getsize(p) for p in cov)} bytes)")
+    phase_s["bbmap coverage, pileup"] = time.perf_counter() - t0
+
+    # ---- bbsplit, bbwrap, removehuman ----
+    t0 = time.perf_counter()
+    pat = os.path.join(work, "split.cuda_%.fq")
+    (res, dt, log), got = run_path("bbsplit", lambda: run_tool("bbsplit", [
+        f"in={a2['split_fq']}", f"ref={ref_fa},{a2['second_fa']}", f"basename={pat}",
+        f"outu={os.path.join(work, 'split.cuda_u.fq')}"], "cuda"), ("msa_fill",), {})
+    counts = {n: int(c) for n, c in zip(res.set_names, res.counts[:-1])}
+    print(f"bbsplit device=cuda (the genome and a second seeded genome of {SECOND_GENOME} bp): "
+          f"{2 * SPLIT_READS} reads in {dt:.2f} s (wall, incl. the merged index build) on "
+          f"{card}; binned {counts}, unmapped {int(res.counts[-1])}")
+    if min(counts.values()) < 0.95 * SPLIT_READS:
+        raise AssertionError(f"bbsplit: {counts}")
+    from bbtools_torch.models import bbmap_index
+
+    builds = []
+    orig_build = bbmap_index.SeedIndex.build
+    bbmap_index.SeedIndex.build = staticmethod(
+        lambda *a, **k: builds.append(1) or orig_build(*a, **k))
+    wrap_out = [os.path.join(work, f"wrap{i}.cuda.sam") for i in (1, 2)]
+    try:
+        (_, dt, _), got = run_path("bbwrap", lambda: run_tool("bbwrap", [
+            f"ref={ref_fa}", f"in={ctx['map_small']},{ctx['map_batch']}",
+            f"out={','.join(wrap_out)}"], "cuda"), ("msa_fill",), {})
+    finally:
+        bbmap_index.SeedIndex.build = orig_build
+    print(f"bbwrap device=cuda over two inputs ({MAP_CHECK_READS} and {MAP_BATCH_READS} "
+          f"reads): {dt:.2f} s with {len(builds)} index build on {card}")
+    if len(builds) != 1:
+        raise AssertionError(f"bbwrap built {len(builds)} indexes")
+    um, mm = (os.path.join(work, f"rh.cuda.{x}.fq") for x in ("u", "m"))
+    (mapper, dt, _), got = run_path("removehuman", lambda: run_tool("removehuman", [
+        f"ref={ref_fa}", f"in={a2['rh_fq']}", f"outu={um}", f"outm={mm}"], "cuda"),
+        (), {})
+    if got["msa_fill"] + got["msa_fill_block"] == 0:
+        raise AssertionError("removehuman: B4 never launched")
+    with open(mm, "rb") as fh:
+        kept = fh.read().split(b"\n")[0::4]
+    junk = sum(n.startswith(b"@junk") for n in kept)
+    print(f"removehuman ref=<genome> device=cuda: {mapper.reads_in} reads in {dt:.2f} s on "
+          f"{card}; {len(kept) - 1} to outm= ({junk} foreign), {mapper.prescreened} "
+          f"prescreened")
+    if junk:
+        raise AssertionError("removehuman: a foreign read mapped")
+    phase_s["bbsplit, bbwrap, removehuman"] = time.perf_counter() - t0
+
+
+def a2_check_runs(a2: dict, ctx: dict, work: str) -> dict:
+    """The CLI runs of the CUDA-against-CPU checks of the A2/A5 and A4b
+    paths: name -> (argv on device d, d's output files), for mapPacBio
+    and the skimmer on LONG_CHECK_READS long reads, BBDuk align=t and
+    recalibrate=t on A2_CHECK_READS reads, BBMap's coverage outputs and
+    bbsplit on COV_CHECK_READS reads of CHECK_REGION bp of the genome (and
+    of the second genome, for bbsplit)."""
+    ref_fa = ctx["ref_fa"]
+
+    def w(name):
+        return os.path.join(work, name)
+
+    def bbduk(tag, fin, flags, side_sam=False):
+        return lambda d: (
+            ["bbduk", f"in={fin}", f"out={w(f'{tag}.{d}.fq')}", *CONFIGS["adapters_fa"], *flags]
+            + ([f"alignout={w(f'{tag}.{d}.sam')}"] if side_sam else []),
+            [w(f"{tag}.{d}.fq")] + ([w(f"{tag}.{d}.sam")] if side_sam else []))
+
+    return {
+        "mappacbio": lambda d: (["mappacbio", f"ref={ref_fa}", f"in={a2['long_check']}",
+                                 f"out={w(f'lc.{d}.sam')}"], [w(f"lc.{d}.sam")]),
+        "bbmapskimmer": lambda d: (["bbmapskimmer", f"ref={ref_fa}",
+                                    f"in={a2['long_check']}", f"out={w(f'sc.{d}.sam')}"],
+                                   [w(f"sc.{d}.sam")]),
+        "bbduk align=t": bbduk("sidechk", a2["side_check"], ["align=t"], side_sam=True),
+        "bbduk recalibrate=t": bbduk("recalchk", a2["recal_check"],
+                                     ["recalibrate=t", f"path={a2['matrices']}"]),
+        "bbmap coverage": lambda d: (
+            ["bbmap", f"ref={a2['region_fa']}", f"in={a2['map_check']}",
+             f"out={w(f'covchk.{d}.sam')}", *(f"{c}={w(f'covchk.{d}.{c}')}" for c in COV_FLAGS)],
+            [w(f"covchk.{d}.{x}") for x in ("sam", *COV_FLAGS)]),
+        "bbsplit": lambda d: (
+            ["bbsplit", f"in={a2['split_check']}",
+             f"ref={a2['region_fa']},{a2['second_region_fa']}",
+             f"basename={w(f'splitchk.{d}_%.fq')}", f"outu={w(f'splitchk.{d}_u.fq')}"],
+            [w(f"splitchk.{d}_{x}.fq") for x in ("u", "region", "second_region")]),
+    }
+
+
+class CpuSide:
+    """CLI runs on device=cpu, taken in order by CPU_SIDE_WORKERS threads,
+    each run in its own process (one torch thread), while this process
+    runs the checks' CUDA halves: the plain versions (the fill of long
+    reads above all) take minutes on the host. Each process gets this process's sys.argv,
+    which the SAM writers put into the @PG line, so that the bytes
+    compare. `wait(name)` blocks until that run has ended and returns its
+    seconds, raising if it failed; `stop` kills the runs still going
+    (main stops every one started, `started`)."""
+
+    started: list = []
+    CODE = ("import json, sys; sys.argv = json.loads(sys.argv[1]); "
+            "from bbtools_torch.cli import main; main(json.loads(sys.argv.pop()))")
+
+    def __init__(self, runs: list, work: str):
+        """runs: [(name, argv on device=cpu)], in the order they start."""
+        import threading
+
+        CpuSide.started.append(self)
+        self.runs, self.log = list(runs), os.path.join(work, "cpu_side")
+        self.done: dict[str, tuple[int, float]] = {}
+        self.cond = threading.Condition()
+        self.procs: dict[int, subprocess.Popen] = {}
+        self.next = 0
+        self.stopped = False
+        self.threads = [threading.Thread(target=self._run, args=(i,), daemon=True)
+                        for i in range(CPU_SIDE_WORKERS)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, worker: int):
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        with open(f"{self.log}.{worker}.log", "wb") as log:
+            while True:
+                with self.cond:
+                    if self.stopped or self.next == len(self.runs):
+                        break
+                    name, argv = self.runs[self.next]
+                    self.next += 1
+                t0 = time.perf_counter()
+                proc = self.procs[worker] = subprocess.Popen(
+                    [sys.executable, "-c", self.CODE, json.dumps(sys.argv + [json.dumps(argv)])],
+                    cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+                rc = proc.wait()
+                with self.cond:
+                    self.done[name] = (rc, time.perf_counter() - t0)
+                    self.cond.notify_all()
+        with self.cond:
+            self.cond.notify_all()
+
+    def wait(self, name: str) -> float:
+        with self.cond:
+            while name not in self.done and not (
+                    self.stopped or not any(t.is_alive() for t in self.threads)):
+                self.cond.wait(timeout=1.0)
+        rc, secs = self.done.get(name, (-1, 0.0))
+        if rc:
+            for i in range(CPU_SIDE_WORKERS):
+                with open(f"{self.log}.{i}.log", errors="replace") as fh:
+                    print(fh.read()[-3000:])
+            raise AssertionError(f"the CPU run of {name} failed (rc {rc})")
+        return secs
+
+    def stop(self):
+        with self.cond:
+            self.stopped = True
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        for t in self.threads:
+            t.join()
+
+
+def early_cpu_runs(ctx: dict, pipe: dict, work: str) -> list:
+    """The CPU halves of the earlier tools' CUDA-against-CPU checks whose
+    outputs are files alone, as CpuSide runs: bbduk's three, bbmerge's,
+    bbmap's single end and paired, kmercountexact's two, Tadpole's two,
+    tadpipe's, bbmerge ecco and its merge stage, and bbcms's two (its
+    input made here)."""
+    runs = [(f"bbduk {name}", bbduk_argv(name, flags, fin, work, "cpu")[0])
+            for name, flags, fin in ctx["bbduk_checks"]]
+    runs.append(("bbmerge", bbmerge_argv(ctx["small_pairs"], work, "head", "cpu")[0]))
+    for name, ins in ctx["bbmap_checks"]:
+        runs.append((f"bbmap {name}", bbmap_check_argv(ctx, ins, name, work, "cpu")[0]))
+    for k in (31, 93):
+        runs.append((f"kmercountexact k={k}", kce_check_argv(ctx["asm"], k, work, "cpu")[0]))
+    for tag in ("contig k=62", "correct k=31"):
+        runs.append((f"tadpole {tag}", tadpole_check_argv(ctx["asm"], tag, work, "cpu")[0]))
+    runs.append(("tadpipe", tadpipe_check_argv(pipe, work, "cpu")[0]))
+    for tag, ins, flags, _n in a6b_merge_checks(pipe):
+        if tag != "nn":
+            runs.append((f"bbmerge {tag}", bbmerge_argv(ins, work, f"mcheck_{tag}", "cpu",
+                                                        flags)[0]))
+    pipe["cms_check"] = os.path.join(work, "cms_check.fq.gz")
+    head_fastq(pipe["region.fq.gz"], pipe["cms_check"], CMS_CHECK_READS)
+    for flags in CMS_CHECKS:
+        runs.append((f"bbcms {' '.join(flags)}", bbcms_check_argv(pipe, flags, work, "cpu")[0]))
+    return runs
+
+
+def kce_check_argv(asm: dict, k: int, work: str, device: str):
+    """kmercountexact's argv of a check on `device` and its outputs."""
+    outs = [os.path.join(work, f"head{k}.{device}.{x}") for x in ("khist", "peaks", "dump")]
+    return (["kmercountexact", f"in={asm['head.fq.gz']}", f"k={k}",
+             *(f"{x}={o}" for x, o in zip(("khist", "peaks", "dump"), outs)),
+             f"device={device}"], outs)
+
+
+def tadpole_check_argv(asm: dict, tag: str, work: str, device: str):
+    """Tadpole's argv of a check (contig k=62 on the region's reads, or
+    correct k=31) on `device` and its output."""
+    fin, flags = ((asm["region.fq.gz"], ["k=62"]) if tag.startswith("contig") else
+                  (asm["ecc.fq.gz"], ["k=31", "mode=correct"]))
+    out = os.path.join(work, f"tad.{tag[:6]}.{device}.out")
+    return ["tadpole", f"in={fin}", *flags, f"out={out}", f"device={device}"], [out]
+
+
+def bbmap_check_argv(ctx: dict, ins: list[str], name: str, work: str, device: str):
+    """bbmap's argv of a check on `device` and its SAM."""
+    out = os.path.join(work, f"map_head_{name[0]}.{device}.sam")
+    return ["bbmap", f"ref={ctx['ref_fa']}", *ins, f"out={out}", f"device={device}"], [out]
+
+
+def tadpipe_check_argv(pipe: dict, work: str, device: str):
+    """tadpipe's argv of its check on `device` and its temp directory
+    (the stage files; the assembly is the directory's name + .fa)."""
+    tmp = os.path.join(work, f"pipe_check.{device}")
+    return ["tadpipe", f"in={pipe['check'][0]}", f"in2={pipe['check'][1]}", f"out={tmp}.fa",
+            f"tmpdir={tmp}", "k=31,62", "deletetemp=f", f"device={device}"], tmp
+
+
+def a6b_merge_checks(pipe: dict) -> tuple:
+    return (("ecco", pipe["merge_check"], PIPE_ECCO, MERGE_CHECK_PAIRS),
+            ("nn", pipe["merge_check"], ["nn=t"], MERGE_CHECK_PAIRS),
+            ("merge", pipe["ecct_check"], PIPE_MERGE, MERGE_ECCT_CHECK_PAIRS))
+
+
+CMS_CHECKS = (["k=25"], ["ecc=f", "mincount=2"])
+
+
+def bbcms_check_argv(pipe: dict, flags: list[str], work: str, device: str):
+    tag = "_".join(f.replace("=", "") for f in flags)
+    outs = [os.path.join(work, f"cms_check.{tag}.{device}.{x}.fq") for x in ("out", "bad")]
+    return (["bbcms", f"in={pipe['cms_check']}", f"out={outs[0]}", f"outb={outs[1]}", *flags,
+             f"device={device}"], outs)
+
+
+def a2_checks(a2: dict, ctx: dict, work: str, cpu_side: CpuSide, phase_s: dict):
+    """The CUDA halves of a2_check_runs in this process, each against its
+    CPU half's outputs (cpu_side), byte for byte."""
+    from bbtools_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    waited = 0.0
+    for name, fn in a2_check_runs(a2, ctx, work).items():
+        argv, _ = fn("cuda")
+        t1 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli_main([*argv, "device=cuda"])
+        cuda_s = time.perf_counter() - t1
+        cpu_s = cpu_side.wait(name)
+        waited += time.perf_counter() - t1 - cuda_s
+        files = {d: read_all(fn(d)[1]) for d in ("cuda", "cpu")}
+        if files["cuda"] != files["cpu"]:
+            raise AssertionError(f"{name}: cuda and cpu outputs differ")
+        print(f"{name}: cuda == cpu ({sum(len(f) for f in files['cuda'])} bytes in "
+              f"{len(files['cuda'])} files; cuda {cuda_s:.2f} s, cpu {cpu_s:.2f} s in a "
+              f"process of its own)")
+    print(f"a2/a4b checks: waited {waited:.1f} s for the CPU runs")
+    phase_s["cuda == cpu, a2/a4b"] = time.perf_counter() - t0
 
 
 def read_all(paths) -> list[bytes]:
@@ -2064,16 +2742,22 @@ def main(argv=None) -> int:
         pipe = make_pipe_data(asm, work, args.seed + 20)
         bloom_fq = os.path.join(work, "bloom.fq.gz")
         make_bloom_reads(map_fq, bloom_fq, args.seed + 21)
+        a2 = make_a2_data(work, genome, fq, map_fq, bloom_fq, args.seed + 30)
         print(f"A6b input: {PIPE_PAIRS} pairs of the region, {pipe['check_pairs']} of its "
               f"first {PIPE_CHECK_BP} bp and {PIPE_FULL_PAIRS} of the whole copy (2x150 bp, "
               f"inserts {PIPE_INSERTS[0]}-{PIPE_INSERTS[1]}, adapters past short inserts, "
               f"{ASM_ERR:.1%} base errors); {BLOOM_READS} map reads and {BLOOM_FOREIGN} "
-              f"foreign reads; made in {time.perf_counter() - t0:.1f} s")
+              f"foreign reads; A2/A4b input: {LONG_READS} long reads of {LONG_RANGE[0]}-"
+              f"{LONG_RANGE[1]} bp and {LONG_CHUNKED} of {LONG_CHUNKED_RANGE[0]}-"
+              f"{LONG_CHUNKED_RANGE[1]} bp, {a2['side_planted']} phiX reads planted in "
+              f"{a2['side_total']}, a second genome of {SECOND_GENOME} bp; made in "
+              f"{time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
 
         t0 = time.perf_counter()
         kernels = check_kernels(kern_fq, *small_pairs)
         kernels[3:3] = check_msa_fill(ref_fa, map_batch)
+        next(r for r in kernels if r["name"] == "msa_fill_block")["long_read"] = check_b4_long()
         phase_s["kernels"] = time.perf_counter() - t0
         print(f"kernel timings on: {card}; kernel phase {phase_s['kernels']:.1f} s")
         t0 = time.perf_counter()
@@ -2143,10 +2827,15 @@ def main(argv=None) -> int:
               f"{args.pairs / dt:.0f} pairs/s, {2 * args.pairs / dt:.0f} reads/s "
               f"(wall, incl. IO) on {card}")
         ctx = {"pairs": (r1, r2), "merge_share": share, "merge_rate": args.pairs / dt,
-               "ref_fa": ref_fa, "bloom_fq": bloom_fq}
+               "asm": asm, "ref_fa": ref_fa, "bloom_fq": bloom_fq, "map_fq": map_fq,
+               "map_batch": map_batch, "map_small": map_small, "small_pairs": small_pairs,
+               "bbduk_checks": (*((n, CONFIGS[n], small) for n in CONFIGS),
+                                ("tbo", TBO_FLAGS, small_tbo)),
+               "bbmap_checks": (("single end", [f"in={map_small}"]),
+                                ("paired", [f"in={map_small_pe[0]}", f"in2={map_small_pe[1]}"]))}
 
         # ---- BBMap (B4), single end and paired ----
-        sam = os.path.join(work, "map.cuda.sam")
+        sam = ctx["map_sam"] = os.path.join(work, "map.cuda.sam")
         (tool, dt, _), got = run_path(
             "bbmap", lambda: run_tool("bbmap", [f"ref={ref_fa}", f"in={map_fq}",
                                                 f"out={sam}"], "cuda"),
@@ -2194,43 +2883,54 @@ def main(argv=None) -> int:
         asm_out = asm_phases(asm, work, card, phase_s)
         ctx["cv_sam"] = asm_out["sam"]
         a6b_out = a6b_phases(asm, pipe, ctx, work, card, phase_s)
+        a2_phases(a2, ctx, work, card, phase_s)
+        # the CPU halves of the checks whose outputs are files alone, in
+        # processes once the last rate is taken; the longest first
+        a2_runs = [(name, [*fn("cpu")[0], "device=cpu"])
+                   for name, fn in a2_check_runs(a2, ctx, work).items()]
+        cpu_side = ctx["cpu_side"] = CpuSide(
+            a2_runs[:2] + early_cpu_runs(ctx, pipe, work) + a2_runs[2:], work)
         t0 = time.perf_counter()
 
-        # ---- CUDA against CPU, byte for byte, on the first reads ----
-        for name, flags, fin in (*((n, CONFIGS[n], small) for n in CONFIGS),
-                                 ("tbo", TBO_FLAGS, small_tbo)):
-            files = {}
-            for device in ("cuda", "cpu"):
-                out, stats, _, _ = run_bbduk(name, flags, fin, work, device)
-                files[device] = read_all((out, stats))
+        # ---- CUDA against CPU, byte for byte, on the first reads (the
+        # CPU halves run in cpu_side's processes) ----
+        for name, flags, fin in ctx["bbduk_checks"]:
+            run_bbduk(name, flags, fin, work, "cuda")
+            cpu_side.wait(f"bbduk {name}")
+            files = {d: read_all(bbduk_argv(name, flags, fin, work, d)[1])
+                     for d in ("cuda", "cpu")}
             if files["cuda"] != files["cpu"]:
                 raise AssertionError(f"{name}: cuda and cpu outputs differ")
             print(f"bbduk {name}: cuda == cpu on {CHECK_READS} reads/pairs "
                   f"({len(files['cuda'][0])} output bytes, stats equal)")
-        files = {d: read_all(run_bbmerge(small_pairs, work, "head", d)[0])
+        run_bbmerge(small_pairs, work, "head", "cuda")
+        cpu_side.wait("bbmerge")
+        files = {d: read_all(bbmerge_argv(small_pairs, work, "head", d)[1])
                  for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError("bbmerge: cuda and cpu outputs differ")
         print(f"bbmerge: cuda == cpu on {CHECK_READS} pairs (merged "
               f"{len(files['cuda'][0])} bytes, unmerged and ihist equal)")
-        for name, ins, n in (("single end", [f"in={map_small}"], MAP_CHECK_READS),
-                             ("paired", [f"in={map_small_pe[0]}", f"in2={map_small_pe[1]}"],
-                              MAP_CHECK_PAIRS)):
-            files = {}
-            for device in ("cuda", "cpu"):
-                out = os.path.join(work, f"map_head.{device}.sam")
-                _, dt, _ = run_tool("bbmap", [f"ref={ref_fa}", *ins, f"out={out}"], device)
-                files[device] = read_all([out])
-                print(f"bbmap {name} device={device}: {n} reads/pairs in {dt:.2f} s")
+        for (name, ins), n in zip(ctx["bbmap_checks"], (MAP_CHECK_READS, MAP_CHECK_PAIRS)):
+            argv, _ = bbmap_check_argv(ctx, ins, name, work, "cuda")
+            _, dt, _ = run_tool("bbmap", argv[1:-1], "cuda")
+            cpu_dt = cpu_side.wait(f"bbmap {name}")
+            files = {d: read_all(bbmap_check_argv(ctx, ins, name, work, d)[1])
+                     for d in ("cuda", "cpu")}
+            print(f"bbmap {name}: {n} reads/pairs in {dt:.2f} s on cuda, {cpu_dt:.2f} s on "
+                  f"cpu (in a process of its own)")
             if files["cuda"] != files["cpu"]:
                 raise AssertionError(f"bbmap {name}: cuda and cpu SAM differ")
             print(f"bbmap {name}: cuda == cpu on {n} reads/pairs "
                   f"({len(files['cuda'][0])} SAM bytes)")
         phase_s["cuda == cpu, earlier tools"] = time.perf_counter() - t0
 
-        asm_checks(asm, work, asm_out, phase_s)
+        asm_checks(asm, work, {**asm_out, "cpu_side": cpu_side}, phase_s)
         a6b_checks(asm, pipe, ctx, a6b_out, work, phase_s)
+        a2_checks(a2, ctx, work, cpu_side, phase_s)
     finally:
+        for side in CpuSide.started:
+            side.stop()
         shutil.rmtree(work, ignore_errors=True)
 
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

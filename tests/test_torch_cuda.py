@@ -1438,3 +1438,187 @@ def test_tadpipe_cuda_equals_cpu(cuda, tmp_path):
         stage_files[dev]["out"] = (tmp_path / f"{dev}.fa").read_bytes()
     assert stage_files["cuda"] == stage_files["cpu"]
     assert len(stage_files["cuda"]) == 12 and stage_files["cuda"]["out"].count(b">") >= 1
+
+
+# ---------------------------------------------------------------------------
+# The long-read presets, the side channel and the tools around BBMap
+# ---------------------------------------------------------------------------
+
+
+def test_msa_fill_block_kernel_at_a_long_read_shape(cuda):
+    """B4's block kernel at a mapPacBio widest-class shape (R = 2,000, Cc
+    = R + 7,640): every output and every live plane byte equal to the
+    plain fill; one block launch."""
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+
+    R = 2000
+    rng = np.random.default_rng(R)
+    reads, lens, refs = (torch.from_numpy(x).to(cuda)
+                         for x in _msa_tasks(rng, 4, R, R + 7640, 1500))
+    before = (msa_fill.launches, msa_fill.block_launches)
+    got = msa_fill(reads, lens, refs)
+    want = msa_fill_plain(reads, lens, refs)
+    torch.cuda.synchronize()
+    _assert_fill_equal(got, want, lens, R + 7640)
+    assert (msa_fill.launches, msa_fill.block_launches) == (before[0], before[1] + 1)
+    assert int((got[1] >= 0).sum()) == 4
+
+
+@pytest.fixture(scope="module")
+def long_reads(tmp_path_factory):
+    """A seeded 300 kb genome; 8 reads of 800-1,200 bp with 1%
+    substitutions, 1-3 bp indels and a 50 bp deletion in half of them,
+    either strand, as FASTA; one read of 2,600 bp that fastareadlen=1200
+    chunks; 12 reads of 150 bp from a segment present twice."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import random_genome
+
+    tmp = tmp_path_factory.mktemp("longreads")
+    (name, seq), = random_genome(300_000, seed=41)
+    seq = seq[:200_000] + seq[10_000:13_000] + seq[200_000:]
+    write_fasta(str(tmp / "ref.fa"), [(name, seq)])
+    codes = load_reference(str(tmp / "ref.fa")).scaffold_codes(0)
+    rng = np.random.default_rng(42)
+    with open(tmp / "long.fa", "wb") as f:
+        for i in range(9):
+            n = 2600 if i == 8 else int(rng.integers(800, 1201))
+            start = 20_000 + i * 30_000
+            read = codes[start : start + n + 60].copy()
+            if i % 2:
+                read = np.concatenate([read[: n // 2], read[n // 2 + 50 :]])
+            for _ in range(3):
+                p = int(rng.integers(50, len(read) - 50))
+                cut = int(rng.integers(1, 4))
+                read = np.concatenate([read[:p], read[p + cut :]])
+            read = read[:n]
+            m = rng.random(n) < 0.01
+            read[m] = (read[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            if i % 3 == 1:
+                read = (3 - read)[::-1]
+            f.write(b">l%d\n%s\n" % (i, CODE_TO_BASE[read].tobytes()))
+    with open(tmp / "dup.fa", "wb") as f:
+        for i in range(12):
+            f.write(b">d%d\n%s\n" % (i, CODE_TO_BASE[codes[10_100 + 200 * i :][:150]].tobytes()))
+    return tmp
+
+
+@pytest.mark.parametrize("tool", ["mappacbio", "bbmapskimmer"])
+def test_long_read_presets_cuda_equal_cpu_at_two_budgets(cuda, long_reads, tool,
+                                                        monkeypatch):
+    """mapPacBio and the skimmer: the CUDA SAM byte-equal to the CPU's,
+    at the default plane budget and at a share of the card's memory that
+    holds about two widest-class tasks (two class-0 tasks of the
+    skimmer's 150 bp reads), which fills (and walks) the classes in
+    groups; B4 launched on the card."""
+    from bbtools_torch.cli import TOOLS
+    from bbtools_torch.ops import msa_fill as mf
+    from bbtools_torch.ops.msa_fill import msa_fill
+
+    d = long_reads
+    R = 1200 if tool == "mappacbio" else 150
+    small = 2 * mf.task_bytes(R, R + (7640 if tool == "mappacbio" else 24)) / (
+        torch.cuda.mem_get_info(cuda)[0])
+    inp = d / ("long.fa" if tool == "mappacbio" else "dup.fa")
+    outs, groups = {}, {}
+    for tag, dev, share in (("cuda", "cuda", mf.PLANE_SHARE), ("cuda_small", "cuda", small),
+                            ("cpu", "cpu", mf.PLANE_SHARE)):
+        monkeypatch.setattr(mf, "PLANE_SHARE", share)
+        before = msa_fill.launches + msa_fill.block_launches
+        sam = d / f"{tool}.{tag}.sam"
+        argv = [f"ref={d / 'ref.fa'}", f"in={inp}", f"out={sam}", "fastareadlen=1200",
+                f"device={dev}"]
+        groups[tag] = TOOLS[tool](argv).plane_groups
+        assert (msa_fill.launches + msa_fill.block_launches > before) == (dev == "cuda")
+        outs[tag] = sam.read_bytes()
+    assert outs["cuda"] == outs["cpu"] == outs["cuda_small"]
+    assert groups["cuda_small"] > groups["cuda"]
+    recs = [ln.split(b"\t") for ln in outs["cuda"].splitlines() if not ln.startswith(b"@")]
+    if tool == "mappacbio":
+        assert sum(b"_chunk" in r[0] for r in recs) == 3
+        assert sum(not int(r[1]) & 4 for r in recs) >= 9
+    else:
+        assert sum(int(r[1]) & 0x100 != 0 for r in recs) >= 10
+
+
+def test_micro_batches_cuda_equal_cpu(cuda):
+    """micro_map_batch and quick_align_batch on the card equal their CPU
+    run, array for array, on reads off both ends of phiX."""
+    import gzip
+    import os
+
+    from bbtools_torch.core.dna import encode
+    from bbtools_torch.ops import microalign as tm
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with gzip.open(os.path.join(here, "bbtools_tpu", "resources", "phix2.fa.gz")) as fh:
+        ref = encode(b"".join(ln for ln in fh.read().splitlines() if not ln.startswith(b">")))
+    rng = np.random.default_rng(3)
+    B, L = 4096, 151
+    starts = rng.integers(-120, len(ref) - 30, B)
+    bases = np.full((B, L), 4, np.uint8)
+    lengths = rng.integers(60, L + 1, B).astype(np.int32)
+    for i in range(B):
+        seg = np.concatenate([rng.integers(0, 4, max(0, -starts[i])),
+                              ref[max(0, starts[i]) :]])[: lengths[i]]
+        seg = np.concatenate([seg, rng.integers(0, 4, lengths[i] - len(seg))]).astype(np.uint8)
+        bases[i, : lengths[i]] = np.where(seg < 4, 3 - seg, 4)[::-1] if i % 2 else seg
+    idx = tm.MicroIndex.build(ref, 17, 1, 0.66)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kt, it, rd = idx.device_tables(dev)
+        b, ln = torch.from_numpy(bases).to(dev), torch.from_numpy(lengths).to(dev)
+        hit, off, st = tm.micro_map_batch(idx.cfg, kt, it, b, ln)
+        qa = tm.quick_align_batch(idx.cfg, rd, b, ln, off, st)
+        out[dev] = [x.cpu().numpy() for x in (hit, off, st, *qa.values())]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert out["cuda"][0].mean() > 0.8 and (out["cuda"][7][out["cuda"][0]] > 0).any()
+
+
+def test_align_coverage_and_bbsplit_cuda_equal_cpu(cuda, tmp_path):
+    """BBDuk align=t (the side SAM and the FASTQ), BBMap's four coverage
+    outputs and bbsplit's files: byte-equal on the card and the CPU."""
+    import gzip
+    import os
+
+    from bbtools_torch.cli import main
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with gzip.open(os.path.join(here, "bbtools_tpu", "resources", "phix2.fa.gz")) as fh:
+        phix = b"".join(ln for ln in fh.read().splitlines() if not ln.startswith(b">"))
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for i in range(2000):
+        p = int(rng.integers(0, len(phix) - 100))
+        seq = phix[p : p + 100] if i % 10 == 0 else acgt[rng.integers(0, 4, 100)].tobytes()
+        recs.append((b"r%d" % i, seq, b"F" * 100))
+    write_reads(str(tmp_path / "side.fq"), recs)
+    write_fasta(str(tmp_path / "a.fa"), random_genome(60_000, n_scaffolds=2, seed=1))
+    write_fasta(str(tmp_path / "b.fa"), random_genome(40_000, seed=2))
+    write_reads(str(tmp_path / "r.fq"), random_reads(
+        load_reference(str(tmp_path / "a.fa")), 1024, read_len=150, snp_rate=0.01, seed=3)
+        + random_reads(load_reference(str(tmp_path / "b.fa")), 1024, read_len=150,
+                       snp_rate=0.01, seed=4))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t = tmp_path / dev
+        t.mkdir()
+        main(["bbduk", f"in={tmp_path / 'side.fq'}", f"out={t / 'o.fq'}", "align=t",
+              f"alignout={t / 'side.sam'}", "k=27", "literal=ACGTACGTACGTACGTACGTACGTACGTAC",
+              f"device={dev}"])
+        main(["bbmap", f"ref={tmp_path / 'a.fa'}", f"in={tmp_path / 'r.fq'}",
+              f"out={t / 'm.sam'}", f"covstats={t / 'cs.txt'}", f"basecov={t / 'bc.txt'}",
+              f"covhist={t / 'ch.txt'}", f"bincov={t / 'bn.txt'}", f"device={dev}"])
+        main(["bbsplit", f"ref={tmp_path / 'a.fa'},{tmp_path / 'b.fa'}",
+              f"in={tmp_path / 'r.fq'}", f"basename={t / 'split_%.fq'}",
+              f"outu={t / 'u.fq'}", f"device={dev}"])
+        outs[dev] = {p.name: p.read_bytes() for p in sorted(t.iterdir())}
+    assert outs["cuda"] == outs["cpu"]
+    side = outs["cuda"]["side.sam"].splitlines()
+    assert sum(1 for ln in side if not ln.startswith(b"@") and not int(ln.split(b"\t")[1]) & 4) == 200
+    assert outs["cuda"]["split_a.fq"].count(b"\n") >= 4 * 1000

@@ -60,7 +60,8 @@ COPIED_MODULES = [
     "ops/msa_constants.py", "ops/gaps.py", "io/sam.py", "io/sam_read.py",
     "io/bam.py", "utils/synth.py", "models/bbmap_index.py",
     "io/stream.py", "models/tadpole_ecc.py", "ml/__init__.py",
-    "models/assemblystats.py",
+    "models/assemblystats.py", "models/calctruequality.py", "models/pileup.py",
+    "models/gradesam.py", "utils/graders.py",
 ]
 
 
@@ -105,6 +106,16 @@ PARTLY_COPIED = {
     "ops/cms.py": ["_jax", "_slots_jnp", "make_cms_add", "make_cms_query",
                    "CountMinSketch.__init__", "CountMinSketch.add", "CountMinSketch.query",
                    "CountMinSketch.query_jnp"],
+    # the micro-aligner's batch functions run on the device; the index
+    # build and the host fallback are the JAX package's
+    "ops/microalign.py": ["micro_map_batch", "quick_align_batch",
+                          "MicroIndex.device_tables"],
+    # the side channel takes a device and reads phiX from the JAX
+    # package's resources by path
+    "models/sidechannel.py": ["_resolve_side_ref", "SideChannel.__init__",
+                              "SideChannel._map_one_side"],
+    # bbsplit passes its device= to the mapper
+    "models/bbsplit.py": ["BBSplitConfig", "parse_args", "BBSplit.run"],
 }
 
 
@@ -236,6 +247,11 @@ COPIED_FUNCTIONS = [
     ("models.bbmap", "clearzone_for"), ("models.bbmap", "_cz3_fraction"),
     ("models.bbmap", "apply_clearzone3"), ("models.bbmap", "tip_score_penalty"),
     ("models.bbmap", "load_ref"), ("models.bbmap", "main"),
+    ("models.bbmap", "pacbio_preset"), ("models.bbmap", "skimmer_preset"),
+    ("models.bbmap", "BBMap.run"), ("models.bbmap", "BBMap._want_coverage"),
+    ("models.bbmap", "BBMap._cov_init"), ("models.bbmap", "BBMap._coverage_add"),
+    ("models.bbmap", "BBMap._write_coverage"),
+    ("cli", "_remove_preset"), ("cli", "_bbwrap"),
 ]
 
 
@@ -314,14 +330,9 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("tool,flag,item", [
-    ("bbduk", "tpshards=2", "A7"), ("bbduk", "recalibrate=t", "A2/A5"),
-    ("bbduk", "align=t", "A2/A5"), ("bbduk", "profile=trace", "A9"),
+    ("bbduk", "tpshards=2", "A7"), ("bbduk", "profile=trace", "A9"),
     ("bbmerge", "tpshards=2", "A7"),
     ("bbmap", "tpshards=2", "A7"),
-    ("bbmap", "covstats=c.txt", "A2/A5"), ("bbmap", "basecov=b.txt", "A2/A5"),
-    ("bbmap", "covhist=h.txt", "A2/A5"), ("bbmap", "bincov=n.txt", "A2/A5"),
-    ("mappacbio", "", "A4b"), ("bbmapskimmer", "", "A4b"),
-    ("mappacbioskimmer", "", "A4b"),
     ("kmercountexact", "shards=2", "A7"), ("kmercount", "tpshards=4", "A7"),
     ("khist", "shards=2", "A7"), ("tadpole", "shards=2", "A7"),
 ])
@@ -356,7 +367,7 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    for tool in ("reformat", "bbnorm", "bbwrap", "bbsplit", "fungalrelease"):
+    for tool in ("reformat", "bbnorm", "seal", "dedupe", "fungalrelease"):
         with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
@@ -459,3 +470,65 @@ def test_bbmap_bloomfilter_defaults_to_cuda(tmp_path):
               "bloomfilter=t"])
     with pytest.raises(RuntimeError, match="cuda"):
         CountMinSketch(1 << 10)
+
+
+#: the flags and tools of ROADMAP A2/A5 and A4b, and the argv that reaches
+#: their first device work; pileup, calctruequality and gradesam have none
+#: (host numpy over a SAM)
+A2_A4B_PATHS = {
+    "bbduk_recalibrate": ["bbduk", "in={fq}", "out={tmp}/o.fq", "recalibrate=t",
+                          "path={tmp}"],
+    "bbduk_align": ["bbduk", "in={fq}", "out={tmp}/o.fq", "align=t",
+                    "alignout={tmp}/o.sam"],
+    "bbmap_covstats": ["bbmap", "ref={tmp}/ref.fa", "in={fq}", "covstats={tmp}/o.txt"],
+    "bbmap_basecov": ["bbmap", "ref={tmp}/ref.fa", "in={fq}", "basecov={tmp}/o.txt"],
+    "bbmap_covhist": ["bbmap", "ref={tmp}/ref.fa", "in={fq}", "covhist={tmp}/o.txt"],
+    "bbmap_bincov": ["bbmap", "ref={tmp}/ref.fa", "in={fq}", "bincov={tmp}/o.txt"],
+    "mappacbio": ["mappacbio", "ref={tmp}/ref.fa", "in={fq}", "out={tmp}/o.sam"],
+    "bbmapskimmer": ["bbmapskimmer", "ref={tmp}/ref.fa", "in={fq}", "out={tmp}/o.sam"],
+    "mappacbioskimmer": ["mappacbioskimmer", "ref={tmp}/ref.fa", "in={fq}",
+                         "out={tmp}/o.sam"],
+    "bbsplit": ["bbsplit", "ref={tmp}/ref.fa", "in={fq}", "basename={tmp}/o_%.fq"],
+    "bbwrap": ["bbwrap", "ref={tmp}/ref.fa", "in={fq},{fq}", "out={tmp}/o.sam,{tmp}/o2.sam"],
+    "removehuman": ["removehuman", "ref={tmp}/ref.fa", "in={fq}", "outu={tmp}/o.fq"],
+    "removehuman2": ["removehuman2", "ref={tmp}/ref.fa", "in={fq}", "outu={tmp}/o.fq"],
+    "removemicrobes": ["removemicrobes", "ref={tmp}/ref.fa", "in={fq}", "outu={tmp}/o.fq"],
+    "removecatdogmousehuman": ["removecatdogmousehuman", "ref={tmp}/ref.fa", "in={fq}",
+                               "outu={tmp}/o.fq"],
+    "pileup": ["pileup", "in={tmp}/in.sam", "ref={tmp}/ref.fa", "out={tmp}/o.txt"],
+    "coveragepileup": ["coveragepileup", "in={tmp}/in.sam", "ref={tmp}/ref.fa",
+                       "out={tmp}/o.txt"],
+    "pileup2": ["pileup2", "in={tmp}/in.sam", "ref={tmp}/ref.fa", "out={tmp}/o.txt"],
+    "calctruequality": ["calctruequality", "in={tmp}/in.sam", "path={tmp}"],
+    "gradesam": ["gradesam", "in={tmp}/in.sam", "ref={tmp}/ref.fa"],
+}
+HOST_ONLY = ("pileup", "coveragepileup", "pileup2", "calctruequality", "gradesam")
+
+
+@pytest.mark.parametrize("case", list(A2_A4B_PATHS))
+def test_a2_a4b_paths_default_to_cuda(tmp_path, case):
+    """The flags and tools of this part of the port run on the card unless
+    asked for the CPU: without one, the default raises before any output
+    is written. The host-only tools run anywhere."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import contextlib
+    import io
+
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n")
+    (tmp_path / "in.sam").write_text(
+        "@SQ\tSN:s\tLN:200\nr_scaf0_pos0_strand0\t0\ts\t1\t40\t40=\t*\t0\t0\t"
+        + "ACGT" * 10 + "\t" + "I" * 40 + "\n")
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A2_A4B_PATHS[case]]
+    if case in HOST_ONLY:
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            assert main(argv) == 0
+        assert list(tmp_path.glob("o.txt")) or case in ("calctruequality", "gradesam")
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(argv)
+    assert not [p for p in tmp_path.rglob("o*")]
