@@ -4,7 +4,9 @@ python -m bbtools_torch <tool> key=value ...
 The tools ported so far are registered in TOOLS, each running on the
 card unless given device=cpu (the host-only ones, stats, pileup,
 calctruequality and gradesam, run anywhere). A name not in TOOLS raises,
-naming the ROADMAP item that holds it (A8, the long tail).
+naming the ROADMAP item that holds it (A8, the long tail). Before any
+tool runs, `guard_output_files` refuses duplicate outputs, an output
+that is also an input, and an existing output under ow=f.
 """
 
 from __future__ import annotations
@@ -165,6 +167,43 @@ def _bbrealign(args):
     return main(args)
 
 
+def _seal(args):
+    from .models.seal import main
+
+    return main(args)
+
+
+def _loglog(args):
+    from .models.loglog import main
+
+    return main(args)
+
+
+def _bbnorm(args):
+    from .models.bbnorm import main
+
+    return main(args)
+
+
+def _ecc(args):
+    # ecc.sh = KmerNormalize with ecc=t keepall=t passes=1
+    from .models.bbnorm import main
+
+    return main(args, ecc_tool=True)
+
+
+def _dedupe(args):
+    from .models.dedupe import main
+
+    return main(args)
+
+
+def _clumpify(args):
+    from .models.clumpify import main
+
+    return main(args)
+
+
 TOOLS = {
     "bbduk": _bbduk,
     # same-main-class launcher aliases (bbduk.BBDukS)
@@ -207,7 +246,81 @@ TOOLS = {
     "assemblystats": _assemblystats,
     "bbcms": _bbcms,
     "bbrealign": _bbrealign,
+    "seal": _seal,
+    "loglog": _loglog,
+    "bbnorm": _bbnorm,
+    "ecc": _ecc,
+    "dedupe": _dedupe,
+    # Dedupe2: a rewrite of the same tool surface
+    "dedupe2": _dedupe,
+    "clumpify": _clumpify,
 }
+
+
+#: flag names that name INPUT files (never treated as outputs below)
+_INPUT_KEYS = frozenset({
+    "in", "in1", "in2", "ref", "extra", "sam", "invcf", "vcfin", "vcf0",
+    "input", "literal", "adapters", "barcodes", "names", "tree", "table",
+    "gi", "accession", "config", "net", "netfile", "model", "sketch_in",
+})
+
+#: output values that never collide (stream/sink sentinels)
+_SINK_VALUES = frozenset({"stdout", "stderr", "null", "/dev/null", "-"})
+
+
+def guard_output_files(argv: list[str]):
+    """Universal output-collision pre-check, applied to EVERY tool before
+    dispatch — the reference calls shared/Tools.testOutputFiles in every
+    tool's setup (e.g. bbduk/BBDukS.java:185); centralizing it here gives
+    all 315 launchers the contract at once. Checks: duplicate output
+    paths, outputs shadowing inputs, and existing files unless
+    overwrite=t (ow). Tools with richer local checks still run them."""
+    import os
+
+    pairs = []
+    for tok in argv:
+        if "=" not in tok:
+            continue
+        k, v = tok.split("=", 1)
+        pairs.append((k.strip().lower().lstrip("-"), v.strip()))
+    overwrite = True
+    for k, v in pairs:
+        if k in ("overwrite", "ow"):
+            overwrite = v.lower() in ("t", "true", "1", "yes", "y", "")
+    ins = set()
+    outs = []
+    for k, v in pairs:
+        if not v or v.lower() in _SINK_VALUES or v.lower().startswith(
+            "stdout."
+        ):
+            continue
+        # boolean-valued out* flags (e.g. enable toggles) are not paths
+        if v.lower() in ("t", "f", "true", "false"):
+            continue
+        if k in _INPUT_KEYS:
+            for p in v.split(","):
+                if p:
+                    ins.add(os.path.abspath(p))
+        elif k.startswith("out"):
+            # demux-style patterned outputs (out=%.fq) expand per key and
+            # cannot collide statically
+            if "%" in v or "#" in v:
+                continue
+            for p in v.split(","):
+                if p:
+                    outs.append(p)
+    seen = {}
+    for p in outs:
+        ap = os.path.abspath(p)
+        if ap in seen:
+            raise ValueError(f"Duplicate output file: {p}")
+        seen[ap] = p
+        if ap in ins:
+            raise ValueError(f"Output file {p} is also an input")
+        if os.path.exists(p) and not overwrite:
+            raise ValueError(
+                f"Output file {p} exists; use overwrite=t (ow) to replace"
+            )
 
 
 def main(argv=None):
@@ -224,6 +337,7 @@ def main(argv=None):
             f"bbtools_torch: tool {tool!r} is not ported (ROADMAP A8); "
             f"ported tools: {', '.join(sorted(TOOLS))}"
         )
+    guard_output_files(argv[1:])
     fn(argv[1:])
     return 0
 

@@ -26,14 +26,7 @@ from ..core.parser import tokenize
 from ..device import resolve_device
 from ..io.fastq import FastqReader, FastqWriter, paired_reader
 from ..ops.cms import CMSTable, CountMinSketch
-from ..ops.kmer_count import PAD, batch_kmers
-
-
-def _batch_keys(bases, lengths, k, device) -> torch.Tensor:
-    """[B*L] canonical k-mers of one batch on `device`, PAD where no
-    valid window ends."""
-    return batch_kmers(torch.as_tensor(np.asarray(bases), device=device),
-                       torch.as_tensor(np.asarray(lengths), device=device), k)
+from ..ops.kmer_count import PAD, batch_keys
 
 
 def _count_pass(paths, k, hashes, cells, device):
@@ -42,7 +35,7 @@ def _count_pass(paths, k, hashes, cells, device):
     for path in paths:
         r = FastqReader(path)
         for b in r:
-            keys = _batch_keys(b.bases, b.lengths, k, cms.device)
+            keys = batch_keys(b.bases, b.lengths, k, cms.device)
             cms.add(keys[keys != int(PAD)])
         reads += r.reads_in
     return cms, reads
@@ -52,7 +45,7 @@ def _read_depth_stats(cms, bases, lengths, k):
     """(median depth, counts, valid) per read: one device query of the
     batch's k-mers."""
     B, L = bases.shape
-    keys = _batch_keys(bases, lengths, k, cms.device)
+    keys = batch_keys(bases, lengths, k, cms.device)
     valid_t = keys != int(PAD)
     counts_t = torch.where(valid_t, cms.query_t(keys).to(torch.int64), 0)
     counts = counts_t.cpu().numpy().reshape(B, L)

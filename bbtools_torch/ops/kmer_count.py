@@ -40,6 +40,13 @@ def batch_kmers(bases: torch.Tensor, lengths: torch.Tensor, k: int) -> torch.Ten
     return keys.reshape(-1)
 
 
+def batch_keys(bases, lengths, k: int, device) -> torch.Tensor:
+    """batch_kmers of a batch's host arrays (codes [B, L], lengths [B])
+    on `device`."""
+    return batch_kmers(torch.as_tensor(np.asarray(bases), device=device),
+                       torch.as_tensor(np.asarray(lengths), device=device), k)
+
+
 def _compact(s, boundary, excl, total):
     """Runs of the sorted keys s ([n], or [n, W] rows of words) ->
     (values, counts, n_runs), padded to n rows (PAD / 0 past n_runs).
@@ -89,8 +96,7 @@ def count_batch(bases, lengths, k: int, device="cuda"):
     back; on the CPU the keys go through np.unique, as the JAX package
     does on a CPU platform. Both produce identical (values, counts)."""
     dev = torch.device(device)
-    keys = batch_kmers(torch.as_tensor(np.asarray(bases), device=dev),
-                       torch.as_tensor(np.asarray(lengths), device=dev), k)
+    keys = batch_keys(bases, lengths, k, dev)
     if dev.type != "cpu":
         values, counts, n_runs = sort_reduce(keys)
         n = int(n_runs)

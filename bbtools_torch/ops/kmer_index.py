@@ -465,12 +465,16 @@ def _srl(h, s: int):
     return (h >> s) & ((1 << (64 - s)) - 1)
 
 
-def _bucket_of(query, nb: int):
-    """splitmix64(query) & (nb - 1), the bucket of _mix64 on the host."""
-    h = query
+def mix64_t(h: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer on int64 tensors: the bits of _mix64 on the
+    host, read as signed (wrapping multiplies, logical shifts)."""
     h = h ^ _srl(h, 30)
     h = h * _M1
     h = h ^ _srl(h, 27)
     h = h * _M2
-    h = h ^ _srl(h, 31)
-    return h & (nb - 1)
+    return h ^ _srl(h, 31)
+
+
+def _bucket_of(query, nb: int):
+    """splitmix64(query) & (nb - 1), the bucket of _mix64 on the host."""
+    return mix64_t(query) & (nb - 1)

@@ -207,5 +207,7 @@ def shift_right_zero(x: torch.Tensor, j: int) -> torch.Tensor:
     """x shifted right by j along the last axis, zero-filled (static j)."""
     if j == 0:
         return x
+    if j >= x.shape[-1]:  # a window longer than the rows: all zero
+        return torch.zeros_like(x)
     pad = torch.zeros(x.shape[:-1] + (j,), dtype=x.dtype, device=x.device)
     return torch.cat([pad, x[..., :-j]], dim=-1)

@@ -7,7 +7,7 @@ From the root of a checkout, on a machine with a CUDA card:
 
   1. prints the card (nvidia-smi name and power limit) and versions;
   2. builds the CUDA kernels from bbtools_torch/csrc with nvcc (one
-     compiler per source, in parallel);
+     compiler per source, in parallel), while it makes the inputs;
   3. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes (exact equality), and times both with CUDA
      events: B1 lane_lookup and B2 cummax_i64 (BBDuk), B3 mm_lookup (the
@@ -113,11 +113,26 @@ From the root of a checkout, on a machine with a CUDA card:
      index build, and `removehuman ref=`; then each on both devices,
      byte for byte, at a small size (coverage and bbsplit against 250 kb
      of each genome);
-  9. runs the CPU halves of the checks of 7 and 8 whose outputs are
-     files alone in CPU_SIDE_WORKERS processes once the last rate above
-     is taken (their plain fill of long reads takes minutes), beside
-     the checks' CUDA halves, so that no rate is taken under their load;
- 10. prints each phase's seconds.
+  9. the A8a tools through the CLI on device=cuda, each with its device
+     route counted on the card: `seal k=31` against six references (the
+     genome cut in four files, the second genome, phiX) over config #1's
+     reads with phiX planted (phiX's count the planted one), `bbnorm
+     k=31 target=10 mindepth=5` over config #2's reads (the kept share
+     near the target over the 31-mer depth), `ecc` over config #5's
+     region's reads, `loglog k=31` over config #2's reads (within 7% of
+     kmercountexact's distinct 31-mers), `dedupe s=2 e=2` over 200,000
+     reads with planted copies and near-copies (kept and duplicates
+     exactly the planted), `clumpify k=31` over config #1's reads and
+     `dedupe=t` over dedupe's (the same-strand copies removed); then
+     each on both devices, byte for byte, on a head (dedupe with ac=t;
+     loglog's bucket maxima in this process);
+ 10. runs the CPU halves of the checks of 7, 8 and 9 whose outputs are
+     files alone in CPU_SIDE_WORKERS processes (the cores less two, 4
+     to 8) once the last rate above is taken (their plain fill of long
+     reads takes minutes), beside the other checks' CUDA halves, so that
+     no rate is taken under their load; the CUDA halves of 8's and 9's
+     checks run in those processes too;
+ 11. prints each phase's seconds.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -282,9 +297,32 @@ RH_READS = 2_200  # removehuman: the head of the bloom reads (200 foreign)
 #: the second genome): the CPU's BBMap over the whole genome and its
 #: 4.6M-line basecov= took 60-114 s beside the card's phases
 CHECK_REGION = 250_000
-#: processes running the CPU halves of the checks at once
-CPU_SIDE_WORKERS = 4
+#: processes running the CPU halves of the checks at once: the cores
+#: this process may use less two (this process, which runs the other
+#: checks' CUDA halves, and its threads), at least 4 and at most 8
+CPU_SIDE_WORKERS = max(4, min(8, len(os.sched_getaffinity(0)) - 2))
 CTQ_RECORDS = 4_096  # calctruequality's input: the head of BBMap's SAM
+#: the A8a tools (seal, bbnorm, ecc, loglog, dedupe, clumpify). Seal
+#: bins config #1's reads with phiX planted (the align=t input) against
+#: six references: the E. coli-length genome cut in SEAL_PARTS files,
+#: the second genome and phiX
+SEAL_PARTS = 4
+SEAL_CHECK_READS = 10_000
+BBNORM_FLAGS = ["k=31", "target=10", "mindepth=5"]
+#: dedupe's input: DEDUPE_DISTINCT random reads of 150 bp, DEDUPE_EXACT
+#: exact copies of as many of them (every other reverse-complemented)
+#: and DEDUPE_NEAR near-copies of others (1-2 substitutions or a 1 bp
+#: indel at 40-110), shuffled
+DEDUPE_DISTINCT = 150_000
+DEDUPE_EXACT = 25_000
+DEDUPE_NEAR = 25_000
+DEDUPE_FLAGS = ["s=2", "e=2"]
+#: the dedupe and clumpify checks' heads: past one 16,384-read batch, so
+#: that dedupe's second batch sends pairs to the banded edit distance
+A8A_CHECK_READS = 20_000
+#: loglog's estimate against kmercountexact's distinct count: 3 standard
+#: errors (1.04 / sqrt(buckets)) at 2,048 buckets
+LOGLOG_BAND = 0.07
 
 # Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
@@ -1326,24 +1364,31 @@ def make_asm_data(work: str, seed: int) -> dict:
 
 
 def device_calls() -> dict:
-    """The device routes of the k-mer counts and the count-min sketch's
-    adds: calls on CUDA tensors."""
-    from bbtools_torch.ops import cms, kmer_count, kmers2
+    """The device routes of the k-mer counts, the count-min sketch's adds
+    and the A8a tools' device ops: calls on CUDA tensors."""
+    from bbtools_torch.models import bbnorm, clumpify, loglog, seal
+    from bbtools_torch.ops import banded, cms, kmer_count, kmers2
 
     return {"merge_spectra": kmer_count.merge_spectra.device_calls,
             "sort_reduce": kmer_count.sort_reduce.device_calls,
             "count_words": kmers2.count_words.device_calls,
-            "cms_add": cms.cms_add.device_calls}
+            "cms_add": cms.cms_add.device_calls,
+            "seal_votes": seal.seal_votes.device_calls,
+            "read_depths": bbnorm.read_depths.device_calls,
+            "loglog_update": loglog.loglog_update.device_calls,
+            "banded_edits": banded.banded_edits.device_calls,
+            "pivot_kmers": clumpify._pivot_kmers_t.device_calls}
 
 
 def run_tool(tool: str, argv: list[str], device: str):
-    """`tool` through the CLI's dispatch on `device`: (what its main
-    returns, wall seconds, its stderr)."""
-    from bbtools_torch.cli import TOOLS
+    """`tool` through the CLI's output guard and dispatch on `device`:
+    (what its main returns, wall seconds, its stderr)."""
+    from bbtools_torch.cli import TOOLS, guard_output_files
 
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
+        guard_output_files([*argv, f"device={device}"])
         res = TOOLS[tool]([*argv, f"device={device}"])
     return res, time.perf_counter() - t0, err.getvalue()
 
@@ -1464,6 +1509,7 @@ def asm_phases(asm: dict, work: str, card: str, phase_s: dict) -> dict:
     with open(pk) as fh:
         peaks = [[int(x) for x in ln.split()] for ln in fh if not ln.startswith("#")]
     main_peak = max((r for r in peaks if r[1] >= 5), key=lambda r: r[4])
+    asm["kce31_unique"] = spec.n_unique  # loglog's yardstick
     print(f"kmercountexact k=31 device=cuda: {ASM_READS} reads in {dt:.2f} s = "
           f"{ASM_READS / dt:.0f} reads/s (wall, incl. IO) on {card}; "
           f"{spec.n_unique} unique k-mers, spectrum capacity {spec.cap}; main peak "
@@ -1759,11 +1805,11 @@ def time_cms_add(fq: str, card: str) -> float:
     import torch
 
     from bbtools_torch.io.fastq import FastqReader
-    from bbtools_torch.models.bbcms import _batch_keys
     from bbtools_torch.ops import cms
+    from bbtools_torch.ops.kmer_count import batch_keys
 
     b = next(iter(FastqReader(fq)))
-    keys = _batch_keys(b.bases, b.lengths, 31, torch.device("cuda"))
+    keys = batch_keys(b.bases, b.lengths, 31, torch.device("cuda"))
     keys = keys[keys != np.iinfo(np.int64).max]
     sk = cms.CountMinSketch(device="cuda")
     calls = cms.cms_add.device_calls
@@ -2447,10 +2493,212 @@ def a2_check_runs(a2: dict, ctx: dict, work: str) -> dict:
     }
 
 
+def make_dedupe_reads(path: str, seed: int) -> tuple[int, int]:
+    """dedupe's planted input (DEDUPE_* above), gzipped, names d<i>.
+    Returns (distinct, planted duplicates)."""
+    rng = np.random.default_rng(seed)
+    L = 150
+    base = rng.integers(0, 4, (DEDUPE_DISTINCT, L)).astype(np.uint8)
+    reads = list(base)
+    for i in range(DEDUPE_EXACT):  # copies of reads 0.., every other reversed
+        reads.append((3 - base[i])[::-1].copy() if i % 2 else base[i].copy())
+    for i in range(DEDUPE_NEAR):  # near-copies of reads DEDUPE_EXACT..
+        r = base[DEDUPE_EXACT + i].copy()
+        p = int(rng.integers(40, 110))
+        kind = i % 4
+        if kind < 2:
+            r[p] = (r[p] + 1 + int(rng.integers(0, 3))) % 4
+            if kind == 1:
+                r[p + 5] = (r[p + 5] + 1 + int(rng.integers(0, 3))) % 4
+        elif kind == 2:
+            r = np.delete(r, p)
+        else:
+            r = np.insert(r, p, rng.integers(0, 4))
+        reads.append(r)
+    ascii_ = np.frombuffer(b"ACGT", np.uint8)
+    with gzip.open(path, "wb", compresslevel=1) as fh:
+        fh.write(b"".join(b"@d%d\n%s\n+\n%s\n" % (i, ascii_[reads[j]].tobytes(),
+                                                   b"I" * len(reads[j]))
+                          for i, j in enumerate(rng.permutation(len(reads)))))
+    return DEDUPE_DISTINCT, DEDUPE_EXACT + DEDUPE_NEAR
+
+
+def make_a8a_data(work: str, genome, fq: str, n_fq: int, a2: dict, asm: dict,
+                  seed: int) -> dict:
+    """The inputs of the A8a phases: seal's six references and the head
+    of its check, dedupe's planted reads and the heads of the dedupe and
+    clumpify checks."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import write_fasta
+
+    d = {"seal_refs": [], "fq": fq, "fq_reads": n_fq}
+    codes = genome.scaffold_codes(0)
+    cut = -(-len(codes) // SEAL_PARTS)
+    for i in range(SEAL_PARTS):
+        d["seal_refs"].append(os.path.join(work, f"ecoli_part{i}.fa"))
+        write_fasta(d["seal_refs"][-1], [(b"part%d" % i, CODE_TO_BASE[
+            codes[i * cut:(i + 1) * cut]].tobytes())])
+    d["seal_refs"] += [a2["second_fa"],
+                       os.path.join(HERE, "bbtools_tpu", "resources", "phix2.fa.gz")]
+    d["seal_check"] = os.path.join(work, "seal_check.fq")
+    d["seal_check_planted"] = plant_phix(fq, d["seal_check"], SIDE_EVERY, seed + 1,
+                                         SEAL_CHECK_READS)
+    d["dedupe"] = os.path.join(work, "dedupe.fq.gz")
+    d["dedupe_distinct"], d["dedupe_planted"] = make_dedupe_reads(d["dedupe"], seed)
+    for tag, src in (("dedupe_check", d["dedupe"]), ("clump_check", fq)):
+        d[tag] = os.path.join(work, f"{tag}.fq.gz")
+        head_fastq(src, d[tag], A8A_CHECK_READS)
+    d["norm_in"] = asm["region.fq.gz"]
+    return d
+
+
+def a8a_phases(asm: dict, a2: dict, a8: dict, work: str, card: str, phase_s: dict):
+    """The A8a tools through the CLI on device=cuda, each with its device
+    route required on the card: seal (six references) over config #1's
+    reads with phiX planted, bbnorm over config #2's reads, ecc over the
+    reads of config #5's region, loglog over config #2's reads (held to
+    kmercountexact's distinct count), dedupe over its planted reads,
+    clumpify over config #1's reads and dedupe=t over dedupe's."""
+
+    def w(name):
+        return os.path.join(work, name)
+
+    # ---- seal: the bucket index of six references, votes on the card ----
+    t0 = time.perf_counter()
+    st = w("seal.cuda.txt")
+    refs = ",".join(a8["seal_refs"])
+    total = a2["side_total"]
+    _, dt, _ = run_routed("seal", "seal", [f"in={a2['side']}", f"ref={refs}", "k=31",
+                                           f"stats={st}"], {"seal_votes": None})
+    with open(st) as fh:
+        rows = {ln.split("\t")[0]: int(ln.split("\t")[1]) for ln in fh if ln[0] != "#"}
+    phix = rows[a8["seal_refs"][-1]]
+    print(f"seal k=31, {len(a8['seal_refs'])} references device=cuda: {total} reads in "
+          f"{dt:.2f} s = {total / dt:.0f} reads/s (wall, incl. the index build and IO) on "
+          f"{card}; phiX {phix} (planted {a2['side_planted']}), unmatched "
+          f"{rows['*unmatched*']}, the genomes' files {total - phix - rows['*unmatched*']}")
+    if phix != a2["side_planted"] or rows["*unmatched*"] != total - phix:
+        raise AssertionError(f"seal: {rows}")
+    phase_s["seal"] = time.perf_counter() - t0
+
+    # ---- bbnorm (the sketch and the depths on the card), then ecc ----
+    t0 = time.perf_counter()
+    (kept, tossed), dt, _ = run_routed(
+        "bbnorm", "bbnorm", [f"in={asm['reads.fq.gz']}", f"out={w('norm.cuda.fq')}",
+                             f"outt={w('norm.cuda.toss.fq')}", *BBNORM_FLAGS],
+        {"cms_add": None, "read_depths": None})
+    share = kept / ASM_READS
+    want = 10 / asm["depth31"]
+    print(f"bbnorm {' '.join(BBNORM_FLAGS)} device=cuda: {ASM_READS} reads in {dt:.2f} s = "
+          f"{ASM_READS / dt:.0f} reads/s (wall, two passes) on {card}; kept {kept} "
+          f"({share:.4f}; target over the 31-mer depth {want:.4f}), tossed {tossed}")
+    if kept + tossed != ASM_READS or abs(share - want) > 0.25 * want:
+        raise AssertionError(f"bbnorm: kept {kept} of {ASM_READS}")
+    n_ecc = asm["region_reads"]
+    argv, _ = a8a_check_runs(a8, work)["ecc"]("cuda")  # its check's CUDA half
+    _, dt, log = run_routed("ecc", "ecc", argv[1:], {"cms_add": 1})
+    fixed = int(log.split("Errors Corrected:")[1].split()[0])
+    print(f"ecc device=cuda: {n_ecc} reads (config #5's region, ~30x) in {dt:.2f} s = "
+          f"{n_ecc / dt:.0f} reads/s on {card} (a sketch query on the card per k-mer "
+          f"tested); {fixed} errors corrected")
+    if not fixed:
+        raise AssertionError("ecc: no error corrected")
+    phase_s["bbnorm, ecc"] = time.perf_counter() - t0
+
+    # ---- loglog, against kmercountexact's exact distinct count ----
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        _, dt, _ = run_routed("loglog", "loglog", [f"in={asm['reads.fq.gz']}", "k=31"],
+                              {"loglog_update": None})
+    card_est = int(text.getvalue().split("Cardinality:")[1].split()[0])
+    exact = asm["kce31_unique"]
+    print(f"loglog k=31 device=cuda: {ASM_READS} reads in {dt:.2f} s = {ASM_READS / dt:.0f} "
+          f"reads/s on {card}; cardinality {card_est}, kmercountexact's distinct 31-mers "
+          f"{exact} ({card_est / exact - 1:+.4f})")
+    if abs(card_est / exact - 1) > LOGLOG_BAND:
+        raise AssertionError(f"loglog: {card_est} against {exact}")
+    phase_s["loglog"] = time.perf_counter() - t0
+
+    # ---- dedupe s=2 e=2: fuzzy pairs on the banded edit distance ----
+    t0 = time.perf_counter()
+    n_dd = a8["dedupe_distinct"] + a8["dedupe_planted"]
+    (kept, dupes), dt, _ = run_routed(
+        "dedupe", "dedupe", [f"in={a8['dedupe']}", f"out={w('dd.cuda.fq')}",
+                             f"outd={w('dd.cuda.dup.fq')}", *DEDUPE_FLAGS],
+        {"banded_edits": None})
+    print(f"dedupe {' '.join(DEDUPE_FLAGS)} device=cuda: {n_dd} reads in {dt:.2f} s = "
+          f"{n_dd / dt:.0f} reads/s on {card}; kept {kept} (planted distinct "
+          f"{a8['dedupe_distinct']}), duplicates {dupes} (planted {a8['dedupe_planted']})")
+    if (kept, dupes) != (a8["dedupe_distinct"], a8["dedupe_planted"]):
+        raise AssertionError(f"dedupe: kept {kept}, duplicates {dupes}")
+    phase_s["dedupe"] = time.perf_counter() - t0
+
+    # ---- clumpify k=31, then dedupe=t on dedupe's reads ----
+    t0 = time.perf_counter()
+    for tag, fin, flags, n_in, want_dupes in (
+            ("clumpify", a8["fq"], ["k=31"], a8["fq_reads"], 0),
+            ("clumpify dedupe=t", a8["dedupe"], ["dedupe=t"], n_dd, DEDUPE_EXACT // 2)):
+        o = w(f"{tag.replace(' ', '_')}.cuda.fq.gz")
+        (n, dupes), dt, _ = run_routed(tag, "clumpify", [f"in={fin}", f"out={o}", *flags],
+                                       {"pivot_kmers": None})
+        print(f"{tag} device=cuda: {n} reads in {dt:.2f} s = {n / dt:.0f} reads/s on {card}; "
+              f"{dupes} duplicates removed (the same-strand exact copies: {want_dupes})")
+        if n != n_in or dupes != want_dupes:
+            raise AssertionError(f"{tag}: {n} reads, {dupes} removed")
+    phase_s["clumpify"] = time.perf_counter() - t0
+
+
+def a8a_check_runs(a8: dict, work: str) -> dict:
+    """The CLI runs of the A8a tools' CUDA-against-CPU checks: name ->
+    (argv on device d, d's output files): seal on SEAL_CHECK_READS reads,
+    bbnorm on config #5's region (~30x), ecc (the phase's own run on the
+    card), dedupe s=2 e=2 ac=t and clumpify on A8A_CHECK_READS reads."""
+    def w(name):
+        return os.path.join(work, name)
+
+    def tool(name, fin, flags, outs):
+        return lambda d: ([name, f"in={fin}", *flags,
+                           *(f"{k}={w(f'{d}.{v}')}" for k, v in outs)],
+                          [w(f"{d}.{v}") for _, v in outs])
+
+    return {
+        "seal": tool("seal", a8["seal_check"], ["k=31", f"ref={','.join(a8['seal_refs'])}"],
+                     [("stats", "sealchk.txt")]),
+        "bbnorm": tool("bbnorm", a8["norm_in"], BBNORM_FLAGS,
+                       [("out", "normchk.fq"), ("outt", "normchk.toss.fq")]),
+        "ecc": tool("ecc", a8["norm_in"], [], [("out", "eccchk.fq")]),
+        "dedupe": tool("dedupe", a8["dedupe_check"], [*DEDUPE_FLAGS, "ac=t"],
+                       [("out", "ddchk.fq"), ("outd", "ddchk.dup.fq")]),
+        "clumpify": tool("clumpify", a8["clump_check"], ["k=31"], [("out", "clchk.fq")]),
+        "clumpify dedupe=t": tool("clumpify", a8["dedupe_check"], ["dedupe=t"],
+                                  [("out", "cldchk.fq")]),
+    }
+
+
+def loglog_check(asm: dict):
+    """LogLog's bucket maxima over config #2's first CHECK_READS reads on
+    both devices, element for element."""
+    from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.models.loglog import LogLog
+
+    ll = {d: LogLog(buckets=2048, k=31, device=d) for d in ("cuda", "cpu")}
+    for b in FastqReader(asm["head.fq.gz"]):
+        for x in ll.values():
+            x.add_batch(b.bases, b.lengths)
+    import torch
+
+    if not torch.equal(ll["cuda"].maxima.cpu(), ll["cpu"].maxima):
+        raise AssertionError("loglog: cuda and cpu bucket maxima differ")
+    print(f"loglog: cuda == cpu on {CHECK_READS} reads (2,048 bucket maxima; cardinality "
+          f"{ll['cuda'].cardinality()})")
+
+
 class CpuSide:
-    """CLI runs on device=cpu, taken in order by CPU_SIDE_WORKERS threads,
-    each run in its own process (one torch thread), while this process
-    runs the checks' CUDA halves: the plain versions (the fill of long
+    """CLI runs on device=cpu (and the CUDA halves of the A2/A4b and A8a
+    checks), taken in order by CPU_SIDE_WORKERS threads, each run in its
+    own process (one torch thread), while this process runs the other
+    checks' CUDA halves: the plain versions (the fill of long
     reads above all) take minutes on the host. Each process gets this process's sys.argv,
     which the SAM writers put into the @PG line, so that the bytes
     compare. `wait(name)` blocks until that run has ended and returns its
@@ -2462,11 +2710,12 @@ class CpuSide:
             "from bbtools_torch.cli import main; main(json.loads(sys.argv.pop()))")
 
     def __init__(self, runs: list, work: str):
-        """runs: [(name, argv on device=cpu)], in the order they start."""
+        """runs: [(name, argv with its device=)], in the order they start."""
         import threading
 
         CpuSide.started.append(self)
         self.runs, self.log = list(runs), os.path.join(work, "cpu_side")
+        self.names = {name for name, _ in self.runs}
         self.done: dict[str, tuple[int, float]] = {}
         self.cond = threading.Condition()
         self.procs: dict[int, subprocess.Popen] = {}
@@ -2594,29 +2843,34 @@ def bbcms_check_argv(pipe: dict, flags: list[str], work: str, device: str):
              f"device={device}"], outs)
 
 
-def a2_checks(a2: dict, ctx: dict, work: str, cpu_side: CpuSide, phase_s: dict):
-    """The CUDA halves of a2_check_runs in this process, each against its
-    CPU half's outputs (cpu_side), byte for byte."""
-    from bbtools_torch.cli import main as cli_main
+def pool_runs(runs: dict, skip=()) -> list:
+    """Both halves of the file checks `runs` (a2_check_runs,
+    a8a_check_runs) as CpuSide runs: `name` on device=cpu and `name
+    cuda` on device=cuda, but for the CUDA halves named in `skip`, which
+    their phase ran."""
+    return ([(name, [*fn("cpu")[0], "device=cpu"]) for name, fn in runs.items()],
+            [(f"{name} cuda", [*fn("cuda")[0], "device=cuda"]) for name, fn in runs.items()
+             if name not in skip])
 
+
+def file_checks(label: str, runs: dict, cpu_side: CpuSide, phase_s: dict):
+    """The outputs of both halves of `runs`, each run in a process of
+    cpu_side's, byte for byte (a CUDA half that was not run there, its
+    phase ran)."""
     t0 = time.perf_counter()
-    waited = 0.0
-    for name, fn in a2_check_runs(a2, ctx, work).items():
-        argv, _ = fn("cuda")
-        t1 = time.perf_counter()
-        with contextlib.redirect_stderr(io.StringIO()):
-            cli_main([*argv, "device=cuda"])
-        cuda_s = time.perf_counter() - t1
+    for name, fn in runs.items():
         cpu_s = cpu_side.wait(name)
-        waited += time.perf_counter() - t1 - cuda_s
+        cuda_s = cpu_side.wait(f"{name} cuda") if f"{name} cuda" in cpu_side.names else None
         files = {d: read_all(fn(d)[1]) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"{name}: cuda and cpu outputs differ")
         print(f"{name}: cuda == cpu ({sum(len(f) for f in files['cuda'])} bytes in "
-              f"{len(files['cuda'])} files; cuda {cuda_s:.2f} s, cpu {cpu_s:.2f} s in a "
-              f"process of its own)")
-    print(f"a2/a4b checks: waited {waited:.1f} s for the CPU runs")
-    phase_s["cuda == cpu, a2/a4b"] = time.perf_counter() - t0
+              f"{len(files['cuda'])} files; "
+              + (f"cuda {cuda_s:.2f} s, " if cuda_s is not None else "cuda in its phase, ")
+              + f"cpu {cpu_s:.2f} s, each in a process of its own)")
+    waited = time.perf_counter() - t0
+    print(f"{label} checks: waited {waited:.1f} s for the processes")
+    phase_s[f"cuda == cpu, {label}"] = waited
 
 
 def read_all(paths) -> list[bytes]:
@@ -2658,14 +2912,33 @@ def main(argv=None) -> int:
 
     from bbtools_torch.kernels import build
 
-    t0 = time.perf_counter()
-    build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {build.build_seconds:.1f} s) -> {os.path.relpath(build.library_path(), HERE)}")
-    with open(build.library_path()[:-3] + ".log") as fh:
-        for line in fh:
-            if "registers" in line or "Compiling entry" in line:
-                print("  " + line.strip())
+    import threading
+
+    # the kernels build (nvcc processes) while this thread makes the inputs
+    built: dict = {}
+
+    def build_kernels():
+        t0 = time.perf_counter()
+        try:
+            build.library()
+        except BaseException as e:  # raised again where the kernels are needed
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=build_kernels)
+    build_thread.start()
+
+    def kernels_built():
+        build_thread.join()
+        if "error" in built:
+            raise built["error"]
+        print(f"kernel build: {built['s']:.1f} s, beside the inputs "
+              f"(nvcc {build.build_seconds:.1f} s) -> "
+              f"{os.path.relpath(build.library_path(), HERE)}")
+        with open(build.library_path()[:-3] + ".log") as fh:
+            for line in fh:
+                if "registers" in line or "Compiling entry" in line:
+                    print("  " + line.strip())
 
     phase_s: dict[str, float] = {}
     work = os.path.join(HERE, "_smoke_work")
@@ -2752,7 +3025,15 @@ def main(argv=None) -> int:
               f"{LONG_CHUNKED_RANGE[1]} bp, {a2['side_planted']} phiX reads planted in "
               f"{a2['side_total']}, a second genome of {SECOND_GENOME} bp; made in "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        a8 = make_a8a_data(work, genome, fq, args.reads, a2, asm, args.seed + 40)
+        print(f"A8a input: seal's {len(a8['seal_refs'])} references (the genome in "
+              f"{SEAL_PARTS} files, the second genome, phiX); dedupe's "
+              f"{a8['dedupe_distinct'] + a8['dedupe_planted']} reads of 150 bp "
+              f"({DEDUPE_DISTINCT} distinct, {DEDUPE_EXACT} exact copies, {DEDUPE_NEAR} "
+              f"near-copies); made in {time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
+        kernels_built()
 
         t0 = time.perf_counter()
         kernels = check_kernels(kern_fq, *small_pairs)
@@ -2884,12 +3165,19 @@ def main(argv=None) -> int:
         ctx["cv_sam"] = asm_out["sam"]
         a6b_out = a6b_phases(asm, pipe, ctx, work, card, phase_s)
         a2_phases(a2, ctx, work, card, phase_s)
+        a8a_phases(asm, a2, a8, work, card, phase_s)
         # the CPU halves of the checks whose outputs are files alone, in
         # processes once the last rate is taken; the longest first
-        a2_runs = [(name, [*fn("cpu")[0], "device=cpu"])
-                   for name, fn in a2_check_runs(a2, ctx, work).items()]
+        a2_runs, a2_cuda = pool_runs(a2_check_runs(a2, ctx, work))
+        a8_runs, a8_cuda = pool_runs(a8a_check_runs(a8, work), skip=("ecc",))
+        print(f"CPU halves of the checks, and the CUDA halves of the A2/A4b and A8a "
+              f"checks: {CPU_SIDE_WORKERS} processes")
+        import torch
+
+        torch.cuda.empty_cache()  # the card's memory for the processes' CUDA halves
         cpu_side = ctx["cpu_side"] = CpuSide(
-            a2_runs[:2] + early_cpu_runs(ctx, pipe, work) + a2_runs[2:], work)
+            a2_runs[:2] + a8_runs[:1] + early_cpu_runs(ctx, pipe, work) + a2_runs[2:]
+            + a8_runs[1:] + a2_cuda + a8_cuda, work)
         t0 = time.perf_counter()
 
         # ---- CUDA against CPU, byte for byte, on the first reads (the
@@ -2927,8 +3215,11 @@ def main(argv=None) -> int:
 
         asm_checks(asm, work, {**asm_out, "cpu_side": cpu_side}, phase_s)
         a6b_checks(asm, pipe, ctx, a6b_out, work, phase_s)
-        a2_checks(a2, ctx, work, cpu_side, phase_s)
+        file_checks("a2/a4b", a2_check_runs(a2, ctx, work), cpu_side, phase_s)
+        file_checks("a8a", a8a_check_runs(a8, work), cpu_side, phase_s)
+        loglog_check(asm)
     finally:
+        build_thread.join()
         for side in CpuSide.started:
             side.stop()
         shutil.rmtree(work, ignore_errors=True)

@@ -1622,3 +1622,140 @@ def test_align_coverage_and_bbsplit_cuda_equal_cpu(cuda, tmp_path):
     side = outs["cuda"]["side.sam"].splitlines()
     assert sum(1 for ln in side if not ln.startswith(b"@") and not int(ln.split(b"\t")[1]) & 4) == 200
     assert outs["cuda"]["split_a.fq"].count(b"\n") >= 4 * 1000
+
+
+def test_banded_edits_cuda_equals_cpu(cuda):
+    """The banded edit distance (ROADMAP L6) on the card against the CPU
+    at the widest band (max_edits=4, width 9) over 20,000 pairs of 150
+    bp with substitutions, indels, N bases and unrelated pairs; one
+    counted call."""
+    from bbtools_torch.ops import banded
+
+    rng = np.random.default_rng(3)
+    P, L = 20_000, 150
+    a = rng.integers(0, 4, (P, L)).astype(np.uint8)
+    b = a.copy()
+    for _ in range(3):
+        rows = rng.random(P) < 0.5
+        b[rows, rng.integers(0, L, rows.sum())] = rng.integers(0, 5, rows.sum())
+    shift = rng.random(P) < 0.3
+    b[shift, 1:] = a[shift, :-1]  # a 1 bp insertion
+    b[::7] = rng.integers(0, 4, (len(b[::7]), L))
+    al = rng.integers(100, L + 1, P).astype(np.int32)
+    bl = np.minimum(al + rng.integers(-2, 3, P), L).astype(np.int32)
+    args = [torch.from_numpy(x) for x in (a, al, b, bl)]
+    before = banded.banded_edits.device_calls
+    got = banded.align_pairs(*(x.to(cuda) for x in args), 4)
+    assert banded.banded_edits.device_calls == before + 1
+    want = banded.align_pairs(*args, 4)
+    assert torch.equal(got.cpu(), want)
+    assert (want <= 4).float().mean() > 0.3 and (want > 4).any()
+
+
+def test_pivot_and_loglog_cuda_equal_cpu(cuda):
+    """Clumpify's pivot (ROADMAP L7) and LogLog's bucket maxima on one
+    full batch (16,384 reads of 151 bp, tandem repeats for ties) on the
+    card against the CPU, at 2^14 buckets."""
+    from bbtools_torch.models import clumpify, loglog
+
+    rng = np.random.default_rng(4)
+    bases = rng.integers(0, 4, (16384, 151)).astype(np.uint8)
+    bases[rng.random(bases.shape) < 0.01] = 4
+    bases[::5] = np.resize(np.array([2, 0, 3], np.uint8), 151)
+    lengths = rng.integers(20, 152, 16384).astype(np.int64)
+    before = clumpify._pivot_kmers_t.device_calls
+    got = clumpify.pivot_kmers(bases, lengths, 31, cuda)
+    assert clumpify._pivot_kmers_t.device_calls == before + 1
+    want = clumpify.pivot_kmers(bases, lengths, 31, torch.device("cpu"))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    # ties: a period-3 repeat's pivot ends at its first window, 30-32
+    assert got[0].dtype == np.uint64 and (got[1][::5] < 33).all()
+    ll = {d: loglog.LogLog(buckets=1 << 14, k=31, device=d) for d in ("cuda", "cpu")}
+    before = loglog.loglog_update.device_calls
+    for d in ll:
+        ll[d].add_batch(bases, lengths)
+        ll[d].add_batch(bases[::-1].copy(), lengths)
+    assert loglog.loglog_update.device_calls == before + 2
+    assert torch.equal(ll["cuda"].maxima.cpu(), ll["cpu"].maxima)
+    assert ll["cuda"].cardinality() == ll["cpu"].cardinality()
+
+
+def test_seal_votes_cuda_equal_cpu(cuda):
+    """Seal's votes and verdicts over 130 references (three 62-bit words a
+    combo) on one full batch, on the card against the CPU."""
+    from bbtools_torch.models import seal
+
+    rng = np.random.default_rng(6)
+    nref = 130
+    combo = rng.integers(0, 1 << 62, (500, 3), dtype=np.int64)
+    combo[:, 2] &= (1 << (nref - 124)) - 1
+    combo[0] = 0
+    ids = rng.integers(0, 500, (16384, 151)).astype(np.int32)
+    ids[rng.random(ids.shape) < 0.7] = 0
+    before = seal.seal_votes.device_calls
+    got = seal.seal_votes(torch.from_numpy(combo).to(cuda), torch.from_numpy(ids).to(cuda), nref)
+    assert seal.seal_votes.device_calls == before + 1
+    want = seal.seal_votes(torch.from_numpy(combo), torch.from_numpy(ids), nref)
+    assert torch.equal(got.cpu(), want)
+    for mkh, toss in ((1, False), (30, True)):
+        assert torch.equal(seal.seal_best(got, mkh, toss).cpu(), seal.seal_best(want, mkh, toss))
+
+
+def test_a8a_tools_cuda_equal_cpu(cuda, tmp_path):
+    """seal (three references), bbnorm, ecc, loglog, dedupe (s=2 e=2 over
+    several batches) and clumpify (dedupe=t) through the CLI on both
+    devices: the same files and the same printed estimate, each with its
+    device route counted on the card."""
+    import contextlib
+    import functools
+    import io
+
+    from bbtools_torch.cli import main
+    from bbtools_torch.io.fasta import write_fasta
+    from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.models import clumpify, dedupe, loglog, seal
+    from bbtools_torch.ops import banded, cms
+    from bbtools_torch.models import bbnorm
+
+    rng = np.random.default_rng(9)
+    ACGT = np.frombuffer(b"ACGT", np.uint8)
+    genomes = [ACGT[rng.integers(0, 4, 4000)].tobytes() for _ in range(3)]
+    for i, g in enumerate(genomes):
+        write_fasta(str(tmp_path / f"g{i}.fa"), [(b"g%d" % i, g)])
+    with open(tmp_path / "in.fq", "wb") as fh:
+        for i in range(6000):
+            g = genomes[i % 3]
+            p = int(rng.integers(0, len(g) - 120))
+            s = bytearray(g[p:p + 120])
+            if i % 4 == 0:
+                s[int(rng.integers(0, 120))] = ord("ACGT"[int(rng.integers(0, 4))])
+            fh.write(b"@r%d\n%s\n+\n%s\n" % (i, bytes(s), b"D" * 120))
+    refs = ",".join(str(tmp_path / f"g{i}.fa") for i in range(3))
+    cases = {
+        "seal": (["seal", f"ref={refs}", "stats={o}.st"], seal.seal_votes, ["st"]),
+        "bbnorm": (["bbnorm", "out={o}.fq", "outt={o}.t.fq", "target=20", "mindepth=2"],
+                   bbnorm.read_depths, ["fq", "t.fq"]),
+        "ecc": (["ecc", "out={o}.fq", "k=25"], cms.cms_add, ["fq"]),
+        "loglog": (["loglog"], loglog.loglog_update, []),
+        "dedupe": (["dedupe", "out={o}.fq", "outd={o}.d.fq", "s=2", "e=2"],
+                   banded.banded_edits, ["fq", "d.fq"]),
+        "clumpify": (["clumpify", "out={o}.fq", "dedupe=t"], clumpify._pivot_kmers_t, ["fq"]),
+    }
+    old = dedupe.FastqReader
+    dedupe.FastqReader = functools.partial(FastqReader, batch_reads=1024)
+    try:
+        for name, (argv, counted, exts) in cases.items():
+            out = {}
+            for dev in ("cuda", "cpu"):
+                o = str(tmp_path / f"{name}.{dev}")
+                before = counted.device_calls
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text), contextlib.redirect_stderr(io.StringIO()):
+                    main([argv[0], f"in={tmp_path / 'in.fq'}",
+                          *(a.format(o=o) for a in argv[1:]), f"device={dev}"])
+                assert (counted.device_calls > before) == (dev == "cuda"), name
+                out[dev] = [open(f"{o}.{e}", "rb").read() for e in exts] + [text.getvalue()]
+            assert out["cuda"] == out["cpu"], name
+    finally:
+        dedupe.FastqReader = old

@@ -61,7 +61,7 @@ COPIED_MODULES = [
     "io/bam.py", "utils/synth.py", "models/bbmap_index.py",
     "io/stream.py", "models/tadpole_ecc.py", "ml/__init__.py",
     "models/assemblystats.py", "models/calctruequality.py", "models/pileup.py",
-    "models/gradesam.py", "utils/graders.py",
+    "models/gradesam.py", "utils/graders.py", "models/kmernorm_ecc.py",
 ]
 
 
@@ -116,6 +116,12 @@ PARTLY_COPIED = {
                               "SideChannel._map_one_side"],
     # bbsplit passes its device= to the mapper
     "models/bbsplit.py": ["BBSplitConfig", "parse_args", "BBSplit.run"],
+    # the batched banded edit distance runs as torch ops
+    "ops/banded.py": ["banded_edits_jnp", "align_pairs_jnp"],
+    # Dedupe takes a device and verifies a batch's pairs on it
+    "models/dedupe.py": ["Dedupe.__init__", "Dedupe.judge_batch", "main"],
+    # the pivot runs as torch ops on the run's device
+    "models/clumpify.py": ["pivot_kmers", "_pivot_kmers_jnp", "main"],
 }
 
 
@@ -251,7 +257,7 @@ COPIED_FUNCTIONS = [
     ("models.bbmap", "BBMap.run"), ("models.bbmap", "BBMap._want_coverage"),
     ("models.bbmap", "BBMap._cov_init"), ("models.bbmap", "BBMap._coverage_add"),
     ("models.bbmap", "BBMap._write_coverage"),
-    ("cli", "_remove_preset"), ("cli", "_bbwrap"),
+    ("cli", "_remove_preset"), ("cli", "_bbwrap"), ("cli", "guard_output_files"),
 ]
 
 
@@ -367,7 +373,7 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    for tool in ("reformat", "bbnorm", "seal", "dedupe", "fungalrelease"):
+    for tool in ("reformat", "alltoall", "idmatrix", "bbmask", "fungalrelease"):
         with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
@@ -532,3 +538,34 @@ def test_a2_a4b_paths_default_to_cuda(tmp_path, case):
     with pytest.raises(RuntimeError, match="cuda"):
         main(argv)
     assert not [p for p in tmp_path.rglob("o*")]
+
+
+#: the tools of ROADMAP A8a ported so far and the argv that reaches their
+#: first device work
+A8A_TOOLS = {
+    "seal": ["in={fq}", "ref={tmp}/ref.fa", "stats={tmp}/o.txt"],
+    "loglog": ["in={fq}"],
+    "bbnorm": ["in={fq}", "out={tmp}/o.fq"],
+    "ecc": ["in={fq}", "out={tmp}/o.fq"],
+    "dedupe": ["in={fq}", "out={tmp}/o.fq"],
+    "dedupe2": ["in={fq}", "out={tmp}/o.fq", "e=2"],
+    "clumpify": ["in={fq}", "out={tmp}/o.fq"],
+}
+
+
+@pytest.mark.parametrize("tool", list(A8A_TOOLS))
+def test_a8a_tools_default_to_cuda(tmp_path, tool):
+    """seal, loglog, bbnorm, ecc, dedupe and clumpify run on the card
+    unless asked for the CPU: without one, the default raises before any
+    output is written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n")
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A8A_TOOLS[tool]]
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([tool, *argv])
+    assert not list(tmp_path.glob("o.*"))
