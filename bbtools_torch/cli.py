@@ -3,10 +3,11 @@ python -m bbtools_torch <tool> key=value ...
 
 The tools ported so far are registered in TOOLS, each running on the
 card unless given device=cpu (the host-only ones, stats, pileup,
-calctruequality and gradesam, run anywhere). A name not in TOOLS raises,
-naming the ROADMAP item that holds it (A8, the long tail). Before any
-tool runs, `guard_output_files` refuses duplicate outputs, an output
-that is also an input, and an existing output under ow=f.
+calctruequality, gradesam, reformatpb and the host aligner launchers,
+run anywhere). A name not in TOOLS raises, naming the ROADMAP item that
+holds it (A8, the long tail). Before any tool runs, `guard_output_files`
+refuses duplicate outputs, an output that is also an input, and an
+existing output under ow=f.
 """
 
 from __future__ import annotations
@@ -204,6 +205,13 @@ def _clumpify(args):
     return main(args)
 
 
+def _lazy(module: str, fn: str, args, *extra):
+    import importlib
+
+    m = importlib.import_module(f".models.{module}", __package__)
+    return getattr(m, fn)(args, *extra)
+
+
 TOOLS = {
     "bbduk": _bbduk,
     # same-main-class launcher aliases (bbduk.BBDukS)
@@ -254,6 +262,48 @@ TOOLS = {
     # Dedupe2: a rewrite of the same tool surface
     "dedupe2": _dedupe,
     "clumpify": _clumpify,
+    "reformat": lambda a: _lazy("reformat", "main", a),
+    # ReformatReads2/3: rewrites of the same tool surface
+    "reformat2": lambda a: _lazy("reformat", "main", a),
+    "reformat3": lambda a: _lazy("reformat", "main", a),
+    "alltoall": lambda a: _lazy("alltoall", "main", a),
+    "idmatrix": lambda a: _lazy("alltoall", "main", a),
+    "splitribo": lambda a: _lazy("ribo", "splitribo", a),
+    "mergeribo": lambda a: _lazy("ribo", "mergeribo", a),
+    "keepbestcopy": lambda a: _lazy("ribo", "mergeribo", a),
+    "icecream": lambda a: _lazy("icecream", "main", a),
+    "icecreamfinder": lambda a: _lazy("icecream", "main", a),
+    # host only: ZMW-aware filtering of PacBio subreads
+    "reformatpb": lambda a: _lazy("icecream", "reformatpb", a),
+    # the idaligner/aligner launchers (idaligner/Test.java testAndPrint;
+    # <engine>aligner.sh): the per-engine launchers, the validation
+    # ladder, alignerbenchmark and the visualizers run the host engines
+    "glocalaligner": lambda a: _lazy("alignertools", "test_main", a, "glocal"),
+    "bandedaligner": lambda a: _lazy("alignertools", "test_main", a, "banded"),
+    "bandedplusaligner": lambda a: _lazy("alignertools", "test_main", a, "bandedplus"),
+    "driftingaligner": lambda a: _lazy("alignertools", "test_main", a, "drifting"),
+    "driftingplusaligner": lambda a: _lazy("alignertools", "test_main", a, "driftingplus"),
+    "wavefrontaligner": lambda a: _lazy("alignertools", "test_main", a, "wavefront"),
+    "quantumaligner": lambda a: _lazy("alignertools", "test_main", a, "quantum"),
+    "quabblealigner": lambda a: _lazy("alignertools", "test_main", a, "quabble"),
+    "scrabblealigner": lambda a: _lazy("alignertools", "test_main", a, "scrabble"),
+    "wobblealigner": lambda a: _lazy("alignertools", "test_main", a, "wobble"),
+    "wobbleplusaligner": lambda a: _lazy("alignertools", "test_main", a, "wobbleplus"),
+    "crosscutaligner": lambda a: _lazy("alignertools", "test_main", a, "crosscut"),
+    "xdrophaligner": lambda a: _lazy("alignertools", "test_main", a, "xdroph"),
+    "parallelogram": lambda a: _lazy("alignertools", "test_main", a, "parallelogram"),
+    "smithwaterman": lambda a: _lazy("alignertools", "test_main", a, "glocal"),
+    "testaligners": lambda a: _lazy("alignertools", "test_main", a),
+    "testaligners2": lambda a: _lazy("alignertools", "suite_main", a),
+    "alignerbenchmark": lambda a: _lazy("alignertools", "benchmark_main", a),
+    "visualizealignment": lambda a: _lazy("alignertools", "visualize_main", a),
+    "wavefrontalignerviz": lambda a: _lazy("alignertools", "visualize_main", a),
+    # on the device: the sweep harnesses (glocal, or banded past 2^22
+    # cells) and the micro-aligner
+    "testalignersbatch": lambda a: _lazy("alignertools", "batch_main", a),
+    "testalignerslength": lambda a: _lazy("alignertools", "length_main", a),
+    "alignrandom": lambda a: _lazy("alignertools", "align_random_main", a),
+    "microalign": lambda a: _lazy("alignertools", "micro_main", a),
 }
 
 

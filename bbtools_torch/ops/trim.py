@@ -80,9 +80,12 @@ def optimal_trim(quals, lengths, is_n, avg_error_rate: float):
     """(left, right) int32 [B] trim amounts on the batch's device.
 
     quals uint8 [B, L]; lengths int32 [B]; is_n bool [B, L] (raw byte ==
-    'N'). One float32 Kadane step per column, in column order."""
+    'N'). One float32 Kadane step per column, in column order.
+    `optimal_trim.device_calls` counts its calls on CUDA tensors."""
     B, L = quals.shape
     dev = quals.device
+    if dev.type == "cuda":
+        optimal_trim.device_calls += 1
     avg = torch.tensor(np.float32(avg_error_rate), device=dev)
     nprob = torch.tensor(_nprob(avg_error_rate), device=dev)
     prob_err = torch.from_numpy(PROB_ERROR).to(dev)
@@ -116,6 +119,10 @@ def optimal_trim(quals, lengths, is_n, avg_error_rate: float):
     left = torch.where(found, max_loc - max_count + 1, 0).to(torch.int32)
     right = torch.where(found, lengths - max_loc - 1, lengths).to(torch.int32)
     return left, right
+
+
+#: calls on CUDA tensors since the count was last set to 0
+optimal_trim.device_calls = 0
 
 
 def force_trim_amounts(

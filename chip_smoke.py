@@ -126,13 +126,37 @@ From the root of a checkout, on a machine with a CUDA card:
      `dedupe=t` over dedupe's (the same-strand copies removed); then
      each on both devices, byte for byte, on a head (dedupe with ac=t;
      loglog's bucket maxima in this process);
- 10. runs the CPU halves of the checks of 7, 8 and 9 whose outputs are
-     files alone in CPU_SIDE_WORKERS processes (the cores less two, 4
+ 10. `reformat qtrim=rl trimq=10 minlen=40` over config #1's reads
+     (optimal_trim on the card; reads/s, the trimmed and kept counts),
+     then the tools on the glocal identity aligner (ROADMAP L5) through
+     the CLI on device=cuda, each with its device route counted on the
+     card: `alltoall` over 128 seeded variants of the 16S consensus
+     (75-99% identity, 1-3 bp indels: 8,128 pairs in 16 calls; every
+     pair within ATA_TOLERANCE of its planted identity, and the
+     ATA_HOST_PAIRS pairs farthest from it equal to the host aligner's
+     identity), `splitribo` over 1,024 reads
+     cut from the 16S, 18S, 23S and 5S consensus records (each type's
+     count the planted one), `icecream` trim=t and kzt=t over 2,000
+     PacBio-named subreads of 2,000-10,000 bp of the E. coli-length
+     genome, 100 with a missed adapter (flagged and discarded held to
+     those of even length, as the JAX package flags),
+     `testalignersbatch length=2000 samples=10` (29 ANI levels, exact
+     glocal) and `testalignerslength` at its defaults (its
+     3,000 bp on the banded edit distance); then each on both devices,
+     byte for byte, on a head (reformat 10,000 reads, alltoall 24
+     sequences, idmatrix 12, splitribo and mergeribo 128 reads, icecream
+     both modes 200 subreads, both ladders at samples=4);
+ 11. runs the CPU halves of the checks of 6 to 10 whose outputs are
+     files alone in CPU_SIDE_WORKERS processes (the cores less one, 4
      to 8) once the last rate above is taken (their plain fill of long
      reads takes minutes), beside the other checks' CUDA halves, so that
-     no rate is taken under their load; the CUDA halves of 8's and 9's
-     checks run in those processes too;
- 11. prints each phase's seconds.
+     no rate but 8's long-read presets is taken under their load; the
+     CUDA halves of 8's and 9's checks run in those processes too, 10's
+     in this process while the processes start. The CPU halves of 10's
+     checks (plain glocal rows on one thread, minutes each) start
+     earlier, in L5_SIDE_WORKERS processes beside 8's long-read presets,
+     whose rate is the card's walk launched from this process;
+ 12. prints each phase's seconds.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -152,6 +176,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -298,9 +323,15 @@ RH_READS = 2_200  # removehuman: the head of the bloom reads (200 foreign)
 #: 4.6M-line basecov= took 60-114 s beside the card's phases
 CHECK_REGION = 250_000
 #: processes running the CPU halves of the checks at once: the cores
-#: this process may use less two (this process, which runs the other
-#: checks' CUDA halves, and its threads), at least 4 and at most 8
-CPU_SIDE_WORKERS = max(4, min(8, len(os.sched_getaffinity(0)) - 2))
+#: this process may use less one (this process, which runs the other
+#: checks' CUDA halves and mostly waits for the processes), at least 4
+#: and at most 8
+CPU_SIDE_WORKERS = max(4, min(8, len(os.sched_getaffinity(0)) - 1))
+#: processes running the CPU halves of the L5 checks (~700 process
+#: seconds) beside the long-read presets' phases (~260 s): with this
+#: process they keep under half the cores busy, so that on cores of two
+#: hardware threads no busy thread need share a core with the walk's
+L5_SIDE_WORKERS = max(1, min(3, len(os.sched_getaffinity(0)) // 2 - 1))
 CTQ_RECORDS = 4_096  # calctruequality's input: the head of BBMap's SAM
 #: the A8a tools (seal, bbnorm, ecc, loglog, dedupe, clumpify). Seal
 #: bins config #1's reads with phiX planted (the align=t input) against
@@ -323,6 +354,54 @@ A8A_CHECK_READS = 20_000
 #: loglog's estimate against kmercountexact's distinct count: 3 standard
 #: errors (1.04 / sqrt(buckets)) at 2,048 buckets
 LOGLOG_BAND = 0.07
+#: reformat's quality trim (its device route) over config #1's reads
+REFORMAT_FLAGS = ["qtrim=rl", "trimq=10", "minlen=40"]
+#: the tools on the glocal identity aligner (ROADMAP L5). alltoall:
+#: ATA_SEQS variants of the 16S universal consensus (1,533 bp) at
+#: ATA_ID_RANGE identity with 1-3 indels of 1-3 bp (8,128 pairs in 16
+#: calls), each pair held within ATA_TOLERANCE of its planted identity:
+#: the JAX package's own largest deviation on this input (a CPU dry run
+#: at full size from the smoke's seed, tools/l5_dryrun.py --only
+#: alltoall --ata-scale 1: mean 0.0138, 99th percentile 0.0455, largest
+#: 0.0569), rounded up
+ATA_SEQS = 128
+ATA_ID_RANGE = (0.75, 0.99)
+ATA_TOLERANCE = 0.06
+#: the pairs of the matrix held to the host aligner (glocal_align_np,
+#: ~2.5 s a pair of 1,533 bp on one core)
+ATA_HOST_PAIRS = 3
+ATA_CHECK_SEQS = 24
+IDM_CHECK_SEQS = 12
+#: splitribo: RIBO_READS reads of RIBO_TYPES (a quarter each) of
+#: RIBO_LEN bp (5S records whole) with RIBO_SUB substitutions; each
+#: type's count held to the planted one (a CPU dry run of the JAX
+#: package at a quarter of the size, tools/l5_dryrun.py, routed every
+#: read to its type: PERF.md section 6)
+RIBO_TYPES = ("16S", "18S", "23S", "5S")
+RIBO_READS = 1_024
+RIBO_LEN = (800, 1_500)
+RIBO_SUB = (0.05, 0.10)
+#: the CUDA-against-CPU heads of splitribo/mergeribo and icecream: their
+#: CPU halves are plain glocal rows on one thread (minutes each), run in
+#: L5_SIDE_WORKERS processes beside the long-read presets' phase
+RIBO_CHECK_READS = 128
+#: icecream: IC_ZMWS ZMWs of IC_PASSES subreads of IC_LEN bp of the
+#: E. coli-length genome, one subread of IC_PLANTED of them folded at
+#: its middle (a missed adapter). The JAX package flags exactly the
+#: folded subreads of even length (the dry run: 14 of 25, the 14 even
+#: ones): an odd one's junction lands on n // 2 and its refinement on the
+#: right tip puts it at ~0.28 n, under MIN_JUNCTION_FRACTION. So the
+#: flagged subreads and the discarded ZMWs are held to the folded
+#: subreads of even length
+IC_ZMWS = 500
+IC_PASSES = 4
+IC_LEN = (2_000, 10_000)
+IC_PLANTED = 100
+IC_CHECK_READS = 200
+#: testalignersbatch's CUDA-against-CPU check, and its mean identities
+#: at ANI >= 0.75 held within LADDER_TOLERANCE of the ANI (the dry run)
+LADDER_CHECK = ["ani=1,0.95,0.85,0.75", "samples=4"]
+LADDER_TOLERANCE = 0.05
 
 # Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
@@ -1364,10 +1443,11 @@ def make_asm_data(work: str, seed: int) -> dict:
 
 
 def device_calls() -> dict:
-    """The device routes of the k-mer counts, the count-min sketch's adds
-    and the A8a tools' device ops: calls on CUDA tensors."""
+    """The device routes of the k-mer counts, the count-min sketch's adds,
+    the A8a tools' device ops, the glocal identity aligner and the
+    quality trim: calls on CUDA tensors."""
     from bbtools_torch.models import bbnorm, clumpify, loglog, seal
-    from bbtools_torch.ops import banded, cms, kmer_count, kmers2
+    from bbtools_torch.ops import banded, cms, idalign, kmer_count, kmers2, trim
 
     return {"merge_spectra": kmer_count.merge_spectra.device_calls,
             "sort_reduce": kmer_count.sort_reduce.device_calls,
@@ -1377,20 +1457,59 @@ def device_calls() -> dict:
             "read_depths": bbnorm.read_depths.device_calls,
             "loglog_update": loglog.loglog_update.device_calls,
             "banded_edits": banded.banded_edits.device_calls,
-            "pivot_kmers": clumpify._pivot_kmers_t.device_calls}
+            "pivot_kmers": clumpify._pivot_kmers_t.device_calls,
+            "glocal_identity": idalign.glocal_identity.device_calls,
+            "optimal_trim": trim.optimal_trim.device_calls}
+
+
+def cli_call(argv: list[str], stdout: str | None = None):
+    """One CLI run in this process, `argv` = [tool, key=value...]: the
+    CLI's output guard, then the tool, its standard output sent to the
+    file `stdout` where one is given. Returns what the tool's main
+    returns."""
+    from bbtools_torch.cli import TOOLS, guard_output_files
+
+    guard_output_files(argv[1:])
+    with open(stdout or os.devnull, "w") as fh, contextlib.redirect_stdout(
+            fh if stdout else sys.stdout):
+        return TOOLS[argv[0]](argv[1:])
+
+
+#: the attributes of a tool that a check compares besides its files
+#: (BBMerge's pairs near the nn=t cutoff, BBMap's prescreened reads)
+REPORTED = ("nn_near", "prescreened")
+
+
+def write_report(res, path: str):
+    """The REPORTED attributes that `res` has, as JSON in `path` (read
+    names as latin-1 text)."""
+    rep = {}
+    for name in REPORTED:
+        if hasattr(res, name):
+            v = getattr(res, name)
+            rep[name] = ([x.decode("latin-1") for x in v] if isinstance(v, (list, set))
+                         else v)
+    with open(path, "w") as fh:
+        json.dump(rep, fh, default=str)
 
 
 def run_tool(tool: str, argv: list[str], device: str):
     """`tool` through the CLI's output guard and dispatch on `device`:
     (what its main returns, wall seconds, its stderr)."""
-    from bbtools_torch.cli import TOOLS, guard_output_files
-
     err = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        guard_output_files([*argv, f"device={device}"])
-        res = TOOLS[tool]([*argv, f"device={device}"])
+        res = cli_call([tool, *argv, f"device={device}"])
     return res, time.perf_counter() - t0, err.getvalue()
+
+
+class Check(NamedTuple):
+    """One side of a CUDA-against-CPU check: the CLI argv without its
+    device=, the files compared, and the file its standard output goes
+    to (None: the tool writes its files itself)."""
+    argv: list
+    outs: list
+    stdout: str | None = None
 
 
 def run_routed(name: str, tool: str, argv: list[str], needs: dict):
@@ -2006,17 +2125,15 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
           f"{PIPE_CHECK_BP} bp (the assembly and {len(names)} stage files, "
           f"{sum(map(len, files['cuda']))} bytes)")
     for tag, ins, flags, n in a6b_merge_checks(pipe):
-        # nn=t runs both halves here: the pairs near its cutoff come from
-        # the tool objects; ecco and the merge stage's CPU halves ran in
-        # cpu_side's processes
-        files, near, secs = {}, set(), {}
-        for device in ("cuda", "cpu") if tag == "nn" else ("cuda",):
-            argv, _ = bbmerge_argv(ins, work, f"mcheck_{tag}", device, flags)
-            tool, secs[device], _ = run_tool("bbmerge", [a for a in argv[1:] if
-                                                         not a.startswith("device=")], device)
-            near |= set(tool.nn_near)
-        if tag != "nn":
-            secs["cpu"] = side.wait(f"bbmerge {tag}")
+        # the CPU halves ran in cpu_side's processes; nn=t's pairs near
+        # its cutoff come from both tool objects, the CPU one's reported
+        secs = {}
+        argv, _ = bbmerge_argv(ins, work, f"mcheck_{tag}", "cuda", flags)
+        tool, secs["cuda"], _ = run_tool("bbmerge", [a for a in argv[1:] if
+                                                     not a.startswith("device=")], "cuda")
+        secs["cpu"] = side.wait(f"bbmerge {tag}")
+        near = set(tool.nn_near) | {x.encode("latin-1") for x in
+                                    side.report(f"bbmerge {tag}")["nn_near"]}
         files = {d: read_all(bbmerge_argv(ins, work, f"mcheck_{tag}", d, flags)[1])
                  for d in ("cuda", "cpu")}
         print(f"bbmerge {' '.join(flags)}: {n} pairs in {secs['cuda']:.2f} s on cuda, "
@@ -2042,15 +2159,14 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"bbcms {flags}: cuda and cpu outputs differ")
         print(f"bbcms {' '.join(flags)}: cuda == cpu on {CMS_CHECK_READS} reads")
-    files, pre = {}, {}
-    for device in ("cuda", "cpu"):
-        sam = os.path.join(work, f"bloom_check.{device}.sam")
-        tool, dt, _ = run_tool("bbmap", [f"ref={pipe['region.fa']}", f"in={pipe['bloom_check']}",
-                                         f"out={sam}", "bloomfilter=t"], device)
-        files[device] = read_all([sam])
-        pre[device] = tool.prescreened
-        print(f"bbmap bloomfilter=t (the region as reference) device={device}: "
-              f"{BLOOM_CHECK_READS} reads in {dt:.2f} s")
+    argv, _ = bloom_check_argv(pipe, work, "cuda")
+    tool, dt, _ = run_tool("bbmap", argv[1:-1], "cuda")
+    cpu_dt = side.wait("bbmap bloomfilter=t")
+    files = {d: read_all(bloom_check_argv(pipe, work, d)[1]) for d in ("cuda", "cpu")}
+    pre = {"cuda": tool.prescreened,
+           "cpu": side.report("bbmap bloomfilter=t")["prescreened"]}
+    print(f"bbmap bloomfilter=t (the region as reference): {BLOOM_CHECK_READS} reads in "
+          f"{dt:.2f} s on cuda, {cpu_dt:.2f} s on cpu (in a process of its own)")
     n_foreign = BLOOM_CHECK_READS // 11
     if files["cuda"] != files["cpu"] or not pre["cuda"] == pre["cpu"] >= n_foreign:
         raise AssertionError(f"bbmap bloomfilter=t: cuda and cpu SAM differ or too few "
@@ -2467,25 +2583,25 @@ def a2_check_runs(a2: dict, ctx: dict, work: str) -> dict:
         return os.path.join(work, name)
 
     def bbduk(tag, fin, flags, side_sam=False):
-        return lambda d: (
+        return lambda d: Check(
             ["bbduk", f"in={fin}", f"out={w(f'{tag}.{d}.fq')}", *CONFIGS["adapters_fa"], *flags]
             + ([f"alignout={w(f'{tag}.{d}.sam')}"] if side_sam else []),
             [w(f"{tag}.{d}.fq")] + ([w(f"{tag}.{d}.sam")] if side_sam else []))
 
     return {
-        "mappacbio": lambda d: (["mappacbio", f"ref={ref_fa}", f"in={a2['long_check']}",
-                                 f"out={w(f'lc.{d}.sam')}"], [w(f"lc.{d}.sam")]),
-        "bbmapskimmer": lambda d: (["bbmapskimmer", f"ref={ref_fa}",
-                                    f"in={a2['long_check']}", f"out={w(f'sc.{d}.sam')}"],
-                                   [w(f"sc.{d}.sam")]),
+        "mappacbio": lambda d: Check(["mappacbio", f"ref={ref_fa}", f"in={a2['long_check']}",
+                                      f"out={w(f'lc.{d}.sam')}"], [w(f"lc.{d}.sam")]),
+        "bbmapskimmer": lambda d: Check(["bbmapskimmer", f"ref={ref_fa}",
+                                         f"in={a2['long_check']}", f"out={w(f'sc.{d}.sam')}"],
+                                        [w(f"sc.{d}.sam")]),
         "bbduk align=t": bbduk("sidechk", a2["side_check"], ["align=t"], side_sam=True),
         "bbduk recalibrate=t": bbduk("recalchk", a2["recal_check"],
                                      ["recalibrate=t", f"path={a2['matrices']}"]),
-        "bbmap coverage": lambda d: (
+        "bbmap coverage": lambda d: Check(
             ["bbmap", f"ref={a2['region_fa']}", f"in={a2['map_check']}",
              f"out={w(f'covchk.{d}.sam')}", *(f"{c}={w(f'covchk.{d}.{c}')}" for c in COV_FLAGS)],
             [w(f"covchk.{d}.{x}") for x in ("sam", *COV_FLAGS)]),
-        "bbsplit": lambda d: (
+        "bbsplit": lambda d: Check(
             ["bbsplit", f"in={a2['split_check']}",
              f"ref={a2['region_fa']},{a2['second_region_fa']}",
              f"basename={w(f'splitchk.{d}_%.fq')}", f"outu={w(f'splitchk.{d}_u.fq')}"],
@@ -2595,7 +2711,7 @@ def a8a_phases(asm: dict, a2: dict, a8: dict, work: str, card: str, phase_s: dic
     if kept + tossed != ASM_READS or abs(share - want) > 0.25 * want:
         raise AssertionError(f"bbnorm: kept {kept} of {ASM_READS}")
     n_ecc = asm["region_reads"]
-    argv, _ = a8a_check_runs(a8, work)["ecc"]("cuda")  # its check's CUDA half
+    argv = a8a_check_runs(a8, work)["ecc"]("cuda").argv  # its check's CUDA half
     _, dt, log = run_routed("ecc", "ecc", argv[1:], {"cms_add": 1})
     fixed = int(log.split("Errors Corrected:")[1].split()[0])
     print(f"ecc device=cuda: {n_ecc} reads (config #5's region, ~30x) in {dt:.2f} s = "
@@ -2658,9 +2774,9 @@ def a8a_check_runs(a8: dict, work: str) -> dict:
         return os.path.join(work, name)
 
     def tool(name, fin, flags, outs):
-        return lambda d: ([name, f"in={fin}", *flags,
-                           *(f"{k}={w(f'{d}.{v}')}" for k, v in outs)],
-                          [w(f"{d}.{v}") for _, v in outs])
+        return lambda d: Check([name, f"in={fin}", *flags,
+                                *(f"{k}={w(f'{d}.{v}')}" for k, v in outs)],
+                               [w(f"{d}.{v}") for _, v in outs])
 
     return {
         "seal": tool("seal", a8["seal_check"], ["k=31", f"ref={','.join(a8['seal_refs'])}"],
@@ -2694,37 +2810,361 @@ def loglog_check(asm: dict):
           f"{ll['cuda'].cardinality()})")
 
 
+def consensus_records(rtype: str) -> list[tuple[bytes, bytes]]:
+    """(name, sequence) of each record of a bundled rRNA consensus file
+    (the JAX package's resources, read by path)."""
+    path = os.path.join(HERE, "bbtools_tpu", "resources", f"{rtype}_consensus_sequence.fa")
+    recs = []
+    with open(path, "rb") as fh:
+        for ln in fh:
+            ln = ln.strip()
+            if ln.startswith(b">"):
+                recs.append([ln[1:], b""])
+            elif ln:
+                recs[-1][1] += ln
+    return [(n, s) for n, s in recs]
+
+
+def make_ata_seqs(path: str, n: int, rng) -> np.ndarray:
+    """alltoall's input: n variants of the 16S universal consensus, each
+    at an identity drawn from ATA_ID_RANGE (substitutions) with 1-3
+    indels of 1-3 bp. Returns the planted identity of every pair: the
+    matches over the columns of the alignment the mutations induce."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = np.searchsorted(acgt, np.frombuffer(consensus_records("16S")[0][1], np.uint8))
+    L = len(base)
+    kept = np.ones((n, L), bool)
+    codes = np.tile(base, (n, 1))
+    n_ins = np.zeros(n, np.int64)
+    with open(path, "wb") as fh:
+        for i in range(n):
+            sub = rng.choice(L, int(round((1 - rng.uniform(*ATA_ID_RANGE)) * L)), replace=False)
+            codes[i, sub] = (codes[i, sub] + rng.integers(1, 4, len(sub))) % 4
+            ins_at = {}
+            for _ in range(int(rng.integers(1, 4))):
+                at, k = int(rng.integers(10, L - 10)), int(rng.integers(1, 4))
+                if rng.random() < 0.5:
+                    kept[i, at:at + k] = False
+                else:
+                    ins_at[at] = rng.integers(0, 4, k)
+            n_ins[i] = sum(len(v) for v in ins_at.values())
+            pieces = []
+            for at in range(L):
+                if at in ins_at:
+                    pieces.append(ins_at[at])
+                if kept[i, at]:
+                    pieces.append(codes[i, at:at + 1])
+            fh.write(b">v%d\n%s\n" % (i, acgt[np.concatenate(pieces)].tobytes()))
+    planted = np.eye(n)
+    for i in range(n):
+        matches = (kept[i] & kept & (codes[i] == codes)).sum(axis=1)
+        cols = (kept[i] | kept).sum(axis=1) + n_ins[i] + n_ins
+        planted[i] = np.where(np.arange(n) == i, 1.0, matches / cols)
+    return planted
+
+
+def make_ribo_reads(path: str, n: int, rng) -> dict:
+    """splitribo's input: n reads, a quarter of each type of
+    RIBO_TYPES, cut from the type's universal and clade records (not the
+    16S plastid and mitochondria and 18S mitochondria records, which are
+    the p16S, m16S and m18S types): RIBO_LEN bp at a random start (5S
+    records whole), RIBO_SUB substitutions, shuffled. Returns the planted
+    count of each type."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    reads = []
+    for t in RIBO_TYPES:
+        recs = [s for name, s in consensus_records(t)
+                if not name.startswith((b"plastid", b"mitochondria"))]
+        for i in range(n // len(RIBO_TYPES)):
+            s = np.frombuffer(recs[int(rng.integers(0, len(recs)))], np.uint8)
+            ln = min(len(s), int(rng.integers(*RIBO_LEN)))
+            at = int(rng.integers(0, len(s) - ln + 1))
+            r = s[at:at + ln].copy()
+            sub = rng.choice(ln, int(rng.uniform(*RIBO_SUB) * ln), replace=False)
+            r[sub] = acgt[rng.integers(0, 4, len(sub))]
+            reads.append(b">%s_%d\n%s\n" % (t.encode(), i, r.tobytes()))
+    with open(path, "wb") as fh:
+        fh.write(b"".join(reads[j] for j in rng.permutation(len(reads))))
+    return {t: n // len(RIBO_TYPES) for t in RIBO_TYPES}
+
+
+def make_subreads(path: str, codes, zmws: int, planted: int, rng) -> tuple[int, int, int]:
+    """icecream's input: `zmws` ZMWs of IC_PASSES PacBio-named subreads
+    (movie/zmw/start_end), each ZMW an insert of IC_LEN bp of the genome
+    read on alternate strands with 1% substitutions; one subread of
+    `planted` ZMWs carries a missed adapter: the first half of the pass,
+    then its reverse complement. Returns (subreads, planted, planted of
+    even length)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    planted = set(rng.choice(zmws, planted, replace=False).tolist())
+    out = []
+    even = 0
+    for z in range(zmws):
+        ln = int(rng.integers(*IC_LEN))
+        at = int(rng.integers(0, len(codes) - ln))
+        insert = codes[at:at + ln]
+        bad_pass = int(rng.integers(0, IC_PASSES)) if z in planted else -1
+        pos = 0
+        for k in range(IC_PASSES):
+            c = insert if (k + z) % 2 == 0 else (3 - insert)[::-1]
+            c = c.copy()
+            sub = rng.choice(ln, ln // 100, replace=False)
+            c[sub] = rng.integers(0, 4, len(sub))
+            if k == bad_pass:
+                c[ln // 2:] = (3 - c[: ln - ln // 2])[::-1]
+                even += ln % 2 == 0
+            out.append(b"@m64011_220101_000000/%d/%d_%d\n%s\n+\n%s\n" % (
+                z, pos, pos + ln, acgt[c].tobytes(), b"~" * ln))
+            pos += ln + 45  # the adapter between passes
+    with gzip.open(path, "wb", compresslevel=1) as fh:
+        fh.write(b"".join(out))
+    return len(out), len(planted), even
+
+
+def make_l5_data(work: str, genome, seed: int) -> dict:
+    """The inputs of the phase of the tools on the glocal identity
+    aligner (ROADMAP L5): alltoall's sequences and planted identities,
+    splitribo's reads, icecream's subreads, and the heads of their
+    CUDA-against-CPU checks."""
+    rng = np.random.default_rng(seed)
+    d = {"ata": os.path.join(work, "ata.fa"), "ribo": os.path.join(work, "ribo.fa"),
+         "pb": os.path.join(work, "pb.fq.gz")}
+    d["ata_planted"] = make_ata_seqs(d["ata"], ATA_SEQS, rng)
+    d["ribo_planted"] = make_ribo_reads(d["ribo"], RIBO_READS, rng)
+    d["pb_reads"], d["pb_planted"], d["pb_even"] = make_subreads(
+        d["pb"], genome.scaffold_codes(0), IC_ZMWS, IC_PLANTED, rng)
+    with open(d["ata"], "rb") as fh:
+        ata = fh.read().splitlines(keepends=True)
+    with open(d["ribo"], "rb") as fh:
+        ribo = fh.read().splitlines(keepends=True)
+    for tag, lines, n in (("ata_check", ata, ATA_CHECK_SEQS), ("idm_check", ata, IDM_CHECK_SEQS),
+                          ("ribo_check", ribo, RIBO_CHECK_READS)):
+        d[tag] = os.path.join(work, f"{tag}.fa")
+        with open(d[tag], "wb") as fh:
+            fh.writelines(lines[: 2 * n])
+    d["pb_check"] = os.path.join(work, "pb_check.fq.gz")
+    head_fastq(d["pb"], d["pb_check"], IC_CHECK_READS)
+    return d
+
+
+def ata_host_pairs(fasta: str, pct, dev) -> list[tuple[int, int, float, float]]:
+    """The ATA_HOST_PAIRS pairs (i < j) of alltoall's matrix `pct` farthest
+    from their planted identity (`dev`, over the upper triangle: where
+    the gaps' placement, and so the tie rules, count most) against the
+    host aligner: (i, j, the printed percentage, 100 x glocal_align_np's
+    identity of query i against reference j, as alltoall aligns them)."""
+    from bbtools_torch.core.dna import BASE_TO_CODE
+    from bbtools_torch.ops.idalign import glocal_align_np
+
+    with open(fasta, "rb") as fh:
+        seqs = [BASE_TO_CODE[np.frombuffer(ln.strip(), np.uint8)]
+                for ln in fh.read().splitlines()[1::2]]
+    iu = np.triu_indices(len(seqs), 1)
+    out = []
+    for k in np.argsort(-dev, kind="stable")[:ATA_HOST_PAIRS]:
+        i, j = int(iu[0][k]), int(iu[1][k])
+        out.append((i, j, float(pct[i, j]), 100 * glocal_align_np(seqs[i], seqs[j])[0]))
+    return out
+
+
+def l5_phases(l5: dict, fq: str, n_fq: int, work: str, card: str, phase_s: dict):
+    """reformat (qtrim) over config #1's reads and the tools on the glocal
+    identity aligner through the CLI on device=cuda, each with its device
+    route required on the card: alltoall over ATA_SEQS 16S variants (each
+    pair within ATA_TOLERANCE of its planted identity), splitribo over
+    RIBO_READS rRNA reads (each type's count the planted one), icecream
+    trim=t and kzt=t over the subreads (flagged and discarded held to the
+    folded subreads of even length), testalignersbatch length=2000
+    samples=10 and testalignerslength at its defaults (its 3,000 bp on the
+    banded route)."""
+
+    def w(name):
+        return os.path.join(work, name)
+
+    # ---- reformat qtrim=rl trimq=10 minlen=40: optimal_trim on the card ----
+    t0 = time.perf_counter()
+    out = w("reformat.cuda.fq")
+    (n_out, _), dt, _ = run_routed("reformat", "reformat",
+                                           [f"in={fq}", f"out={out}", *REFORMAT_FLAGS],
+                                           {"optimal_trim": None})
+    lens_in = fastq_lengths(fq)
+    lens_out = fastq_lengths(out)
+    trimmed = sum(lens_out[k] < lens_in[k] for k in lens_out)
+    print(f"reformat {' '.join(REFORMAT_FLAGS)} device=cuda: {n_fq} reads in {dt:.2f} s = "
+          f"{n_fq / dt:.0f} reads/s on {card}; kept {n_out}, {trimmed} of them trimmed, "
+          f"{n_fq - n_out} removed (under 40 bp after the trim)")
+    if n_out != len(lens_out) or not 0 < trimmed < n_out <= n_fq:
+        raise AssertionError(f"reformat: kept {n_out}, trimmed {trimmed}")
+    phase_s["reformat"] = time.perf_counter() - t0
+
+    # ---- alltoall: 8,128 pairs of 16S variants in 16 calls ----
+    t0 = time.perf_counter()
+    n = ATA_SEQS
+    pairs = n * (n - 1) // 2
+    calls = -(-pairs // 512)
+    matrix = w("ata.cuda.txt")
+    _, dt, _ = run_routed("alltoall", "alltoall", [f"in={l5['ata']}", f"out={matrix}"],
+                          {"glocal_identity": calls})
+    with open(matrix) as fh:
+        rows = [ln.split("\t")[1:] for ln in fh.read().splitlines()[1:]]
+    pct = np.array(rows, np.float64)
+    dev = np.abs(pct / 100 - l5["ata_planted"])[np.triu_indices(n, 1)]
+    print(f"alltoall device=cuda: {n} variants of the 16S consensus, {pairs} pairs in "
+          f"{dt:.2f} s = {pairs / dt:.0f} pairs/s, {dt / calls:.3f} s a call of <= 512 pairs "
+          f"({calls} calls) on {card}; |identity - planted| mean {dev.mean():.4f}, max "
+          f"{dev.max():.4f} (tolerance {ATA_TOLERANCE})")
+    if dev.max() > ATA_TOLERANCE:
+        raise AssertionError(f"alltoall: max deviation {dev.max():.4f}")
+    host = ata_host_pairs(l5["ata"], pct, dev)
+    print("alltoall against the host aligner (glocal_align_np), the pairs farthest from "
+          "their planted identity: " + ", ".join(f"v{i}-v{j} {p:.2f} / {h:.4f}"
+                                                 for i, j, p, h in host))
+    if any(abs(p - h) > 0.005 + 1e-5 for _, _, p, h in host):
+        raise AssertionError(f"alltoall: the card's identities differ from the host's: {host}")
+    phase_s["alltoall"] = time.perf_counter() - t0
+
+    # ---- splitribo: each type's count ----
+    t0 = time.perf_counter()
+    _, dt, log = run_routed("splitribo", "splitribo",
+                            [f"in={l5['ribo']}", f"out={w('ribo.cuda_#.fa')}"],
+                            {"glocal_identity": None})
+    counts = {m[1]: int(m[2]) for m in re.finditer(r"^(\S+):\t(\d+)$", log, re.M)}
+    print(f"splitribo device=cuda: {RIBO_READS} reads in {dt:.2f} s = {RIBO_READS / dt:.0f} "
+          f"reads/s on {card}; routed {counts} (planted {l5['ribo_planted']})")
+    if counts != l5["ribo_planted"]:
+        raise AssertionError(f"splitribo: routed {counts}")
+    phase_s["splitribo"] = time.perf_counter() - t0
+
+    # ---- icecream trim=t, then kzt=t ----
+    t0 = time.perf_counter()
+    for mode in ("trim=t", "kzt=t"):
+        tag = mode.split("=")[0]
+        tool, dt, log = run_routed(f"icecream {mode}", "icecream",
+                                   [f"in={l5['pb']}", f"outg={w(f'ic_{tag}.cuda.fq')}",
+                                    f"outb={w(f'ic_{tag}.cuda.bad.fq')}", mode],
+                                   {"glocal_identity": None})
+        flagged = tool.flagged
+        zmws = getattr(tool, "zmws_flagged", None)
+        print(f"icecream {mode} device=cuda: {l5['pb_reads']} subreads of {IC_LEN[0]}-"
+              f"{IC_LEN[1]} bp in {dt:.2f} s = {l5['pb_reads'] / dt:.1f} subreads/s on {card}; "
+              f"flagged {flagged} (planted {l5['pb_planted']}, {l5['pb_even']} of them of even "
+              f"length), ZMWs discarded {zmws}, bases trimmed {tool.trimmed_bases}")
+        if flagged != l5["pb_even"] or zmws not in (None, l5["pb_even"]):
+            raise AssertionError(f"icecream {mode}: flagged {flagged}, ZMWs {zmws}")
+    phase_s["icecream"] = time.perf_counter() - t0
+
+    # ---- the aligner ladders: exact glocal, and banded at 3,000 bp ----
+    t0 = time.perf_counter()
+    for name, argv, needs in (
+            ("testalignersbatch", ["length=2000", "samples=10"], {"glocal_identity": 29}),
+            ("testalignerslength", [], {"glocal_identity": 3, "banded_edits": 1})):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            _, dt, _ = run_routed(name, name, argv, needs)
+        table = [ln.split("\t") for ln in text.getvalue().splitlines() if ln[:1].isdigit()]
+        n_pairs = sum(int(r[3]) for r in table)
+        print(f"{' '.join([name, *argv])} device=cuda: {len(table)} levels, {n_pairs} pairs in "
+              f"{dt:.2f} s on {card}; " + ", ".join(f"{r[0]}: {r[1]}" for r in table))
+        if name == "testalignersbatch":
+            top = {float(r[0]): float(r[1]) for r in table}
+            if top[1.0] != 1.0 or any(abs(v - a) > LADDER_TOLERANCE
+                                      for a, v in top.items() if a >= 0.75):
+                raise AssertionError(f"{name}: {top}")
+    phase_s["aligner ladders"] = time.perf_counter() - t0
+
+
+def fastq_lengths(path: str) -> dict:
+    """name -> length of each record of a FASTQ file (gzipped or not)."""
+    op = gzip.open if path.endswith(".gz") else open
+    with op(path, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    return {lines[i][1:]: len(lines[i + 1]) for i in range(0, len(lines) - 3, 4)}
+
+
+def l5_check_runs(l5: dict, small: str, work: str) -> dict:
+    """The CLI runs of the CUDA-against-CPU checks of reformat and the
+    tools on L5: name -> (argv on device d, d's output files): reformat
+    on config #1's first CHECK_READS reads, alltoall on the first
+    ATA_CHECK_SEQS sequences and idmatrix on IDM_CHECK_SEQS, splitribo and
+    mergeribo on RIBO_CHECK_READS reads, icecream (both modes) on
+    IC_CHECK_READS subreads and both aligner ladders (their tables on
+    standard output, which goes to a file)."""
+    def w(name):
+        return os.path.join(work, name)
+
+    def icecream(mode):
+        tag = f"ic{mode[0]}chk"
+        return lambda d: Check(["icecream", f"in={l5['pb_check']}", mode,
+                                f"outg={w(f'{tag}.{d}.fq')}", f"outb={w(f'{tag}.{d}.b.fq')}"],
+                               [w(f"{tag}.{d}.fq"), w(f"{tag}.{d}.b.fq")])
+
+    def ladder(name, tag, flags):
+        return lambda d: Check([name, *flags], [w(f"{tag}.{d}.txt")], w(f"{tag}.{d}.txt"))
+
+    return {
+        "splitribo": lambda d: Check(["splitribo", f"in={l5['ribo_check']}",
+                                      f"out={w(f'ribochk.{d}_#.fa')}"],
+                                     [w(f"ribochk.{d}_{t}.fa") for t in RIBO_TYPES]),
+        "icecream kzt=t": icecream("kzt=t"),
+        "icecream trim=t": icecream("trim=t"),
+        "mergeribo": lambda d: Check(["mergeribo", f"in={l5['ribo_check']}",
+                                      f"out={w(f'mribochk.{d}.fa')}"], [w(f"mribochk.{d}.fa")]),
+        "alltoall": lambda d: Check(["alltoall", f"in={l5['ata_check']}",
+                                     f"out={w(f'atachk.{d}.txt')}"], [w(f"atachk.{d}.txt")]),
+        "idmatrix": lambda d: Check(["idmatrix", f"in={l5['idm_check']}",
+                                     f"out={w(f'idmchk.{d}.txt')}"], [w(f"idmchk.{d}.txt")]),
+        "reformat": lambda d: Check(["reformat", f"in={small}", f"out={w(f'rfchk.{d}.fq')}",
+                                     *REFORMAT_FLAGS], [w(f"rfchk.{d}.fq")]),
+        "testalignersbatch": ladder("testalignersbatch", "tabchk", LADDER_CHECK),
+        "testalignerslength": ladder("testalignerslength", "talchk", ["samples=4"]),
+    }
+
+
 class CpuSide:
     """CLI runs on device=cpu (and the CUDA halves of the A2/A4b and A8a
-    checks), taken in order by CPU_SIDE_WORKERS threads, each run in its
-    own process (one torch thread), while this process runs the other
-    checks' CUDA halves: the plain versions (the fill of long
-    reads above all) take minutes on the host. Each process gets this process's sys.argv,
-    which the SAM writers put into the @PG line, so that the bytes
-    compare. `wait(name)` blocks until that run has ended and returns its
-    seconds, raising if it failed; `stop` kills the runs still going
-    (main stops every one started, `started`)."""
+    checks), taken in order by `workers` threads, each run in its own
+    process (one torch thread), while this process runs the other
+    checks' CUDA halves: the plain versions (the fill of long reads above
+    all) take minutes on the host. Each process gets this process's
+    sys.argv, which the SAM writers put into the @PG line, so that the
+    bytes compare, and runs its tool through cli_call, writing the
+    tool's REPORTED attributes for `report(name)`. `wait(name)` blocks
+    until that run has ended and returns its seconds, raising if it
+    failed; `stop` kills the runs still going (main stops every one
+    started, `started`)."""
 
     started: list = []
-    CODE = ("import json, sys; sys.argv = json.loads(sys.argv[1]); "
-            "from bbtools_torch.cli import main; main(json.loads(sys.argv.pop()))")
+    CODE = ("import json, sys\n"
+            "sys.argv, argv, stdout, report = json.loads(sys.argv[1])\n"
+            "from chip_smoke import cli_call, write_report\n"
+            "write_report(cli_call(argv, stdout), report)\n")
 
-    def __init__(self, runs: list, work: str):
-        """runs: [(name, argv with its device=)], in the order they start."""
+    def __init__(self, runs: list, work: str, workers: int = CPU_SIDE_WORKERS,
+                 tag: str = "cpu_side"):
+        """runs: [(name, argv with its device=, the file its standard
+        output goes to or None)], in the order they start."""
         import threading
 
         CpuSide.started.append(self)
-        self.runs, self.log = list(runs), os.path.join(work, "cpu_side")
-        self.names = {name for name, _ in self.runs}
+        self.runs, self.log = list(runs), os.path.join(work, tag)
+        self.names = {name for name, _, _ in self.runs}
         self.done: dict[str, tuple[int, float]] = {}
         self.cond = threading.Condition()
         self.procs: dict[int, subprocess.Popen] = {}
         self.next = 0
         self.stopped = False
         self.threads = [threading.Thread(target=self._run, args=(i,), daemon=True)
-                        for i in range(CPU_SIDE_WORKERS)]
+                        for i in range(workers)]
         for t in self.threads:
             t.start()
+
+    def _report_path(self, name: str) -> str:
+        return f"{self.log}.{re.sub(r'[^A-Za-z0-9]+', '_', name)}.json"
+
+    def report(self, name: str) -> dict:
+        """The REPORTED attributes of run `name`'s tool (after wait)."""
+        with open(self._report_path(name)) as fh:
+            return json.load(fh)
 
     def _run(self, worker: int):
         env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -2733,11 +3173,12 @@ class CpuSide:
                 with self.cond:
                     if self.stopped or self.next == len(self.runs):
                         break
-                    name, argv = self.runs[self.next]
+                    name, argv, stdout = self.runs[self.next]
                     self.next += 1
                 t0 = time.perf_counter()
+                spec = [sys.argv, argv, stdout, self._report_path(name)]
                 proc = self.procs[worker] = subprocess.Popen(
-                    [sys.executable, "-c", self.CODE, json.dumps(sys.argv + [json.dumps(argv)])],
+                    [sys.executable, "-c", self.CODE, json.dumps(spec)],
                     cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
                 rc = proc.wait()
                 with self.cond:
@@ -2753,7 +3194,7 @@ class CpuSide:
                 self.cond.wait(timeout=1.0)
         rc, secs = self.done.get(name, (-1, 0.0))
         if rc:
-            for i in range(CPU_SIDE_WORKERS):
+            for i in range(len(self.threads)):
                 with open(f"{self.log}.{i}.log", errors="replace") as fh:
                     print(fh.read()[-3000:])
             raise AssertionError(f"the CPU run of {name} failed (rc {rc})")
@@ -2770,11 +3211,12 @@ class CpuSide:
 
 
 def early_cpu_runs(ctx: dict, pipe: dict, work: str) -> list:
-    """The CPU halves of the earlier tools' CUDA-against-CPU checks whose
-    outputs are files alone, as CpuSide runs: bbduk's three, bbmerge's,
-    bbmap's single end and paired, kmercountexact's two, Tadpole's two,
-    tadpipe's, bbmerge ecco and its merge stage, and bbcms's two (its
-    input made here)."""
+    """The CPU halves of the earlier tools' CUDA-against-CPU checks, as
+    CpuSide runs: bbduk's three, bbmerge's, bbmap's single end and
+    paired, kmercountexact's two, Tadpole's two, tadpipe's, bbmerge
+    ecco, nn=t (its pairs near the cutoff reported) and its merge stage,
+    bbcms's two (its input made here) and bloomfilter=t's (its
+    prescreened count reported)."""
     runs = [(f"bbduk {name}", bbduk_argv(name, flags, fin, work, "cpu")[0])
             for name, flags, fin in ctx["bbduk_checks"]]
     runs.append(("bbmerge", bbmerge_argv(ctx["small_pairs"], work, "head", "cpu")[0]))
@@ -2786,14 +3228,14 @@ def early_cpu_runs(ctx: dict, pipe: dict, work: str) -> list:
         runs.append((f"tadpole {tag}", tadpole_check_argv(ctx["asm"], tag, work, "cpu")[0]))
     runs.append(("tadpipe", tadpipe_check_argv(pipe, work, "cpu")[0]))
     for tag, ins, flags, _n in a6b_merge_checks(pipe):
-        if tag != "nn":
-            runs.append((f"bbmerge {tag}", bbmerge_argv(ins, work, f"mcheck_{tag}", "cpu",
-                                                        flags)[0]))
+        runs.append((f"bbmerge {tag}", bbmerge_argv(ins, work, f"mcheck_{tag}", "cpu",
+                                                    flags)[0]))
     pipe["cms_check"] = os.path.join(work, "cms_check.fq.gz")
     head_fastq(pipe["region.fq.gz"], pipe["cms_check"], CMS_CHECK_READS)
     for flags in CMS_CHECKS:
         runs.append((f"bbcms {' '.join(flags)}", bbcms_check_argv(pipe, flags, work, "cpu")[0]))
-    return runs
+    runs.append(("bbmap bloomfilter=t", bloom_check_argv(pipe, work, "cpu")[0]))
+    return [(name, argv, None) for name, argv in runs]
 
 
 def kce_check_argv(asm: dict, k: int, work: str, device: str):
@@ -2836,6 +3278,14 @@ def a6b_merge_checks(pipe: dict) -> tuple:
 CMS_CHECKS = (["k=25"], ["ecc=f", "mincount=2"])
 
 
+def bloom_check_argv(pipe: dict, work: str, device: str):
+    """bbmap bloomfilter=t's argv of its check (the region as reference)
+    on `device` and its SAM."""
+    sam = os.path.join(work, f"bloom_check.{device}.sam")
+    return (["bbmap", f"ref={pipe['region.fa']}", f"in={pipe['bloom_check']}", f"out={sam}",
+             "bloomfilter=t", f"device={device}"], [sam])
+
+
 def bbcms_check_argv(pipe: dict, flags: list[str], work: str, device: str):
     tag = "_".join(f.replace("=", "") for f in flags)
     outs = [os.path.join(work, f"cms_check.{tag}.{device}.{x}.fq") for x in ("out", "bad")]
@@ -2848,29 +3298,45 @@ def pool_runs(runs: dict, skip=()) -> list:
     a8a_check_runs) as CpuSide runs: `name` on device=cpu and `name
     cuda` on device=cuda, but for the CUDA halves named in `skip`, which
     their phase ran."""
-    return ([(name, [*fn("cpu")[0], "device=cpu"]) for name, fn in runs.items()],
-            [(f"{name} cuda", [*fn("cuda")[0], "device=cuda"]) for name, fn in runs.items()
-             if name not in skip])
+    return ([(name, [*fn("cpu").argv, "device=cpu"], fn("cpu").stdout)
+             for name, fn in runs.items()],
+            [(f"{name} cuda", [*fn("cuda").argv, "device=cuda"], fn("cuda").stdout)
+             for name, fn in runs.items() if name not in skip])
 
 
-def file_checks(label: str, runs: dict, cpu_side: CpuSide, phase_s: dict):
+def file_checks(label: str, runs: dict, cpu_side: CpuSide, phase_s: dict,
+                here: dict | None = None):
     """The outputs of both halves of `runs`, each run in a process of
-    cpu_side's, byte for byte (a CUDA half that was not run there, its
-    phase ran)."""
+    cpu_side's, byte for byte (a CUDA half that was not run there ran in
+    its phase, or in this process: `here`, name -> seconds)."""
     t0 = time.perf_counter()
     for name, fn in runs.items():
         cpu_s = cpu_side.wait(name)
         cuda_s = cpu_side.wait(f"{name} cuda") if f"{name} cuda" in cpu_side.names else None
-        files = {d: read_all(fn(d)[1]) for d in ("cuda", "cpu")}
+        files = {d: read_all(fn(d).outs) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"{name}: cuda and cpu outputs differ")
+        where = (f"cuda {cuda_s:.2f} s in a process of its own, " if cuda_s is not None else
+                 f"cuda {here[name]:.2f} s in this process, " if name in (here or {}) else
+                 "cuda in its phase, ")
         print(f"{name}: cuda == cpu ({sum(len(f) for f in files['cuda'])} bytes in "
-              f"{len(files['cuda'])} files; "
-              + (f"cuda {cuda_s:.2f} s, " if cuda_s is not None else "cuda in its phase, ")
-              + f"cpu {cpu_s:.2f} s, each in a process of its own)")
+              f"{len(files['cuda'])} files; {where}cpu {cpu_s:.2f} s in a process of its own)")
     waited = time.perf_counter() - t0
     print(f"{label} checks: waited {waited:.1f} s for the processes")
     phase_s[f"cuda == cpu, {label}"] = waited
+
+
+def cuda_halves_here(runs: dict) -> dict:
+    """The CUDA halves of the checks `runs` in this process, one after
+    another: name -> seconds."""
+    secs = {}
+    for name, fn in runs.items():
+        check = fn("cuda")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli_call([*check.argv, "device=cuda"], check.stdout)
+        secs[name] = time.perf_counter() - t0
+    return secs
 
 
 def read_all(paths) -> list[bytes]:
@@ -3032,6 +3498,14 @@ def main(argv=None) -> int:
               f"{a8['dedupe_distinct'] + a8['dedupe_planted']} reads of 150 bp "
               f"({DEDUPE_DISTINCT} distinct, {DEDUPE_EXACT} exact copies, {DEDUPE_NEAR} "
               f"near-copies); made in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        l5 = make_l5_data(work, genome, args.seed + 50)
+        print(f"L5 input: {ATA_SEQS} variants of the 16S consensus "
+              f"({ATA_ID_RANGE[0]}-{ATA_ID_RANGE[1]} identity, 1-3 indels); {RIBO_READS} rRNA "
+              f"reads ({', '.join(RIBO_TYPES)}; {RIBO_LEN[0]}-{RIBO_LEN[1]} bp, 5S whole); "
+              f"{l5['pb_reads']} subreads of {IC_LEN[0]}-{IC_LEN[1]} bp in {IC_ZMWS} ZMWs, "
+              f"{l5['pb_planted']} with a missed adapter; made in "
+              f"{time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
         kernels_built()
 
@@ -3164,10 +3638,18 @@ def main(argv=None) -> int:
         asm_out = asm_phases(asm, work, card, phase_s)
         ctx["cv_sam"] = asm_out["sam"]
         a6b_out = a6b_phases(asm, pipe, ctx, work, card, phase_s)
+        # the CPU halves of the L5 checks (plain glocal rows on one
+        # thread, minutes each; splitribo's the longest) beside the
+        # long-read presets, whose rate is the card's walk
+        l5_side = CpuSide(pool_runs(l5_check_runs(l5, small, work))[0], work,
+                          workers=L5_SIDE_WORKERS, tag="l5_side")
+        print(f"CPU halves of the L5 checks: {L5_SIDE_WORKERS} processes, from the A2/A4b "
+              f"phases on")
         a2_phases(a2, ctx, work, card, phase_s)
         a8a_phases(asm, a2, a8, work, card, phase_s)
-        # the CPU halves of the checks whose outputs are files alone, in
-        # processes once the last rate is taken; the longest first
+        l5_phases(l5, fq, args.reads, work, card, phase_s)
+        # the CPU halves of the other checks, in processes once the last
+        # rate is taken; the longest first
         a2_runs, a2_cuda = pool_runs(a2_check_runs(a2, ctx, work))
         a8_runs, a8_cuda = pool_runs(a8a_check_runs(a8, work), skip=("ecc",))
         print(f"CPU halves of the checks, and the CUDA halves of the A2/A4b and A8a "
@@ -3175,9 +3657,16 @@ def main(argv=None) -> int:
         import torch
 
         torch.cuda.empty_cache()  # the card's memory for the processes' CUDA halves
+        # the longest first: mapPacBio's and the skimmer's plain fill
+        # (~1.5 minutes each on one thread)
         cpu_side = ctx["cpu_side"] = CpuSide(
             a2_runs[:2] + a8_runs[:1] + early_cpu_runs(ctx, pipe, work) + a2_runs[2:]
             + a8_runs[1:] + a2_cuda + a8_cuda, work)
+        # the L5 checks' CUDA halves here, while the processes run the
+        # first CPU halves (a few seconds each, CUDA warm)
+        t0 = time.perf_counter()
+        l5_here = cuda_halves_here(l5_check_runs(l5, small, work))
+        phase_s["cuda halves of the l5 checks"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
         # ---- CUDA against CPU, byte for byte, on the first reads (the
@@ -3217,6 +3706,7 @@ def main(argv=None) -> int:
         a6b_checks(asm, pipe, ctx, a6b_out, work, phase_s)
         file_checks("a2/a4b", a2_check_runs(a2, ctx, work), cpu_side, phase_s)
         file_checks("a8a", a8a_check_runs(a8, work), cpu_side, phase_s)
+        file_checks("l5", l5_check_runs(l5, small, work), l5_side, phase_s, here=l5_here)
         loglog_check(asm)
     finally:
         build_thread.join()

@@ -55,7 +55,7 @@ def test_every_tool_refuses_its_input_as_output(tmp_path):
         with pytest.raises(ValueError, match="also an input"):
             tcli.main([name, f"in={inp}", f"out={inp}", "device=cpu"])
         checked += 1
-    assert checked == len(set(tcli.TOOLS)) >= 41
+    assert checked == len(set(tcli.TOOLS)) >= 76
     assert inp.read_text() == "@r\nACGT\n+\nFFFF\n" and sorted(os.listdir(tmp_path)) == before
 
 

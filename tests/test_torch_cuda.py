@@ -1759,3 +1759,133 @@ def test_a8a_tools_cuda_equal_cpu(cuda, tmp_path):
             assert out["cuda"] == out["cpu"], name
     finally:
         dedupe.FastqReader = old
+
+
+def test_glocal_identity_cuda_equals_cpu(cuda):
+    """The glocal identity aligner (ROADMAP L5) on the card against the
+    CPU at icecream's shape (352-row tip queries against remainders of
+    up to 10,000 columns, ragged) and on rows built to tie (homopolymers,
+    tandem repeats, a two-letter alphabet); glocal_counts too; one
+    counted call each."""
+    from bbtools_torch.ops import idalign
+
+    rng = np.random.default_rng(12)
+    T, M, N = 64, 352, 10_000
+    qs = rng.integers(0, 4, (T, M)).astype(np.uint8)
+    rs = rng.integers(0, 4, (T, N)).astype(np.uint8)
+    ql = rng.integers(100, M + 1, T).astype(np.int32)
+    rl = rng.integers(1_500, N + 1, T).astype(np.int32)
+    for t in range(0, T, 2):  # a reverse-complement copy somewhere in the remainder
+        p = int(rng.integers(0, rl[t] - ql[t]))
+        qs[t, : ql[t]] = rs[t, p : p + ql[t]]
+        qs[t, rng.integers(0, ql[t], 20)] = rng.integers(0, 4, 20)
+    qs[1], rs[1] = 0, 0  # homopolymers
+    qs[3, :], rs[3, :] = np.resize([0, 1], M), np.resize([0, 1], N)  # a tandem repeat
+    qs[5], rs[5] = rng.integers(0, 2, M), rng.integers(0, 2, N)
+    ql[7], rl[9] = 0, 0
+    args = (qs, ql, rs, rl)
+    before = idalign.glocal_identity.device_calls
+    got = idalign.glocal_identity(*args, cuda)
+    assert idalign.glocal_identity.device_calls == before + 1
+    want = idalign.glocal_identity(*args, "cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    got = idalign.glocal_counts(*args, cuda)
+    assert idalign.glocal_identity.device_calls == before + 2
+    for g, w in zip(got, idalign.glocal_counts(*args, "cpu")):
+        assert torch.equal(g.cpu(), w)
+    assert float(want[0][0]) > 0.9 and float(want[0][1]) == 1.0
+
+
+def test_banded_identity_and_trim_cuda_equal_cpu(cuda):
+    """BandedIDAligner.align_batch (width 81) on arrays of two widths,
+    and reformat's quality trim, on the card against the CPU."""
+    from bbtools_torch.ops import banded, idalign, trim
+
+    rng = np.random.default_rng(13)
+    q = rng.integers(0, 4, (40, 3000)).astype(np.uint8)
+    r = np.pad(q, ((0, 0), (0, 12)))
+    r[:, rng.integers(0, 3000, 300)] = rng.integers(0, 4, 300)
+    r[::4, 7:3007] = q[::4, :3000]
+    ql = np.full(40, 3000, np.int32)
+    rl = (ql + np.where(np.arange(40) % 4 == 0, 7, 0)).astype(np.int32)
+    before = banded.banded_edits.device_calls
+    aligner = idalign.BandedIDAligner(max_edits=750)
+    got = aligner.align_batch(q, ql, r, rl, cuda)
+    assert banded.banded_edits.device_calls == before + 1
+    np.testing.assert_array_equal(got, aligner.align_batch(q, ql, r, rl, "cpu"))
+    quals = torch.from_numpy(rng.integers(0, 41, (4096, 151)).astype(np.uint8))
+    lengths = torch.from_numpy(rng.integers(0, 152, 4096).astype(np.int32))
+    is_n = torch.from_numpy(rng.random((4096, 151)) < 0.01)
+    before = trim.optimal_trim.device_calls
+    got = trim.optimal_trim(quals.to(cuda), lengths.to(cuda), is_n.to(cuda), 0.1)
+    assert trim.optimal_trim.device_calls == before + 1
+    for g, w in zip(got, trim.optimal_trim(quals, lengths, is_n, 0.1)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_a8a_l5_tools_cuda_equal_cpu(cuda, tmp_path):
+    """reformat (qtrim), alltoall, splitribo, mergeribo, icecream (kzt),
+    the two device aligner ladders (the length ladder's 3,000 bp on the
+    banded route) and microalign through the CLI on both devices: the
+    same files and printed lines, each with its device route counted on
+    the card."""
+    import contextlib
+    import io
+    import re
+
+    from bbtools_torch.cli import main
+    from bbtools_torch.ops import banded, idalign, microalign, trim
+
+    rng = np.random.default_rng(14)
+    ACGT = np.frombuffer(b"ACGT", np.uint8)
+    with open(tmp_path / "q.fq", "wb") as fh:
+        for i in range(3000):
+            q = rng.integers(2, 41, 150)
+            q[-int(rng.integers(1, 60)):] = 2 if i % 3 == 0 else 30
+            fh.write(b"@r%d\n%s\n+\n%s\n" % (i, ACGT[rng.integers(0, 4, 150)].tobytes(),
+                                             (q + 33).astype(np.uint8).tobytes()))
+    base = ACGT[rng.integers(0, 4, 1500)]
+    with open(tmp_path / "s.fa", "wb") as fh:
+        for i in range(24):
+            s = base.copy()
+            s[rng.integers(0, 1500, 20 * i)] = ACGT[rng.integers(0, 4, 20 * i)]
+            fh.write(b">s%d\n%s\n" % (i, s.tobytes()))
+    with open(tmp_path / "pb.fq", "wb") as fh:
+        for z in range(20):
+            c = rng.integers(0, 4, int(rng.integers(2000, 4000)))
+            if z % 4 == 0:
+                c[len(c) // 2:] = (3 - c[: len(c) - len(c) // 2])[::-1]
+            s = ACGT[c].tobytes()
+            fh.write(b"@m1/%d/0_%d\n%s\n+\n%s\n" % (z, len(s), s, b"F" * len(s)))
+    cases = {
+        "reformat": (["reformat", "in={t}/q.fq", "out={o}.fq", "qtrim=rl", "trimq=10",
+                      "minlen=40"], trim.optimal_trim, [".fq"]),
+        "alltoall": (["alltoall", "in={t}/s.fa", "out={o}.txt"], idalign.glocal_identity,
+                     [".txt"]),
+        "splitribo": (["splitribo", "in={t}/s.fa", "out={o}_#.fa"], idalign.glocal_identity,
+                      ["_junk.fa"]),
+        "mergeribo": (["mergeribo", "in={t}/s.fa", "out={o}.fa"], idalign.glocal_identity,
+                      [".fa"]),
+        "icecream": (["icecream", "in={t}/pb.fq", "outg={o}.fq", "outb={o}.b.fq", "kzt=t"],
+                     idalign.glocal_identity, [".fq", ".b.fq"]),
+        "testalignersbatch": (["testalignersbatch", "length=2000", "samples=4",
+                               "ani=1,0.95,0.85,0.75"], idalign.glocal_identity, []),
+        "testalignerslength": (["testalignerslength", "samples=4"], banded.banded_edits, []),
+        "microalign": (["microalign", "in={t}/q.fq", "ref=phix", "out={o}.sam"],
+                       microalign.micro_map_batch, [".sam"]),
+    }
+    for name, (argv, counted, exts) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            o = str(tmp_path / f"{name}.{dev}")
+            before = getattr(counted, "device_calls", None)
+            text, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(text), contextlib.redirect_stderr(err):
+                main([argv[0], *(a.format(t=tmp_path, o=o) for a in argv[1:]),
+                      f"device={dev}"])
+            if before is not None:
+                assert (counted.device_calls > before) == (dev == "cuda"), name
+            out[dev] = ([open(o + e, "rb").read() for e in exts]
+                        + [text.getvalue(), re.sub(r"[0-9.]+ seconds", "", err.getvalue())])
+        assert out["cuda"] == out["cpu"], name

@@ -122,6 +122,21 @@ PARTLY_COPIED = {
     "models/dedupe.py": ["Dedupe.__init__", "Dedupe.judge_batch", "main"],
     # the pivot runs as torch ops on the run's device
     "models/clumpify.py": ["pivot_kmers", "_pivot_kmers_jnp", "main"],
+    # the glocal identity aligner runs as torch ops (ROADMAP L5), the
+    # banded identity on ops/banded; the host engines are the JAX package's
+    "ops/idalign.py": ["BandedIDAligner.align_batch", "glocal_identity_jnp", "NEG", "KOFF",
+                       "FIELD", "_glocal_scan", "glocal_identity", "glocal_counts"],
+    # the tools on L5 take a device= and call it
+    "models/alltoall.py": ["main"],
+    "models/ribo.py": ["RES_DIR", "_batch_identities", "splitribo", "mergeribo"],
+    # (the JAX package's per-read host path check_read is not ported:
+    # check_batch serves every caller)
+    "models/icecream.py": ["ICConfig", "parse_args", "check_batch", "check_read",
+                           "_finish_read", "IceCreamFinder.__init__"],
+    "models/alignertools.py": ["_device_identity", "batch_main", "length_main",
+                               "align_random_main", "micro_main"],
+    # reformat's quality trim runs on the device
+    "models/reformat.py": ["main"],
 }
 
 
@@ -258,6 +273,7 @@ COPIED_FUNCTIONS = [
     ("models.bbmap", "BBMap._cov_init"), ("models.bbmap", "BBMap._coverage_add"),
     ("models.bbmap", "BBMap._write_coverage"),
     ("cli", "_remove_preset"), ("cli", "_bbwrap"), ("cli", "guard_output_files"),
+    ("cli", "_lazy"),
 ]
 
 
@@ -373,7 +389,7 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    for tool in ("reformat", "alltoall", "idmatrix", "bbmask", "fungalrelease"):
+    for tool in ("findprimers", "indelfree", "kmercoverage", "bbmask", "fungalrelease"):
         with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
@@ -569,3 +585,56 @@ def test_a8a_tools_default_to_cuda(tmp_path, tool):
     with pytest.raises(RuntimeError, match="cuda"):
         main([tool, *argv])
     assert not list(tmp_path.glob("o.*"))
+
+
+#: the tools of ROADMAP A8a items 1-3 and the argv that reaches their
+#: first device work; reformatpb and the host aligner launchers have none
+A8A_L5_TOOLS = {
+    "reformat": ["in={fq}", "out={tmp}/o.fq", "qtrim=rl"],
+    "reformat2": ["in={fq}", "out={tmp}/o.fq"],
+    "reformat3": ["in={fq}", "out={tmp}/o.fq"],
+    "alltoall": ["in={tmp}/ref.fa", "out={tmp}/o.txt"],
+    "idmatrix": ["in={tmp}/ref.fa", "out={tmp}/o.txt"],
+    "splitribo": ["in={tmp}/ref.fa", "out={tmp}/o_#.fa"],
+    "mergeribo": ["in={tmp}/ref.fa", "out={tmp}/o.fa"],
+    "keepbestcopy": ["in={tmp}/ref.fa", "out={tmp}/o.fa"],
+    "icecream": ["in={fq}", "outg={tmp}/o.fq"],
+    "icecreamfinder": ["in={fq}", "outg={tmp}/o.fq", "kzt=t"],
+    "testalignersbatch": ["length=100", "samples=2"],
+    "testalignerslength": ["lengths=100", "samples=2"],
+    "alignrandom": ["out={tmp}/o.txt"],
+    "microalign": ["in={fq}", "ref=phix", "out={tmp}/o.sam"],
+    "reformatpb": ["in={fq}", "out={tmp}/o.fq"],
+    "glocalaligner": ["ACGTTACG", "ACGTACG"],
+    "testaligners": ["ACGTTACG", "ACGTACG"],
+    "testaligners2": [],
+    "visualizealignment": ["ACGTTACG", "ACGTACG", "out={tmp}/o.txt"],
+}
+A8A_L5_HOST = ("reformatpb", "glocalaligner", "testaligners", "testaligners2",
+               "visualizealignment")
+
+
+@pytest.mark.parametrize("tool", list(A8A_L5_TOOLS))
+def test_a8a_l5_tools_default_to_cuda(tmp_path, tool):
+    """reformat, alltoall/idmatrix, the ribo tools, icecream and the
+    device aligner harnesses run on the card unless asked for the CPU:
+    without one, the default raises before any output is written. The
+    host-only names run anywhere."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import contextlib
+    import io
+
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@m/1/0_40\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n>t\n" + "AGCT" * 40 + "\n")
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A8A_L5_TOOLS[tool]]
+    if tool in A8A_L5_HOST:
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            assert main([tool, *argv]) == 0
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([tool, *argv])
+    assert not list(tmp_path.glob("o*"))
