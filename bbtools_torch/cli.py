@@ -3,8 +3,9 @@ python -m bbtools_torch <tool> key=value ...
 
 The tools ported so far are registered in TOOLS, each running on the
 card unless given device=cpu (the host-only ones, stats, pileup,
-calctruequality, gradesam, reformatpb and the host aligner launchers,
-run anywhere). A name not in TOOLS raises, naming the ROADMAP item that
+calctruequality, gradesam, reformatpb, the host aligner launchers and
+the vector tools seqtovec, netconvert, reducecolumns, vectorutils and
+balancevectors, run anywhere). A name not in TOOLS raises, naming the ROADMAP item that
 holds it (A8, the long tail). Before any tool runs, `guard_output_files`
 refuses duplicate outputs, an output that is also an input, and an
 existing output under ow=f.
@@ -304,6 +305,27 @@ TOOLS = {
     "testalignerslength": lambda a: _lazy("alignertools", "length_main", a),
     "alignrandom": lambda a: _lazy("alignertools", "align_random_main", a),
     "microalign": lambda a: _lazy("alignertools", "micro_main", a),
+    # the last device-using tools: substitution-only search (primer
+    # sites, panels against a genome), the count-min sketch tools, and
+    # the CellNet family (training, scoring, filtering; the vectorizer
+    # and the vector TSV tools are host only) and calibration
+    "findprimers": lambda a: _lazy("findprimers", "main", a),
+    "msa": lambda a: _lazy("findprimers", "main", a),
+    "indelfree": lambda a: _lazy("indelfree", "main", a),
+    "indelfreealigner": lambda a: _lazy("indelfree", "main", a),
+    "kmercoverage": lambda a: _lazy("misctools", "kmercoverage", a),
+    "bloomfilter": lambda a: _lazy("texttools", "bloomfilter", a),
+    "polyfilter": lambda a: _lazy("polyfilter", "main", a),
+    "seqtovec": lambda a: _lazy("mltools", "seqtovec_main", a),
+    "train": lambda a: _lazy("mltools", "train_main", a),
+    "netconvert": lambda a: _lazy("mltools", "netconvert_main", a),
+    "scoresequence": lambda a: _lazy("mltools", "scoresequence_main", a),
+    "netfilter": lambda a: _lazy("mltools", "netfilter_main", a),
+    "reducecolumns": lambda a: _lazy("mltools", "reducecolumns_main", a),
+    "vectorutils": lambda a: _lazy("mltools", "vectorutils_main", a),
+    "balancevectors": lambda a: _lazy("mltools", "balancevectors_main", a),
+    "calibrate": lambda a: _lazy("research", "calibrate_main", a),
+    "regressiontrainer": lambda a: _lazy("research", "regressiontrainer_main", a),
 }
 
 

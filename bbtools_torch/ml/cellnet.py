@@ -13,7 +13,15 @@ A layer is one float32 [out, in] matmul over the whole batch on the
 net's device (`device`, cuda by default); mixed per-cell activations
 inside a layer are a select over the activation types, in the JAX
 package's order of operations. The parser and writer are host copies.
-Training (`fit`) is not ported yet (ROADMAP A8).
+
+Training (`fit`) is full-batch Adam over the mean squared error on the
+net's device: torch.autograd gives the gradient through the same
+forward, and the Adam step is written out in optax.adam's order (the JAX
+package's optimizer), not with torch.optim.Adam, which groups its terms
+otherwise. float32 products differ between XLA and torch (C4), and
+training compounds that over the epochs, so the nets agree within a
+tolerance, not bit for bit. `CellNet.fit.device_calls` counts fits on
+CUDA and `CellNet.forward.device_calls` forward passes on CUDA.
 """
 
 from __future__ import annotations
@@ -31,10 +39,13 @@ TYPES = ["SIG", "TANH", "RSLOG", "MSIG", "SWISH", "ESIG", "EMSIG", "BELL",
 _MSIG_OFF = 5.0
 _MSIG_XMULT = 2.0
 _MSIG_YMULT = float(1.0 / (1.0 / (1.0 + np.exp(-_MSIG_OFF))))
+#: optax.adam's defaults
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def _activations(x, types):
-    """Apply per-cell activations; x [..., n] float32, types int [n]."""
+    """Apply per-cell activations; x [..., n] float32, types int [n]
+    (an array, or a tensor on x's device)."""
     sig = 1.0 / (1.0 + torch.exp(-x))
     msig = torch.where(
         x < 0,
@@ -52,7 +63,7 @@ def _activations(x, types):
         torch.exp(-(x * x)),
         x,
     ]
-    t = torch.as_tensor(np.asarray(types), device=x.device)
+    t = types if torch.is_tensor(types) else torch.as_tensor(np.asarray(types), device=x.device)
     result = outs[0]
     for i in range(1, len(outs)):
         result = torch.where(t == i, outs[i], result)
@@ -73,6 +84,8 @@ class CellNet:
     def forward(self, x):
         """x [B, dims[0]] -> output [B, dims[-1]] (float32 tensor)."""
         dev = resolve_device(self.device)
+        if dev.type == "cuda":
+            CellNet.forward.device_calls += 1
         h = torch.as_tensor(np.asarray(x, np.float32), device=dev)
         for W, b, t in zip(self.weights, self.biases, self.types):
             z = h @ torch.as_tensor(W, device=dev).T + torch.as_tensor(b, device=dev)
@@ -86,10 +99,44 @@ class CellNet:
         return self.apply(x)[:, 0] >= self.cutoff
 
     def fit(self, x, y, epochs=2000, lr=0.05, seed=0):
-        """Training (the JAX package's full-batch Adam) is not ported."""
-        raise NotImplementedError(
-            "bbtools_torch CellNet.fit: training is not ported yet (ROADMAP A8)"
-        )
+        """`epochs` full-batch Adam steps on mean((net(x) - y)^2) from the
+        net's float32 weights, on its device; `seed` is unused, as in the
+        JAX package. Each step is optax.adam(lr)'s: mu = (1-b1)*g + b1*mu;
+        nu = (1-b2)*g^2 + b2*nu; then -lr * (mu / (1-b1^t)) /
+        (sqrt(nu / (1-b2^t)) + eps), added to the parameter. The bias
+        corrections are 0-dim float32 tensors on the device, so each
+        division is a true division, as XLA's is (CUDA divides by a host
+        scalar as a product with its reciprocal). Returns the last step's
+        loss, taken before that step's update."""
+        dev = resolve_device(self.device)
+        if dev.type == "cuda":
+            CellNet.fit.device_calls += 1
+        nl = len(self.weights)
+        params = [torch.tensor(np.asarray(p, np.float32), device=dev, requires_grad=True)
+                  for p in (*self.weights, *self.biases)]
+        types_t = [torch.as_tensor(np.asarray(t), device=dev) for t in self.types]
+        x_t = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        y_t = torch.as_tensor(np.asarray(y, np.float32), device=dev)
+        mu = [torch.zeros_like(p) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        steps = np.arange(1, epochs + 1, dtype=np.float64)
+        corr1 = torch.tensor(1 - ADAM_B1 ** steps, dtype=torch.float32, device=dev)
+        corr2 = torch.tensor(1 - ADAM_B2 ** steps, dtype=torch.float32, device=dev)
+        loss = None
+        for t in range(epochs):
+            h = x_t
+            for W, b, ty in zip(params[:nl], params[nl:], types_t):
+                h = _activations(h @ W.T + b, ty)
+            loss = torch.mean((h - y_t) ** 2)
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                for p, g, m, v in zip(params, grads, mu, nu):
+                    m.copy_((1 - ADAM_B1) * g + ADAM_B1 * m)
+                    v.copy_((1 - ADAM_B2) * g ** 2 + ADAM_B2 * v)
+                    p.add_(-lr * ((m / corr1[t]) / (torch.sqrt(v / corr2[t]) + ADAM_EPS)))
+        out = [p.detach().cpu().numpy() for p in params]
+        self.weights, self.biases = out[:nl], out[nl:]
+        return float(loss.detach())
 
     @classmethod
     def create(cls, dims, seed=0, hidden="SIG", out="SIG"):
@@ -106,6 +153,13 @@ class CellNet:
             name = out if i == len(dims) - 1 else hidden
             ts.append(np.full(dims[i], TYPES.index(name), np.int32))
         return cls(list(dims), ws, bs, ts)
+
+
+#: forward passes on CUDA since the count was last set to 0
+CellNet.forward.device_calls = 0
+
+#: fits on CUDA since the count was last set to 0
+CellNet.fit.device_calls = 0
 
 
 def _open(path):

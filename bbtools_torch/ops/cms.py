@@ -17,8 +17,8 @@ so the add slices to the runs instead: every index is in range and
 unique, and the result is deterministic. A query is one gather per lane
 and a min over the lanes.
 
-`cms_add.device_calls` counts adds made on CUDA tensors: the proof that
-a path counted on the card.
+`cms_add.device_calls` and `cms_query.device_calls` count the adds and
+queries made on CUDA tensors: the proof that a path counted on the card.
 """
 
 from __future__ import annotations
@@ -64,6 +64,8 @@ def cms_add(table: torch.Tensor, keys: torch.Tensor, max_count: int):
 
 def cms_query(table: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
     """[n] int32 estimate of each key: the least of its lanes' counters."""
+    if table.device.type == "cuda":
+        cms_query.device_calls += 1
     hashes, cells = table.shape
     slots = cms_slots(keys, hashes, cells)
     est = table[0, slots[0]]
@@ -74,6 +76,8 @@ def cms_query(table: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
 
 #: adds on CUDA tensors since the count was last set to 0
 cms_add.device_calls = 0
+#: queries on CUDA tensors since the count was last set to 0
+cms_query.device_calls = 0
 
 
 class CountMinSketch:

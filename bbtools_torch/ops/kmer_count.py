@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kmers import rolling_kmers, rolling_kmers_np
+from .kmers import length_mask, rolling_kmers, rolling_kmers_np
 
 #: sentinel larger than any 62-bit kmer, sorts last
 PAD = np.int64(0x7FFFFFFFFFFFFFFF)
@@ -45,6 +45,20 @@ def batch_keys(bases, lengths, k: int, device) -> torch.Tensor:
     on `device`."""
     return batch_kmers(torch.as_tensor(np.asarray(bases), device=device),
                        torch.as_tensor(np.asarray(lengths), device=device), k)
+
+
+def read_keys_t(bases, lengths, k: int, device, canonical: bool = True):
+    """The valid k-mer keys of a batch's reads on `device`, flat in read
+    order (row-major, as `keys[valid]` takes them on the host), and the
+    count of each read's (host int64 [B]). canonical: the JAX package's
+    `canonical_keys_np` (the larger strand | the length bit); else the
+    larger strand alone."""
+    keys = batch_keys(bases, lengths, k, device).view(len(lengths), -1)
+    valid = keys != int(PAD)
+    flat = keys[valid]
+    if canonical:
+        flat = flat | length_mask(k)
+    return flat, valid.sum(1).cpu().numpy()
 
 
 def _compact(s, boundary, excl, total):

@@ -83,25 +83,25 @@ From the root of a checkout, on a machine with a CUDA card:
      QUAL digit that float32 rounding may flip, counted);
   7. the A6b tools through the CLI on device=cuda, each with its kernels
      or its device routes required: `tadpipe` at TadPipe's defaults
-     (k=31,62,93, every stage) on 2,500 pairs of config #5's copy's
+     (k=31,62,93, every stage) on 1,250 pairs of config #5's copy's
      first 25,000 bp (each stage's seconds, the recommended k, the
      contigs and their share of the region's 31-mers), its trim stage
      (`bbduk ref=adapters ... tbo tpe qtrim=r`) and ecco stage (`bbmerge
-     ecco=t mix=t strict`) over 100,000 pairs of the whole copy, `bbmerge
-     nn=t` over the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
+     ecco=t mix=t strict`) over 50,000 pairs of the whole copy, `bbmerge
+     nn=t` over 75,000 of the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
      config #2's 200,000 reads (one add of a batch timed alone) and with
      ecc=t on 500 of the region's reads, `bbmap bloomfilter=t` over
      20,000 map reads and 2,000 foreign ones, and `bbrealign` on the
      clipped SAM; then each on both devices, byte for byte (BBMerge nn=t
      but for pairs whose net score lay within 1e-5 of the cutoff);
   8. the A2/A5 and A4b paths through the CLI on device=cuda:
-     calctruequality on BBMap's SAM; `mappacbio` over one full batch of
-     512 FASTA records on the E. coli-length genome (486 long reads of
-     1,000-6,000 bp, 13 of them of 6,100-12,000 bp that fastareadlen=6000
-     cuts in two: 26 chunk records), printing reads/s, the mapped share
+     calctruequality on BBMap's SAM; `mappacbio` over one batch of 64
+     FASTA records on the E. coli-length genome (51 long reads of
+     1,000-6,000 bp, 13 of 6,100-12,000 bp that fastareadlen=6000 cuts
+     in two: 26 chunk records), printing reads/s, the mapped share
      and the share placed within 50 bp, B4's launches, the fused phase's
      walk-cap overflows, the plane groups and the walk's seconds; then
-     `bbmapskimmer` on the first 128 of them (its flag-256 lines) and `gradesam`
+     `bbmapskimmer` on the first 32 of them (its flag-256 lines) and `gradesam`
      on mapPacBio's SAM; B4's block kernel at mapPacBio's widest class
      (4 tasks, R=6,000, Cc=13,640) against its plain version, in the
      kernel phase; `bbduk` config #1 with align=t over its reads with one
@@ -147,16 +147,28 @@ From the root of a checkout, on a machine with a CUDA card:
      sequences, idmatrix 12, splitribo and mergeribo 128 reads, icecream
      both modes 200 subreads, both ladders at samples=4);
  11. runs the CPU halves of the checks of 6 to 10 whose outputs are
-     files alone in CPU_SIDE_WORKERS processes (the cores less one, 4
-     to 8) once the last rate above is taken (their plain fill of long
-     reads takes minutes), beside the other checks' CUDA halves, so that
-     no rate but 8's long-read presets is taken under their load; the
-     CUDA halves of 8's and 9's checks run in those processes too, 10's
-     in this process while the processes start. The CPU halves of 10's
-     checks (plain glocal rows on one thread, minutes each) start
-     earlier, in L5_SIDE_WORKERS processes beside 8's long-read presets,
-     whose rate is the card's walk launched from this process;
- 12. prints each phase's seconds.
+     files in EARLY_SIDE_WORKERS processes (3 on 8 cores) from 5 on,
+     beside the phases (their plain versions take minutes: glocal rows
+     and the fill of long reads on one thread), so the rates from 5 on
+     are taken beside them; the CUDA halves of 6-9's and 13's checks in
+     CPU_SIDE_WORKERS processes (the cores less one, 4 to 8) once the
+     last rate is taken, 10's and 13's in this process meanwhile;
+ 12. prints each phase's seconds;
+ 13. the last device-using tools through the CLI on device=cuda, each
+     with its device route counted on the card: `msa` (findprimers)
+     over 100,000 reads of 16S variants with two primers planted (every
+     planting found at its offset with its NM), `indelfree subs=3
+     minid=0` with 512 CRISPR records against the planted genome in 71
+     chunks (every planting found; the search's peak memory under its
+     budget), `kmercoverage k=31 hist=` over config #2's reads,
+     `bloomfilter ref=<genome> k=31` over the bloom reads, `polyfilter`
+     over config #1's reads with poly-G tails (counts the JAX package's
+     in a dry run, tools/a8c_dryrun.py), `seqtovec` -> `train` ->
+     `netfilter` and `scoresequence` over config #1's reads, `calibrate
+     epochs=2000` over 100,000 rows; then each on both devices on a
+     head: byte for byte, but train's nets, calibrate's constants,
+     netfilter's reads near the cutoff and scoresequence's scores, held
+     to stated tolerances.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -252,13 +264,17 @@ CV_INDEL_RECALL_MIN = 0.8
 CV_FALSE_MAX = 10
 #: tadpipe at assemble/TadPipe.java's defaults (k=31,62,93, every stage
 #: on), on pairs of 2x150 bp from inserts of 100-450 bp of config #5's
-#: copy's first ASM_REGION bp at ~30x, each mate running into its adapter
+#: copy's first ASM_REGION bp at ~15x (30x before: cut for the smoke's
+#: time, PERF.md section 4 "Cuts"), each mate running into its adapter
 #: past a short insert, with ASM_ERR base errors. Its stages past trim and
 #: ecco (Tadpole's correction and walks, BBMerge's extension) are host
 #: code, so the whole pipeline runs on the region; its two device stages
-#: run on their own over PIPE_FULL_PAIRS pairs (30x) of the whole copy
-PIPE_PAIRS = 2_500
-PIPE_FULL_PAIRS = 100_000
+#: run on their own over PIPE_FULL_PAIRS pairs (15x; 30x before the same
+#: cut) of the whole copy.
+#: Its check runs on PIPE_CHECK_PAIRS pairs (30x) of the region's head
+PIPE_PAIRS = 1_250
+PIPE_CHECK_PAIRS = 500
+PIPE_FULL_PAIRS = 50_000
 PIPE_INSERTS = (100, 450)
 PIPE_TRIM = ["ref=adapters", "ktrim=r", "k=23", "mink=11", "hdist=1", "qtrim=r",
              "trimq=10", "tbo", "tpe", "minlen=62"]
@@ -269,6 +285,9 @@ PIPE_CHECK_BP = 5_000  # the region's head, for tadpipe's CUDA against CPU
 #: merge stage with extend2 and ecct, whose host correction and extension
 #: run ~35 pairs/s on a CPU core (PERF.md section 4)
 MERGE_CHECK_PAIRS = 20_000
+#: BBMerge nn=t's rate over the first NN_PAIRS of BBMerge's pairs (all
+#: 150,000 before: cut for the smoke's time, PERF.md section 4 "Cuts")
+NN_PAIRS = 75_000
 MERGE_ECCT_CHECK_PAIRS = 500
 #: bbcms: all of config #2's reads with the depth filter; the default
 #: ecc=t on the region's reads (host correction)
@@ -285,21 +304,22 @@ BLOOM_READS = 20_000
 BLOOM_FOREIGN = 2_000
 BLOOM_CHECK_READS = 2_048
 
-#: mapPacBio (ROADMAP A4b) on the E. coli-length genome: one full batch
-#: (the preset's batchreads=512 records) of FASTA reads of 1,000-6,000 bp
-#: with 1% substitutions, three indels of 1-3 bp and, in every other
-#: read, a 50 bp deletion, every third reverse-complemented; LONG_CHUNKED
-#: of them are of 6,100-12,000 bp, which fastareadlen=6000 cuts in two
-#: chunks each (26 of the 512 records, 5%). One batch, not two: the
-#: walk, a torch loop of ~12,000-19,600 steps a call, costs ~9 s a call
-#: on the card and runs ~7 calls a batch (PERF.md section 6).
+#: mapPacBio (ROADMAP A4b) on the E. coli-length genome: one batch of 64
+#: FASTA records (a full batch of the preset's batchreads=512 before: cut
+#: for the smoke's time, PERF.md section 4 "Cuts") of reads of
+#: 1,000-6,000 bp with 1% substitutions, three indels of 1-3 bp and, in
+#: every other read, a 50 bp deletion, every third reverse-complemented;
+#: LONG_CHUNKED of them are of 6,100-12,000 bp, which fastareadlen=6000
+#: cuts in two chunks each (26 of the 77 records). The walk, a torch
+#: loop of ~12,000-19,600 steps a call, costs ~11-14 s a call on the
+#: card, a call a plane group (9 at 512 records, 5 at 128).
 #: bbmapskimmer maps the first SKIM_READS of the same records: its walk
 #: calls cost the same at any count, and fewer tasks need fewer groups
-LONG_READS = 486
+LONG_READS = 51
 LONG_RANGE = (1000, 6000)
 LONG_CHUNKED = 13
 LONG_CHUNKED_RANGE = (6100, 12000)
-SKIM_READS = 128
+SKIM_READS = 32
 LONG_CHECK_READS = 8  # the CUDA-against-CPU check, reads of 1,000-1,500 bp
 LONG_CHECK_RANGE = (1000, 1500)
 #: the least share of mapped unchunked long reads placed within 50 bp
@@ -323,15 +343,17 @@ RH_READS = 2_200  # removehuman: the head of the bloom reads (200 foreign)
 #: 4.6M-line basecov= took 60-114 s beside the card's phases
 CHECK_REGION = 250_000
 #: processes running the CPU halves of the checks at once: the cores
-#: this process may use less one (this process, which runs the other
-#: checks' CUDA halves and mostly waits for the processes), at least 4
-#: and at most 8
+#: processes running the CUDA halves of the checks once the last rate is
+#: taken (and netfilter's and scoresequence's CPU halves): the cores
+#: this process may use less one (this process, which runs the L5 and
+#: a8c checks' CUDA halves and mostly waits for the processes), at least
+#: 4 and at most 8
 CPU_SIDE_WORKERS = max(4, min(8, len(os.sched_getaffinity(0)) - 1))
-#: processes running the CPU halves of the L5 checks (~700 process
-#: seconds) beside the long-read presets' phases (~260 s): with this
+#: processes running the CPU halves of the checks (~1,500 process
+#: seconds) beside the phases from config #2/#5 on (~600 s): with this
 #: process they keep under half the cores busy, so that on cores of two
-#: hardware threads no busy thread need share a core with the walk's
-L5_SIDE_WORKERS = max(1, min(3, len(os.sched_getaffinity(0)) // 2 - 1))
+#: hardware threads no busy thread need share a core with this one's
+EARLY_SIDE_WORKERS = max(1, min(3, len(os.sched_getaffinity(0)) // 2 - 1))
 CTQ_RECORDS = 4_096  # calctruequality's input: the head of BBMap's SAM
 #: the A8a tools (seal, bbnorm, ecc, loglog, dedupe, clumpify). Seal
 #: bins config #1's reads with phiX planted (the align=t input) against
@@ -383,7 +405,7 @@ RIBO_LEN = (800, 1_500)
 RIBO_SUB = (0.05, 0.10)
 #: the CUDA-against-CPU heads of splitribo/mergeribo and icecream: their
 #: CPU halves are plain glocal rows on one thread (minutes each), run in
-#: L5_SIDE_WORKERS processes beside the long-read presets' phase
+#: EARLY_SIDE_WORKERS processes beside the phases
 RIBO_CHECK_READS = 128
 #: icecream: IC_ZMWS ZMWs of IC_PASSES subreads of IC_LEN bp of the
 #: E. coli-length genome, one subread of IC_PLANTED of them folded at
@@ -402,6 +424,71 @@ IC_CHECK_READS = 200
 #: at ANI >= 0.75 held within LADDER_TOLERANCE of the ANI (the dry run)
 LADDER_CHECK = ["ani=1,0.95,0.85,0.75", "samples=4"]
 LADDER_TOLERANCE = 0.05
+#: the last device-using tools (ROADMAP A8a's L7 tools, the tools on the
+#: count-min sketch, the CellNet family and calibrate). Every count held
+#: below is the JAX package's on this input, from a CPU dry run at full
+#: size from the smoke's seed (tools/a8c_dryrun.py; PERF.md section 6).
+#: msa: MSA_READS reads of MSA_LEN bp cut from the L5 phase's 16S
+#: variants away from the primers' own sites (MSA_AWAY), MSA_PRIMERS
+#: (consensus offset, length) cut from the 16S consensus, and one of the
+#: four primer rows (two primers, two strands) planted with 0-2
+#: substitutions in MSA_PLANTED_SHARE of the reads; every planting found
+#: at its offset with its NM
+MSA_READS = 100_000
+MSA_LEN = (150, 300)
+MSA_PRIMERS = ((515, 19), (786, 20))
+MSA_AWAY = ((0, 490), (830, 1_533))
+MSA_PLANTED_SHARE = 0.8
+MSA_CHECK_READS = 10_000
+#: indelfree: the first IFA_QUERIES records of the bundled CRISPR panel
+#: (22-55 bp), IFA_PLANTED of them planted with 0-3 substitutions on
+#: either strand in a copy of the E. coli-length genome (the first
+#: IFA_CHECK_PLANTED of them among the check's queries and in its head);
+#: subs=3 minid=0; every planting found
+IFA_QUERIES = 512
+IFA_PLANTED = 64
+IFA_FLAGS = ["subs=3", "minid=0"]
+IFA_CHECK_QUERIES = 128
+IFA_CHECK_BP = 262_144
+IFA_CHECK_PLANTED = 8
+#: polyfilter at its defaults with extra= its own input: config #1's
+#: reads, one in POLY_EVERY given a poly-G tail of POLY_TAIL bp; removed
+#: the JAX package's count (the dry run)
+POLY_EVERY = 20
+POLY_TAIL = (20, 60)
+POLY_REMOVED = 7_899
+#: kmercoverage k=31 over config #2's reads: the mode of its depth
+#: histogram the JAX package's (the dry run)
+KC_MODE = 20
+#: bloomfilter ref=<the genome> k=31 over make_bloom_reads' reads: the
+#: matched count the JAX package's (the dry run). At the genome's
+#: 4,641,652 31-mers each lane of the default sketch (3 x 2^22 cells) is
+#: ~67% set, so a foreign k-mer passes all three with p ~0.30: foreign
+#: reads of ~120 k-mers match too
+BLOOM_MATCHED = 22_000
+#: the CellNet family: ML_READS reads of 150 bp, half drawn from GC-rich
+#: and half from AT-rich pools (tests/test_mltools.py's classes), made
+#: vectors by seqtovec (k=0, width 55: 224 features), a net trained on
+#: them at train's defaults (2,000 epochs, [224, 64, 1]); netfilter and
+#: scoresequence with it over config #1's reads. The check trains on
+#: ML_CHECK_ROWS rows a class on both devices: the nets within
+#: FIT_WEIGHT_TOL in every weight (their files print six decimals) and
+#: the reported mse within the same; netfilter's files equal but for
+#: reads scoring within NN_NEAR of the cutoff (counted on the card);
+#: scoresequence's scores within SCORE_TOL (one unit of their fourth
+#: decimal). The bounds: tests/test_torch_mltools.py, from the dry run
+ML_READS = 20_000
+ML_POOLS = (b"GCGCGCAT", b"ATATATGC")
+ML_CHECK_ROWS = 1_000
+FIT_WEIGHT_TOL = 5e-5
+NN_NEAR = 1e-5
+SCORE_TOL = 1e-4
+#: calibrate epochs=2000 over CAL_ROWS (score, label) rows drawn as
+#: tests/test_research.py draws them; both devices' constants within
+#: CAL_TOL (one unit of their fifth decimal), the mse within CAL_MSE_TOL
+CAL_ROWS = 100_000
+CAL_TOL = 1e-5
+CAL_MSE_TOL = 1e-6
 
 # Rates of one H100 SXM for the bounds (NVIDIA's data sheet and Hopper
 # white paper): HBM3 at 3.35 TB/s; int8 tensor cores at 1,979 TOP/s;
@@ -1443,10 +1530,13 @@ def make_asm_data(work: str, seed: int) -> dict:
 
 
 def device_calls() -> dict:
-    """The device routes of the k-mer counts, the count-min sketch's adds,
-    the A8a tools' device ops, the glocal identity aligner and the
-    quality trim: calls on CUDA tensors."""
-    from bbtools_torch.models import bbnorm, clumpify, loglog, seal
+    """The device routes of the k-mer counts, the count-min sketch's adds
+    and queries, the A8a tools' device ops, the glocal identity aligner,
+    the quality trim, the substitution-only searches, CellNet's training
+    and forward pass and calibrate's fit: calls on CUDA tensors."""
+    from bbtools_torch.ml.cellnet import CellNet
+    from bbtools_torch.models import (bbnorm, clumpify, findprimers, indelfree, loglog,
+                                      research, seal)
     from bbtools_torch.ops import banded, cms, idalign, kmer_count, kmers2, trim
 
     return {"merge_spectra": kmer_count.merge_spectra.device_calls,
@@ -1459,7 +1549,13 @@ def device_calls() -> dict:
             "banded_edits": banded.banded_edits.device_calls,
             "pivot_kmers": clumpify._pivot_kmers_t.device_calls,
             "glocal_identity": idalign.glocal_identity.device_calls,
-            "optimal_trim": trim.optimal_trim.device_calls}
+            "optimal_trim": trim.optimal_trim.device_calls,
+            "best_sites": findprimers.best_sites.device_calls,
+            "indelfree_search": indelfree._device_search.device_calls,
+            "cms_query": cms.cms_query.device_calls,
+            "net_fit": CellNet.fit.device_calls,
+            "net_forward": CellNet.forward.device_calls,
+            "calibrate_fit": research.calibrate_fit.device_calls}
 
 
 def cli_call(argv: list[str], stdout: str | None = None):
@@ -1744,8 +1840,7 @@ def asm_checks(asm: dict, work: str, main_out: dict, phase_s: dict):
     t0 = time.perf_counter()
     side = main_out["cpu_side"]
     for k in (31, 93):
-        argv, _ = kce_check_argv(asm, k, work, "cuda")
-        run_tool("kmercountexact", argv[1:-1], "cuda")
+        side.wait(f"kmercountexact k={k} cuda")
         side.wait(f"kmercountexact k={k}")
         files = {d: read_all(kce_check_argv(asm, k, work, d)[1]) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
@@ -1757,9 +1852,8 @@ def asm_checks(asm: dict, work: str, main_out: dict, phase_s: dict):
         if tag.startswith("contig"):
             files["cuda"] = read_all([contigs_fa])  # the main phase's run
         else:
-            argv, out = tadpole_check_argv(asm, tag, work, "cuda")
-            run_tool("tadpole", argv[1:-1], "cuda")
-            files["cuda"] = read_all(out)
+            side.wait(f"tadpole {tag} cuda")
+            files["cuda"] = read_all(tadpole_check_argv(asm, tag, work, "cuda")[1])
         dt = side.wait(f"tadpole {tag}")
         files["cpu"] = read_all(tadpole_check_argv(asm, tag, work, "cpu")[1])
         print(f"tadpole {tag} device=cpu: {n} reads in {dt:.2f} s (in a process of its own)")
@@ -1834,8 +1928,7 @@ def make_pipe_data(asm: dict, work: str, seed: int) -> dict:
     copy = asm["copy_codes"]
     d = {}
     for tag, codes, n, s in (("region", copy[:ASM_REGION], PIPE_PAIRS, 0),
-                             ("check", copy[:PIPE_CHECK_BP],
-                              PIPE_PAIRS * PIPE_CHECK_BP // ASM_REGION, 1),
+                             ("check", copy[:PIPE_CHECK_BP], PIPE_CHECK_PAIRS, 1),
                              ("full", copy, PIPE_FULL_PAIRS, 2)):
         d[tag] = [os.path.join(work, f"pipe_{tag}_{m}.fq.gz") for m in (1, 2)]
         make_pairs(d[tag], n, seed + s, *PIPE_INSERTS, genome=codes, err=ASM_ERR)
@@ -1998,18 +2091,18 @@ def a6b_phases(asm: dict, pipe: dict, ctx: dict, work: str, card: str,
           f"{tool.merged} corrected by their overlap")
     phase_s["tadpipe device stages (full)"] = time.perf_counter() - t0
 
-    # ---- BBMerge nn=t over the smoke's pairs ----
+    # ---- BBMerge nn=t over the first NN_PAIRS of the smoke's pairs ----
     t0 = time.perf_counter()
     nn_out = [os.path.join(work, f"nn.cuda.{x}") for x in ("m.fq", "u1.fq", "u2.fq")]
     (tool, dt, _), got = run_path("bbmerge nn=t", lambda: run_tool("bbmerge", [
-        f"in1={ctx['pairs'][0]}", f"in2={ctx['pairs'][1]}", f"out={nn_out[0]}",
+        f"in1={ctx['nn_pairs'][0]}", f"in2={ctx['nn_pairs'][1]}", f"out={nn_out[0]}",
         f"outu1={nn_out[1]}", f"outu2={nn_out[2]}", "nn=t"], "cuda"),
         ("overlap_scan", "lane_table"), {})
     share = tool.merged / tool.pairs
     print(f"bbmerge nn=t device=cuda: {tool.pairs} pairs in {dt:.2f} s = "
           f"{tool.pairs / dt:.0f} pairs/s (wall) on {card}, against {ctx['merge_rate']:.0f} "
-          f"pairs/s at defaults; merged share {share:.4f} against {ctx['merge_share']:.4f} "
-          f"at defaults; {tool.ambiguous} ambiguous; {len(tool.nn_near)} scores within "
+          f"pairs/s at defaults over all the pairs; merged share {share:.4f} against "
+          f"{ctx['merge_share']:.4f} at defaults; {tool.ambiguous} ambiguous; {len(tool.nn_near)} scores within "
           f"1e-5 of the cutoff {tool.net_cutoff}")
     # the gate moves decisions both ways: the widened scan (max_ratio 0.7)
     # finds more candidates, and the net rejects some
@@ -2109,8 +2202,7 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
 
     t0 = time.perf_counter()
     side = ctx["cpu_side"]
-    argv, _ = tadpipe_check_argv(pipe, work, "cuda")
-    _, dt, _ = run_tool("tadpipe", argv[1:-1], "cuda")
+    dt = side.wait("tadpipe cuda")
     cpu_dt = side.wait("tadpipe")
     files = {}
     for device in ("cuda", "cpu"):
@@ -2118,22 +2210,18 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
         names = sorted(os.listdir(tmp))
         files[device] = read_all([tmp + ".fa"] + [os.path.join(tmp, x) for x in names])
     print(f"tadpipe k=31,62: {pipe['check_pairs']} pairs in {dt:.2f} s on cuda, {cpu_dt:.2f} s "
-          f"on cpu (in a process of its own)")
+          f"on cpu (each in a process of its own)")
     if files["cuda"] != files["cpu"] or len(names) != 12:
         raise AssertionError("tadpipe: cuda and cpu outputs differ")
     print(f"tadpipe: cuda == cpu on {pipe['check_pairs']} pairs of the region's first "
           f"{PIPE_CHECK_BP} bp (the assembly and {len(names)} stage files, "
           f"{sum(map(len, files['cuda']))} bytes)")
     for tag, ins, flags, n in a6b_merge_checks(pipe):
-        # the CPU halves ran in cpu_side's processes; nn=t's pairs near
-        # its cutoff come from both tool objects, the CPU one's reported
-        secs = {}
-        argv, _ = bbmerge_argv(ins, work, f"mcheck_{tag}", "cuda", flags)
-        tool, secs["cuda"], _ = run_tool("bbmerge", [a for a in argv[1:] if
-                                                     not a.startswith("device=")], "cuda")
-        secs["cpu"] = side.wait(f"bbmerge {tag}")
-        near = set(tool.nn_near) | {x.encode("latin-1") for x in
-                                    side.report(f"bbmerge {tag}")["nn_near"]}
+        # both halves ran in processes; nn=t's pairs near its cutoff, as
+        # each tool object reported them
+        secs = {d: side.wait(f"bbmerge {tag}" + x) for d, x in (("cuda", " cuda"), ("cpu", ""))}
+        near = {x.encode("latin-1") for n in (f"bbmerge {tag} cuda", f"bbmerge {tag}")
+                for x in side.report(n)["nn_near"]}
         files = {d: read_all(bbmerge_argv(ins, work, f"mcheck_{tag}", d, flags)[1])
                  for d in ("cuda", "cpu")}
         print(f"bbmerge {' '.join(flags)}: {n} pairs in {secs['cuda']:.2f} s on cuda, "
@@ -2152,21 +2240,19 @@ def a6b_checks(asm: dict, pipe: dict, ctx: dict, main_out: dict, work: str,
                  f"1e-5 of the cutoff" if tag == "nn" else "")
               + f" ({sum(map(len, files['cuda']))} bytes)")
     for flags in CMS_CHECKS:
-        argv, _ = bbcms_check_argv(pipe, flags, work, "cuda")
-        run_tool("bbcms", argv[1:-1], "cuda")
+        side.wait(f"bbcms {' '.join(flags)} cuda")
         side.wait(f"bbcms {' '.join(flags)}")
         files = {d: read_all(bbcms_check_argv(pipe, flags, work, d)[1]) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"bbcms {flags}: cuda and cpu outputs differ")
         print(f"bbcms {' '.join(flags)}: cuda == cpu on {CMS_CHECK_READS} reads")
-    argv, _ = bloom_check_argv(pipe, work, "cuda")
-    tool, dt, _ = run_tool("bbmap", argv[1:-1], "cuda")
+    dt = side.wait("bbmap bloomfilter=t cuda")
     cpu_dt = side.wait("bbmap bloomfilter=t")
     files = {d: read_all(bloom_check_argv(pipe, work, d)[1]) for d in ("cuda", "cpu")}
-    pre = {"cuda": tool.prescreened,
-           "cpu": side.report("bbmap bloomfilter=t")["prescreened"]}
+    pre = {d: side.report("bbmap bloomfilter=t" + x)["prescreened"]
+           for d, x in (("cuda", " cuda"), ("cpu", ""))}
     print(f"bbmap bloomfilter=t (the region as reference): {BLOOM_CHECK_READS} reads in "
-          f"{dt:.2f} s on cuda, {cpu_dt:.2f} s on cpu (in a process of its own)")
+          f"{dt:.2f} s on cuda, {cpu_dt:.2f} s on cpu (each in a process of its own)")
     n_foreign = BLOOM_CHECK_READS // 11
     if files["cuda"] != files["cpu"] or not pre["cuda"] == pre["cpu"] >= n_foreign:
         raise AssertionError(f"bbmap bloomfilter=t: cuda and cpu SAM differ or too few "
@@ -3128,10 +3214,11 @@ class CpuSide:
     all) take minutes on the host. Each process gets this process's
     sys.argv, which the SAM writers put into the @PG line, so that the
     bytes compare, and runs its tool through cli_call, writing the
-    tool's REPORTED attributes for `report(name)`. `wait(name)` blocks
-    until that run has ended and returns its seconds, raising if it
-    failed; `stop` kills the runs still going (main stops every one
-    started, `started`)."""
+    tool's REPORTED attributes for `report(name)`. `add(runs)` queues
+    more runs, until `close()`. `wait(name)` blocks until that run has
+    ended and returns its seconds, raising if it failed (a name another
+    side holds is that side's to wait for); `stop` kills the runs still
+    going (main stops every one started, `started`)."""
 
     started: list = []
     CODE = ("import json, sys\n"
@@ -3152,7 +3239,7 @@ class CpuSide:
         self.cond = threading.Condition()
         self.procs: dict[int, subprocess.Popen] = {}
         self.next = 0
-        self.stopped = False
+        self.stopped = self.closed = False
         self.threads = [threading.Thread(target=self._run, args=(i,), daemon=True)
                         for i in range(workers)]
         for t in self.threads:
@@ -3163,14 +3250,30 @@ class CpuSide:
 
     def report(self, name: str) -> dict:
         """The REPORTED attributes of run `name`'s tool (after wait)."""
+        if name not in self.names:
+            return side_of(name).report(name)
         with open(self._report_path(name)) as fh:
             return json.load(fh)
+
+    def add(self, runs: list):
+        with self.cond:
+            self.runs += runs
+            self.names |= {name for name, _, _ in runs}
+            self.cond.notify_all()
+
+    def close(self):
+        """No more runs: the workers end when the queue is empty."""
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
 
     def _run(self, worker: int):
         env = dict(os.environ, OMP_NUM_THREADS="1")
         with open(f"{self.log}.{worker}.log", "wb") as log:
             while True:
                 with self.cond:
+                    while not (self.stopped or self.closed or self.next < len(self.runs)):
+                        self.cond.wait()
                     if self.stopped or self.next == len(self.runs):
                         break
                     name, argv, stdout = self.runs[self.next]
@@ -3188,6 +3291,8 @@ class CpuSide:
             self.cond.notify_all()
 
     def wait(self, name: str) -> float:
+        if name not in self.names:
+            return side_of(name).wait(name)
         with self.cond:
             while name not in self.done and not (
                     self.stopped or not any(t.is_alive() for t in self.threads)):
@@ -3203,6 +3308,7 @@ class CpuSide:
     def stop(self):
         with self.cond:
             self.stopped = True
+            self.cond.notify_all()
         for proc in self.procs.values():
             if proc.poll() is None:
                 proc.kill()
@@ -3210,32 +3316,496 @@ class CpuSide:
             t.join()
 
 
-def early_cpu_runs(ctx: dict, pipe: dict, work: str) -> list:
-    """The CPU halves of the earlier tools' CUDA-against-CPU checks, as
-    CpuSide runs: bbduk's three, bbmerge's, bbmap's single end and
-    paired, kmercountexact's two, Tadpole's two, tadpipe's, bbmerge
-    ecco, nn=t (its pairs near the cutoff reported) and its merge stage,
-    bbcms's two (its input made here) and bloomfilter=t's (its
-    prescreened count reported)."""
-    runs = [(f"bbduk {name}", bbduk_argv(name, flags, fin, work, "cpu")[0])
+def make_msa_reads(path: str, primers_fa: str, ata_fa: str, n: int, rng) -> list:
+    """msa's input: n FASTQ reads of MSA_LEN bp cut from the 16S variants
+    of `ata_fa` inside MSA_AWAY (clear of the primers' own sites), and
+    the primers of MSA_PRIMERS cut from the 16S consensus (`primers_fa`).
+    One of the four primer rows (forward, then the reverse complements,
+    in msa's order) is planted with 0-2 substitutions at a random offset
+    in MSA_PLANTED_SHARE of the reads. Returns the plantings: (read
+    index, row, 0-based offset, substitutions)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    cons = consensus_records("16S")[0][1]
+    prim = [cons[at:at + ln] for at, ln in MSA_PRIMERS]
+    with open(primers_fa, "wb") as fh:
+        fh.write(b"".join(b">p%d\n%s\n" % (i, p) for i, p in enumerate(prim)))
+    rows = prim + [p.translate(comp)[::-1] for p in prim]
+    with open(ata_fa, "rb") as fh:
+        variants = fh.read().splitlines()[1::2]
+    planted, recs = [], []
+    for i in range(n):
+        v = variants[int(rng.integers(0, len(variants)))]
+        lo, hi = MSA_AWAY[int(rng.integers(0, len(MSA_AWAY)))]
+        hi = min(hi, len(v))
+        ln = min(int(rng.integers(*MSA_LEN)), hi - lo)
+        at = int(rng.integers(lo, hi - ln + 1))
+        r = np.frombuffer(v[at:at + ln], np.uint8).copy()
+        if rng.random() < MSA_PLANTED_SHARE:
+            row = int(rng.integers(0, len(rows)))
+            p = np.frombuffer(rows[row], np.uint8).copy()
+            nm = int(rng.integers(0, 3))
+            for j in rng.choice(len(p), nm, replace=False):
+                p[j] = acgt[(int(np.searchsorted(acgt, p[j])) + int(rng.integers(1, 4))) % 4]
+            d = int(rng.integers(0, ln - len(p) + 1))
+            r[d:d + len(p)] = p
+            planted.append((i, row, d, nm))
+        recs.append(b"@m%d\n%s\n+\n%s\n" % (i, r.tobytes(), b"I" * ln))
+    with gzip.open(path, "wb", compresslevel=1) as fh:
+        fh.write(b"".join(recs))
+    return planted
+
+
+def make_ifa_data(work: str, codes, rng) -> dict:
+    """indelfree's input: the first IFA_QUERIES records of the bundled
+    CRISPR panel, and a copy of `codes` (the E. coli-length genome) with
+    IFA_PLANTED of them planted, each with 0-3 substitutions, forward or
+    reverse-complemented, at non-overlapping positions: the first
+    IFA_CHECK_PLANTED among the check's queries and within its head.
+    Returns the paths and the plantings (name, strand, 1-based position,
+    substitutions); the check's queries and reference head."""
+    from bbtools_torch.core.dna import CODE_TO_BASE, encode
+    from bbtools_torch.io.fasta import iter_fasta, write_fasta
+
+    panel = os.path.join(HERE, "bbtools_tpu", "resources", "crisprs.fa.gz")
+    recs = []
+    for rec in iter_fasta(panel):
+        recs.append((rec.name.split()[0], encode(rec.seq)))
+        if len(recs) == IFA_QUERIES:
+            break
+    d = {"queries": os.path.join(work, "spacers.fa"), "ref": os.path.join(work, "ifa_ref.fa"),
+         "check_q": os.path.join(work, "spacers_check.fa"),
+         "check_ref": os.path.join(work, "ifa_ref_check.fa")}
+    write_fasta(d["queries"], [(n, CODE_TO_BASE[s].tobytes()) for n, s in recs])
+    write_fasta(d["check_q"], [(n, CODE_TO_BASE[s].tobytes())
+                               for n, s in recs[:IFA_CHECK_QUERIES]])
+    genome = codes.copy()
+    picks = np.concatenate([
+        rng.choice(IFA_CHECK_QUERIES, IFA_CHECK_PLANTED, replace=False),
+        rng.choice(np.arange(IFA_CHECK_QUERIES, len(recs)), IFA_PLANTED - IFA_CHECK_PLANTED,
+                   replace=False)])
+    slot = 100  # one planting a slot of 100 bp, the panel's longest fits
+    slots = np.concatenate([
+        rng.choice(IFA_CHECK_BP // slot - 1, IFA_CHECK_PLANTED, replace=False),
+        IFA_CHECK_BP // slot + rng.choice((len(codes) - IFA_CHECK_BP) // slot - 1,
+                                          IFA_PLANTED - IFA_CHECK_PLANTED, replace=False)])
+    d["planted"] = []
+    for q, sl in zip(picks.tolist(), slots.tolist()):
+        name, s = recs[q]
+        s = s.copy()
+        nm = int(rng.integers(0, 4))
+        for j in rng.choice(len(s), nm, replace=False):
+            s[j] = (s[j] + int(rng.integers(1, 4))) % 4
+        strand = int(rng.integers(0, 2))
+        if strand:
+            s = (3 - s)[::-1]
+        pos = sl * slot + int(rng.integers(0, slot - len(s)))
+        genome[pos:pos + len(s)] = s
+        d["planted"].append((name, strand, pos + 1, nm))
+    write_fasta(d["ref"], [(b"ecoli_len_ifa", CODE_TO_BASE[genome].tobytes())])
+    write_fasta(d["check_ref"], [(b"ecoli_len_ifa", CODE_TO_BASE[genome[:IFA_CHECK_BP]]
+                                  .tobytes())])
+    return d
+
+
+def make_poly_reads(src: str, dst: str, rng) -> int:
+    """polyfilter's input: the reads of `src` (config #1), one in
+    POLY_EVERY with its last POLY_TAIL bases (at most the read) made G.
+    Returns the reads given a tail."""
+    op = gzip.open if src.endswith(".gz") else open
+    with op(src, "rb") as fh:
+        lines = fh.read().split(b"\n")
+    tails = 0
+    for i in range(0, len(lines) - 3, 4):
+        if (i // 4) % POLY_EVERY == POLY_EVERY - 1:
+            s = lines[i + 1]
+            t = min(len(s), int(rng.integers(POLY_TAIL[0], POLY_TAIL[1] + 1)))
+            lines[i + 1] = s[:len(s) - t] + b"G" * t
+            tails += 1
+    with gzip.open(dst, "wb", compresslevel=1) as fh:
+        fh.write(b"\n".join(lines))
+    return tails
+
+
+def make_ml_reads(work: str, rng) -> dict:
+    """The CellNet family's input: ML_READS reads of 150 bp, half from
+    each pool of ML_POOLS (label 1, then 0), as two gzipped FASTQ files."""
+    d = {}
+    for label, pool in zip((1, 0), ML_POOLS):
+        seqs = np.frombuffer(pool, np.uint8)[rng.integers(0, len(pool), (ML_READS // 2, 150))]
+        d[label] = os.path.join(work, f"ml_{label}.fq.gz")
+        with gzip.open(d[label], "wb", compresslevel=1) as fh:
+            fh.write(b"".join(b"@c%d_%d\n%s\n+\n%s\n" % (label, i, s.tobytes(), b"I" * 150)
+                              for i, s in enumerate(seqs)))
+    return d
+
+
+def make_cal_rows(path: str, n: int, rng):
+    """calibrate's input: n (score, label) rows, a label drawn with the
+    logistic of 2 logit(score) + 0.5 (tests/test_research.py)."""
+    x = rng.uniform(0.02, 0.98, n)
+    p = 1.0 / (1 + np.exp(-(2.0 * np.log(x / (1 - x)) + 0.5)))
+    y = (rng.random(n) < p).astype(float)
+    with open(path, "w") as fh:
+        fh.write("".join(f"{a:.5f}\t{b:.0f}\n" for a, b in zip(x, y)))
+
+
+def make_a8c_data(work: str, genome, ref_fa: str, fq: str, bloom_fq: str, asm: dict,
+                  l5: dict, seed: int) -> dict:
+    """The inputs of the phase of the last device-using tools: msa's
+    reads and primers, indelfree's panel and planted genome, polyfilter's
+    reads, the CellNet family's reads, calibrate's rows, and the heads of
+    their checks."""
+    rng = np.random.default_rng(seed)
+
+    def w(name):
+        return os.path.join(work, name)
+
+    d = {"msa": w("msa.fq.gz"), "primers": w("primers.fa"), "poly": w("poly.fq.gz"),
+         "cal": w("cal.tsv"), "kc_in": asm["reads.fq.gz"], "ref_fa": ref_fa,
+         "bloom_in": bloom_fq, "net": w("ml.cuda.bbnet")}
+    d["msa_planted"] = make_msa_reads(d["msa"], d["primers"], l5["ata"], MSA_READS, rng)
+    d["ifa"] = make_ifa_data(work, genome.scaffold_codes(0), rng)
+    d["poly_tails"] = make_poly_reads(fq, d["poly"], rng)
+    d["ml"] = make_ml_reads(work, rng)
+    make_cal_rows(d["cal"], CAL_ROWS, rng)
+    for tag, src, n in (("msa_check", d["msa"], MSA_CHECK_READS),
+                        ("kc_check", d["kc_in"], A8A_CHECK_READS),
+                        ("poly_check", d["poly"], A8A_CHECK_READS),
+                        ("nn_check", fq, A8A_CHECK_READS),
+                        ("bloom_check", bloom_fq, BLOOM_CHECK_READS)):
+        d[tag] = w(f"{tag}.fq.gz")
+        head_fastq(src, d[tag], n)
+    d["ml_check"] = ml_vectors(d["ml"], work, ML_CHECK_ROWS, "ml_check")
+    return d
+
+
+def ml_vectors(ml: dict, work: str, rows: int | None, tag: str) -> str:
+    """seqtovec (host only) of both classes, concatenated as
+    tests/test_mltools.py does (the second file's header dropped), the
+    first `rows` of each class where given: the training TSV's path."""
+    out = os.path.join(work, f"{tag}.tsv")
+    parts = []
+    for label in (1, 0):
+        fin = ml[label]
+        if rows is not None:
+            fin = os.path.join(work, f"{tag}_{label}.fq.gz")
+            head_fastq(ml[label], fin, rows)
+        tsv = os.path.join(work, f"{tag}_{label}.tsv")
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli_call(["seqtovec", f"in={fin}", f"out={tsv}", f"result={label}"])
+        with open(tsv, "rb") as fh:
+            data = fh.read()
+        parts.append(data if not parts else data.split(b"\n", 1)[1])
+    with open(out, "wb") as fh:
+        fh.write(b"".join(parts))
+    return out
+
+
+def sam_body(path: str) -> list[list[bytes]]:
+    """The fields of each alignment line of a SAM file."""
+    with open(path, "rb") as fh:
+        return [ln.split(b"\t") for ln in fh.read().splitlines() if ln and ln[:1] != b"@"]
+
+
+def a8c_phases(a8c: dict, fq: str, n_fq: int, work: str, card: str, phase_s: dict):
+    """The last device-using tools through the CLI on device=cuda, each
+    with its device route counted on the card: msa over MSA_READS reads
+    (every planting found at its offset with its NM), indelfree over the
+    planted genome in 71 chunks (every planting found), kmercoverage k=31
+    hist= over config #2's reads, bloomfilter ref=<genome> over the
+    bloom reads, polyfilter over config #1's reads with poly-G tails
+    (their counts the JAX package's), seqtovec -> train -> netfilter and
+    scoresequence over config #1's reads (the net trained here, at
+    a8c["net"]), and calibrate epochs=2000."""
+
+    def w(name):
+        return os.path.join(work, name)
+
+    # ---- msa: best primer sites of every read (best_sites on the card) ----
+    t0 = time.perf_counter()
+    sam = w("msa.cuda.sam")
+    n_out, dt, _ = run_routed("msa", "msa", [f"in={a8c['msa']}", f"ref={a8c['primers']}",
+                                             f"out={sam}"], {"best_sites": None})
+    names = [b"p0", b"p1", b"r_p0", b"r_p1"]
+    site = {(r[0], r[2]): (int(r[3]) - 1, int(r[11].split(b":")[-1])) for r in sam_body(sam)}
+    missed = [(i, row, d, nm) for i, row, d, nm in a8c["msa_planted"]
+              if site.get((names[row], b"m%d" % i)) != (d, nm)]
+    print(f"msa device=cuda: {MSA_READS} reads x {len(names)} primer rows in {dt:.2f} s = "
+          f"{MSA_READS / dt:.0f} reads/s on {card}; {n_out} alignments; plantings found at "
+          f"their offset and NM: {len(a8c['msa_planted']) - len(missed)} of "
+          f"{len(a8c['msa_planted'])}")
+    if missed or n_out != MSA_READS * len(names):
+        raise AssertionError(f"msa: {n_out} alignments, missed {missed[:5]}")
+    phase_s["msa"] = time.perf_counter() - t0
+
+    # ---- indelfree: the panel against the genome, query rows in tiles ----
+    t0 = time.perf_counter()
+    from bbtools_torch.models import indelfree
+
+    ifa = a8c["ifa"]
+    sam = w("ifa.cuda.sam")
+    chunks = -(-(ECOLI_LEN - 1) // indelfree.CHUNK)
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _, dt, _ = run_routed("indelfree", "indelfree",
+                          [f"in={ifa['queries']}", f"ref={ifa['ref']}", f"out={sam}",
+                           *IFA_FLAGS], {"indelfree_search": chunks})
+    peak = torch.cuda.max_memory_allocated() - base
+    hits = {(r[0], int(r[1]) // 16, int(r[3]), int(r[11].split(b":")[-1]))
+            for r in sam_body(sam)}
+    found = sum(p in hits for p in ifa["planted"])
+    print(f"indelfree {' '.join(IFA_FLAGS)} device=cuda: {IFA_QUERIES} queries ("
+          f"{2 * IFA_QUERIES} rows) against {ECOLI_LEN} bp ({chunks} chunks) in {dt:.2f} s = "
+          f"{ECOLI_LEN / dt / 1e6:.2f} Mbp/s on {card}; {len(hits)} hits, plantings found "
+          f"{found} of {len(ifa['planted'])}; peak memory of the search "
+          f"{peak / 2**20:.0f} MiB (SEARCH_BUDGET {indelfree.SEARCH_BUDGET / 2**20:.0f} MiB)")
+    if found != len(ifa["planted"]) or peak > indelfree.SEARCH_BUDGET:
+        raise AssertionError(f"indelfree: found {found}, peak {peak} bytes")
+    phase_s["indelfree"] = time.perf_counter() - t0
+
+    # ---- kmercoverage, bloomfilter, polyfilter: the sketch on the card ----
+    t0 = time.perf_counter()
+    hist = w("kc.cuda.hist.txt")
+    n, dt, _ = run_routed("kmercoverage", "kmercoverage",
+                          [f"in={a8c['kc_in']}", f"out={w('kc.cuda.fq')}", f"hist={hist}",
+                           "k=31"], {"cms_add": None, "cms_query": None})
+    with open(hist) as fh:
+        counts = [int(ln.split("\t")[1]) for ln in fh.read().splitlines()[1:]]
+    mode = int(np.argmax(counts))
+    print(f"kmercoverage k=31 device=cuda: {n} reads in {dt:.2f} s = {n / dt:.0f} reads/s on "
+          f"{card}; depth histogram's mode {mode} (the JAX package's {KC_MODE})")
+    if n != ASM_READS or mode != KC_MODE:
+        raise AssertionError(f"kmercoverage: {n} reads, mode {mode}")
+    bloom_in = a8c["bloom_in"]
+    (kept, total), dt, _ = run_routed(
+        "bloomfilter", "bloomfilter",
+        [f"in={bloom_in}", f"ref={a8c['ref_fa']}", f"out={w('bf.cuda.fq')}",
+         f"outm={w('bf.cuda.m.fq')}", "k=31"], {"cms_add": 1, "cms_query": None})
+    matched = fastq_lengths(w("bf.cuda.m.fq"))
+    real = sum(not k.startswith(b"junk") for k in matched)
+    print(f"bloomfilter k=31 device=cuda: {total} reads in {dt:.2f} s = {total / dt:.0f} "
+          f"reads/s (incl. the sketch of {ECOLI_LEN} bp) on {card}; matched {total - kept}: "
+          f"{real} of {BLOOM_READS} genome reads, {len(matched) - real} of {BLOOM_FOREIGN} "
+          f"foreign (the JAX package's matched count {BLOOM_MATCHED})")
+    if real != BLOOM_READS or total - kept != BLOOM_MATCHED:
+        raise AssertionError(f"bloomfilter: matched {total - kept}, genome reads {real}")
+    (kept, removed), dt, _ = run_routed(
+        "polyfilter", "polyfilter",
+        [f"in={a8c['poly']}", f"out={w('pf.cuda.fq')}", f"outb={w('pf.cuda.b.fq')}",
+         f"extra={a8c['poly']}"], {"cms_add": None, "cms_query": None})
+    print(f"polyfilter extra=<its input> device=cuda: {n_fq} reads in {dt:.2f} s = "
+          f"{n_fq / dt:.0f} reads/s on {card}; removed {removed} ({a8c['poly_tails']} given "
+          f"a poly-G tail; the JAX package's count {POLY_REMOVED})")
+    if kept + removed != n_fq or removed != POLY_REMOVED:
+        raise AssertionError(f"polyfilter: kept {kept}, removed {removed}")
+    phase_s["kmercoverage, bloomfilter, polyfilter"] = time.perf_counter() - t0
+
+    # ---- seqtovec -> train -> netfilter, scoresequence; calibrate ----
+    t0 = time.perf_counter()
+    tsv = ml_vectors(a8c["ml"], work, None, "ml_train")
+    vec_s = time.perf_counter() - t0
+    net = a8c["net"]
+    _, dt, log = run_routed("train", "train", [f"data={tsv}", f"out={net}"],
+                            {"net_fit": 1, "net_forward": None})
+    print(f"seqtovec: {ML_READS} reads in {vec_s:.2f} s (host); train device=cuda: "
+          f"{ML_READS} vectors x 2,000 epochs in {dt:.2f} s = {2000 / dt:.0f} epochs/s on "
+          f"{card}; {log.strip()}")
+    if "acc=1.0000" not in log:
+        raise AssertionError(f"train: {log}")
+    (_, dt, log) = run_routed("netfilter", "netfilter",
+                              [f"in={fq}", f"net={net}", f"out={w('nf.cuda.fq')}",
+                               f"outu={w('nf.cuda.u.fq')}"], {"net_forward": None})
+    print(f"netfilter device=cuda: {n_fq} reads in {dt:.2f} s = {n_fq / dt:.0f} reads/s on "
+          f"{card}; {log.strip()}")
+    (_, dt, log) = run_routed("scoresequence", "scoresequence",
+                              [f"in={fq}", f"net={net}", f"out={w('ss.cuda.fq')}",
+                               f"hist={w('ss.cuda.hist.txt')}"], {"net_forward": None})
+    print(f"scoresequence device=cuda: {n_fq} reads in {dt:.2f} s = {n_fq / dt:.0f} reads/s "
+          f"on {card}; {log.strip()}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        _, dt, _ = run_routed("calibrate", "calibrate", [f"in={a8c['cal']}", "epochs=2000"],
+                              {"calibrate_fit": 1})
+    print(f"calibrate epochs=2000 device=cuda: {CAL_ROWS} rows x 2,000 epochs in {dt:.2f} s "
+          f"on {card}; {text.getvalue().strip()}")
+    phase_s["cellnet family, calibrate"] = time.perf_counter() - t0
+
+
+def a8c_check_runs(a8c: dict, work: str) -> dict:
+    """The CLI runs of the CUDA-against-CPU checks of the last
+    device-using tools: name -> (argv on device d, d's output files): msa
+    on MSA_CHECK_READS reads, indelfree on the first IFA_CHECK_QUERIES
+    queries against the genome's first IFA_CHECK_BP bp, kmercoverage,
+    polyfilter, netfilter and scoresequence (the phase's net) on
+    A8A_CHECK_READS reads, bloomfilter on BLOOM_CHECK_READS, train on
+    ML_CHECK_ROWS rows a class, calibrate on the phase's rows. The
+    checks of train, scoresequence, netfilter and calibrate are held to
+    their tolerances (`a8c_checks`), the others byte for byte."""
+    def w(name):
+        return os.path.join(work, name)
+
+    ifa, net = a8c["ifa"], a8c["net"]
+    return {
+        "train": lambda d: Check(["train", f"data={a8c['ml_check']}",
+                                  f"out={w(f'mlchk.{d}.bbnet')}"], [w(f"mlchk.{d}.bbnet")]),
+        "calibrate": lambda d: Check(["calibrate", f"in={a8c['cal']}", "epochs=2000",
+                                      f"out={w(f'calchk.{d}.txt')}"], [w(f"calchk.{d}.txt")]),
+        "indelfree": lambda d: Check(["indelfree", f"in={ifa['check_q']}",
+                                      f"ref={ifa['check_ref']}", f"out={w(f'ifachk.{d}.sam')}",
+                                      *IFA_FLAGS], [w(f"ifachk.{d}.sam")]),
+        "msa": lambda d: Check(["msa", f"in={a8c['msa_check']}", f"ref={a8c['primers']}",
+                                f"out={w(f'msachk.{d}.sam')}"], [w(f"msachk.{d}.sam")]),
+        "polyfilter": lambda d: Check(["polyfilter", f"in={a8c['poly_check']}",
+                                       f"extra={a8c['poly_check']}",
+                                       f"out={w(f'pfchk.{d}.fq')}", f"outb={w(f'pfchk.{d}.b.fq')}"],
+                                      [w(f"pfchk.{d}.fq"), w(f"pfchk.{d}.b.fq")]),
+        "kmercoverage": lambda d: Check(["kmercoverage", f"in={a8c['kc_check']}", "k=31",
+                                         f"out={w(f'kcchk.{d}.fq')}",
+                                         f"hist={w(f'kcchk.{d}.h.txt')}"],
+                                        [w(f"kcchk.{d}.fq"), w(f"kcchk.{d}.h.txt")]),
+        "bloomfilter": lambda d: Check(["bloomfilter", f"in={a8c['bloom_check']}",
+                                        f"ref={a8c['ref_fa']}", "k=31",
+                                        f"out={w(f'bfchk.{d}.fq')}",
+                                        f"outm={w(f'bfchk.{d}.m.fq')}"],
+                                       [w(f"bfchk.{d}.fq"), w(f"bfchk.{d}.m.fq")]),
+        "netfilter": lambda d: Check(["netfilter", f"in={a8c['nn_check']}", f"net={net}",
+                                      f"out={w(f'nfchk.{d}.fq')}", f"outu={w(f'nfchk.{d}.u.fq')}"],
+                                     [w(f"nfchk.{d}.fq"), w(f"nfchk.{d}.u.fq")]),
+        "scoresequence": lambda d: Check(["scoresequence", f"in={a8c['nn_check']}",
+                                          f"net={net}", f"out={w(f'sschk.{d}.fq')}"],
+                                         [w(f"sschk.{d}.fq")]),
+    }
+
+
+#: the a8c checks held to a tolerance, not byte for byte
+A8C_TOLERANT = ("train", "calibrate", "netfilter", "scoresequence")
+#: the a8c checks that use the net the phase trains
+A8C_NEED_NET = ("netfilter", "scoresequence")
+
+
+def a8c_checks(a8c: dict, runs: dict, cpu_side: CpuSide, here: dict, phase_s: dict):
+    """The a8c checks: the byte-for-byte ones as file_checks does; the
+    nets of train within FIT_WEIGHT_TOL; calibrate's constants within
+    CAL_TOL and its mse within CAL_MSE_TOL; netfilter's files equal but
+    for reads the card scores within NN_NEAR of the cutoff;
+    scoresequence's reads equal but for their scores, within
+    SCORE_TOL."""
+    from bbtools_torch.ml.cellnet import parse_bbnet
+    from bbtools_torch.utils.fqdiff import differing_names
+
+    file_checks("a8c", {k: v for k, v in runs.items() if k not in A8C_TOLERANT}, cpu_side,
+                phase_s, here=here)
+    t0 = time.perf_counter()
+    for name in A8C_TOLERANT:
+        cpu_s = cpu_side.wait(name)
+        files = {d: runs[name](d).outs for d in ("cuda", "cpu")}
+        if name == "train":
+            nets = {d: parse_bbnet(files[d][0]) for d in files}
+            pairs = list(zip(nets["cuda"].weights + nets["cuda"].biases,
+                             nets["cpu"].weights + nets["cpu"].biases))
+            if not all(np.isfinite(a).all() and np.isfinite(b).all() for a, b in pairs):
+                raise AssertionError("train: a net holds a weight that is not finite")
+            diff = max(float(np.abs(a - b).max()) for a, b in pairs)
+            print(f"train: cuda against cpu on {2 * ML_CHECK_ROWS} vectors x 2,000 epochs, the "
+                  f"largest weight difference {diff:.2e} (tolerance {FIT_WEIGHT_TOL})")
+            if nets["cuda"].dims != nets["cpu"].dims or diff > FIT_WEIGHT_TOL:
+                raise AssertionError(f"train: the nets differ by {diff}")
+        elif name == "calibrate":
+            vals = {}
+            for d in files:
+                with open(files[d][0]) as fh:
+                    vals[d] = {k: float(v) for k, v in (kv.split("=") for kv in fh.read().split())}
+            diff = max(abs(vals["cuda"][k] - vals["cpu"][k]) for k in ("a", "b", "K", "c"))
+            dmse = abs(vals["cuda"]["mse"] - vals["cpu"]["mse"])
+            print(f"calibrate: cuda {vals['cuda']} against cpu {vals['cpu']}: constants within "
+                  f"{diff:.1e} (tolerance {CAL_TOL}), mse within {dmse:.1e}")
+            if diff > CAL_TOL or dmse > CAL_MSE_TOL:
+                raise AssertionError(f"calibrate: {vals}")
+        elif name == "netfilter":
+            near = nn_near_reads(a8c["nn_check"], a8c["net"])
+            got = {d: read_all(files[d]) for d in files}
+            differ = set()
+            for a, b in zip(got["cuda"], got["cpu"]):
+                differ |= differing_names(a, b)
+            print(f"netfilter: cuda against cpu on {A8A_CHECK_READS} reads: {len(differ)} reads "
+                  f"differ, {len(near)} score within {NN_NEAR} of the cutoff on the card")
+            if not differ <= near:
+                raise AssertionError(f"netfilter: {sorted(differ - near)[:5]} differ")
+        else:
+            recs = {d: read_all(files[d])[0].split(b"\n") for d in files}
+            heads = {d: [ln.rsplit(b"\tscore=", 1) for ln in recs[d][0::4]] for d in recs}
+            same = all(recs["cuda"][i] == recs["cpu"][i] for i in range(len(recs["cuda"]))
+                       if i % 4) and len(recs["cuda"]) == len(recs["cpu"])
+            diff = max((abs(float(a[1]) - float(b[1])) for a, b in
+                        zip(heads["cuda"], heads["cpu"]) if len(a) == 2), default=0.0)
+            flips = sum(a != b for a, b in zip(heads["cuda"], heads["cpu"]))
+            print(f"scoresequence: cuda against cpu on {A8A_CHECK_READS} reads: {flips} scores "
+                  f"differ, by at most {diff:.4f} (tolerance {SCORE_TOL})")
+            names_differ = any(a[0] != b[0] for a, b in zip(heads["cuda"], heads["cpu"]))
+            if not same or names_differ or diff > SCORE_TOL + 1e-9:
+                raise AssertionError("scoresequence: cuda and cpu records differ")
+        print(f"  ({name}: cuda {here[name]:.2f} s in this process, cpu {cpu_s:.2f} s in a "
+              f"process of its own)")
+    phase_s["cuda against cpu, a8c tolerances"] = time.perf_counter() - t0
+
+
+def nn_near_reads(fq: str, net_path: str) -> set:
+    """Names of the reads of `fq` whose score (the better strand) with
+    the net at `net_path` lies within NN_NEAR of its cutoff, on the card."""
+    from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.ml.cellnet import parse_bbnet
+    from bbtools_torch.models.mltools import score_batch
+
+    net = parse_bbnet(net_path)
+    near = set()
+    for b in FastqReader(fq):
+        s = score_batch(net, b.bases, b.lengths, (net.dims[0] - 4) // 4, 0)
+        near |= {b.ids[i].split()[0] for i in np.nonzero(np.abs(s - 0.5) < NN_NEAR)[0]}
+    return near
+
+
+def side_of(name: str) -> CpuSide:
+    """The CpuSide that holds run `name`."""
+    return next(side for side in CpuSide.started if name in side.names)
+
+
+def early_runs(ctx: dict, pipe: dict, work: str, device: str) -> list:
+    """One half of the earlier tools' CUDA-against-CPU checks, as CpuSide
+    runs on `device` (a CUDA half's name ends in " cuda"): bbduk's three,
+    bbmerge's, bbmap's single end and paired, kmercountexact's two,
+    Tadpole's two (its contig run on the card is the main phase's),
+    tadpipe's, bbmerge ecco, nn=t (its pairs near the cutoff reported)
+    and its merge stage, bbcms's two (their input made here) and
+    bloomfilter=t's (its prescreened count reported)."""
+    runs = [(f"bbduk {name}", bbduk_argv(name, flags, fin, work, device)[0])
             for name, flags, fin in ctx["bbduk_checks"]]
-    runs.append(("bbmerge", bbmerge_argv(ctx["small_pairs"], work, "head", "cpu")[0]))
+    runs.append(("bbmerge", bbmerge_argv(ctx["small_pairs"], work, "head", device)[0]))
     for name, ins in ctx["bbmap_checks"]:
-        runs.append((f"bbmap {name}", bbmap_check_argv(ctx, ins, name, work, "cpu")[0]))
+        runs.append((f"bbmap {name}", bbmap_check_argv(ctx, ins, name, work, device)[0]))
     for k in (31, 93):
-        runs.append((f"kmercountexact k={k}", kce_check_argv(ctx["asm"], k, work, "cpu")[0]))
-    for tag in ("contig k=62", "correct k=31"):
-        runs.append((f"tadpole {tag}", tadpole_check_argv(ctx["asm"], tag, work, "cpu")[0]))
-    runs.append(("tadpipe", tadpipe_check_argv(pipe, work, "cpu")[0]))
+        runs.append((f"kmercountexact k={k}", kce_check_argv(ctx["asm"], k, work, device)[0]))
+    for tag in ("contig k=62", "correct k=31")[device == "cuda":]:
+        runs.append((f"tadpole {tag}", tadpole_check_argv(ctx["asm"], tag, work, device)[0]))
+    runs.append(("tadpipe", tadpipe_check_argv(pipe, work, device)[0]))
     for tag, ins, flags, _n in a6b_merge_checks(pipe):
-        runs.append((f"bbmerge {tag}", bbmerge_argv(ins, work, f"mcheck_{tag}", "cpu",
+        runs.append((f"bbmerge {tag}", bbmerge_argv(ins, work, f"mcheck_{tag}", device,
                                                     flags)[0]))
     pipe["cms_check"] = os.path.join(work, "cms_check.fq.gz")
-    head_fastq(pipe["region.fq.gz"], pipe["cms_check"], CMS_CHECK_READS)
+    if not os.path.exists(pipe["cms_check"]):
+        head_fastq(pipe["region.fq.gz"], pipe["cms_check"], CMS_CHECK_READS)
     for flags in CMS_CHECKS:
-        runs.append((f"bbcms {' '.join(flags)}", bbcms_check_argv(pipe, flags, work, "cpu")[0]))
-    runs.append(("bbmap bloomfilter=t", bloom_check_argv(pipe, work, "cpu")[0]))
-    return [(name, argv, None) for name, argv in runs]
+        runs.append((f"bbcms {' '.join(flags)}", bbcms_check_argv(pipe, flags, work, device)[0]))
+    runs.append(("bbmap bloomfilter=t", bloom_check_argv(pipe, work, device)[0]))
+    suffix = " cuda" if device == "cuda" else ""
+    return [(name + suffix, argv, None) for name, argv in runs]
+
+
+#: the CUDA halves the late processes start first: the longest
+LATE_FIRST = ("tadpipe cuda", "bbmerge merge cuda", "mappacbio cuda", "bbmapskimmer cuda",
+              "dedupe cuda", "seal cuda")
 
 
 def kce_check_argv(asm: dict, k: int, work: str, device: str):
@@ -3312,7 +3882,8 @@ def file_checks(label: str, runs: dict, cpu_side: CpuSide, phase_s: dict,
     t0 = time.perf_counter()
     for name, fn in runs.items():
         cpu_s = cpu_side.wait(name)
-        cuda_s = cpu_side.wait(f"{name} cuda") if f"{name} cuda" in cpu_side.names else None
+        started = any(f"{name} cuda" in side.names for side in CpuSide.started)
+        cuda_s = cpu_side.wait(f"{name} cuda") if started else None
         files = {d: read_all(fn(d).outs) for d in ("cuda", "cpu")}
         if files["cuda"] != files["cpu"]:
             raise AssertionError(f"{name}: cuda and cpu outputs differ")
@@ -3432,6 +4003,9 @@ def main(argv=None) -> int:
         small_pairs = [os.path.join(work, f"head_pairs_{m}.fq.gz") for m in (1, 2)]
         head_fastq(r1, small_pairs[0], CHECK_READS)
         head_fastq(r2, small_pairs[1], CHECK_READS)
+        nn_pairs = [os.path.join(work, f"nn_pairs_{m}.fq.gz") for m in (1, 2)]
+        head_fastq(r1, nn_pairs[0], min(NN_PAIRS, args.pairs))
+        head_fastq(r2, nn_pairs[1], min(NN_PAIRS, args.pairs))
         small_tbo = os.path.join(work, "head_tbo.fq.gz")
         head_fastq(tbo_in, small_tbo, 2 * CHECK_READS)
         mm_reads = min(MM_READS, args.reads)
@@ -3505,6 +4079,14 @@ def main(argv=None) -> int:
               f"reads ({', '.join(RIBO_TYPES)}; {RIBO_LEN[0]}-{RIBO_LEN[1]} bp, 5S whole); "
               f"{l5['pb_reads']} subreads of {IC_LEN[0]}-{IC_LEN[1]} bp in {IC_ZMWS} ZMWs, "
               f"{l5['pb_planted']} with a missed adapter; made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        a8c = make_a8c_data(work, genome, ref_fa, fq, bloom_fq, asm, l5, args.seed + 60)
+        print(f"a8c input: {MSA_READS} reads of {MSA_LEN[0]}-{MSA_LEN[1]} bp of the 16S "
+              f"variants, {len(a8c['msa_planted'])} with a primer row planted; "
+              f"{IFA_QUERIES} CRISPR records, {IFA_PLANTED} planted in the genome; "
+              f"{a8c['poly_tails']} of config #1's reads given a poly-G tail; {ML_READS} "
+              f"reads of two classes; {CAL_ROWS} calibration rows; made in "
               f"{time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
         kernels_built()
@@ -3581,7 +4163,8 @@ def main(argv=None) -> int:
         print(f"bbmerge device=cuda: {args.pairs} pairs in {dt:.2f} s = "
               f"{args.pairs / dt:.0f} pairs/s, {2 * args.pairs / dt:.0f} reads/s "
               f"(wall, incl. IO) on {card}")
-        ctx = {"pairs": (r1, r2), "merge_share": share, "merge_rate": args.pairs / dt,
+        ctx = {"pairs": (r1, r2), "nn_pairs": nn_pairs, "merge_share": share,
+               "merge_rate": args.pairs / dt,
                "asm": asm, "ref_fa": ref_fa, "bloom_fq": bloom_fq, "map_fq": map_fq,
                "map_batch": map_batch, "map_small": map_small, "small_pairs": small_pairs,
                "bbduk_checks": (*((n, CONFIGS[n], small) for n in CONFIGS),
@@ -3635,44 +4218,56 @@ def main(argv=None) -> int:
             row["launches"] = launches[row["name"]]
         phase_s["bbduk, bbmerge, bbmap"] = time.perf_counter() - t0
 
+        # the CPU halves of the checks (plain versions on one thread,
+        # minutes each for the L5 tools' and the long reads') in
+        # EARLY_SIDE_WORKERS processes from here on, beside the phases
+        # below: the recalibrate=t and coverage checks' once calctruequality
+        # has run; netfilter's and scoresequence's, which need the trained
+        # net, with the CUDA halves once the last rate is taken
+        early = CpuSide(pool_runs(l5_check_runs(l5, small, work))[0]
+                        + early_runs(ctx, pipe, work, "cpu")
+                        + pool_runs(a8a_check_runs(a8, work))[0]
+                        + [r for r in pool_runs(a8c_check_runs(a8c, work))[0]
+                           if r[0] not in A8C_NEED_NET], work,
+                        workers=EARLY_SIDE_WORKERS, tag="early_side")
+        print(f"CPU halves of the checks: {EARLY_SIDE_WORKERS} processes, from the config "
+              f"#2/#5 phases on")
         asm_out = asm_phases(asm, work, card, phase_s)
         ctx["cv_sam"] = asm_out["sam"]
         a6b_out = a6b_phases(asm, pipe, ctx, work, card, phase_s)
-        # the CPU halves of the L5 checks (plain glocal rows on one
-        # thread, minutes each; splitribo's the longest) beside the
-        # long-read presets, whose rate is the card's walk
-        l5_side = CpuSide(pool_runs(l5_check_runs(l5, small, work))[0], work,
-                          workers=L5_SIDE_WORKERS, tag="l5_side")
-        print(f"CPU halves of the L5 checks: {L5_SIDE_WORKERS} processes, from the A2/A4b "
-              f"phases on")
         a2_phases(a2, ctx, work, card, phase_s)
+        early.add(pool_runs(a2_check_runs(a2, ctx, work))[0])
         a8a_phases(asm, a2, a8, work, card, phase_s)
         l5_phases(l5, fq, args.reads, work, card, phase_s)
-        # the CPU halves of the other checks, in processes once the last
-        # rate is taken; the longest first
-        a2_runs, a2_cuda = pool_runs(a2_check_runs(a2, ctx, work))
-        a8_runs, a8_cuda = pool_runs(a8a_check_runs(a8, work), skip=("ecc",))
-        print(f"CPU halves of the checks, and the CUDA halves of the A2/A4b and A8a "
-              f"checks: {CPU_SIDE_WORKERS} processes")
+        a8c_phases(a8c, fq, args.reads, work, card, phase_s)
+        early.close()
+        # the CUDA halves of the checks, and the CPU halves that need the
+        # trained net, in processes once the last rate is taken
+        a8c_runs = a8c_check_runs(a8c, work)
+        late = (early_runs(ctx, pipe, work, "cuda")
+                + pool_runs(a2_check_runs(a2, ctx, work))[1]
+                + pool_runs(a8a_check_runs(a8, work), skip=("ecc",))[1]
+                + [r for r in pool_runs(a8c_runs)[0] if r[0] in A8C_NEED_NET])
+        print(f"CUDA halves of the checks: {CPU_SIDE_WORKERS} processes")
         import torch
 
         torch.cuda.empty_cache()  # the card's memory for the processes' CUDA halves
-        # the longest first: mapPacBio's and the skimmer's plain fill
-        # (~1.5 minutes each on one thread)
-        cpu_side = ctx["cpu_side"] = CpuSide(
-            a2_runs[:2] + a8_runs[:1] + early_cpu_runs(ctx, pipe, work) + a2_runs[2:]
-            + a8_runs[1:] + a2_cuda + a8_cuda, work)
-        # the L5 checks' CUDA halves here, while the processes run the
-        # first CPU halves (a few seconds each, CUDA warm)
+        # the longest first: tadpipe's, the merge stage's, mapPacBio's and
+        # the skimmer's
+        late.sort(key=lambda r: r[0] not in LATE_FIRST)
+        cpu_side = ctx["cpu_side"] = CpuSide(late, work)
+        cpu_side.close()
+        # the L5 and a8c checks' CUDA halves here, while the processes run
         t0 = time.perf_counter()
         l5_here = cuda_halves_here(l5_check_runs(l5, small, work))
-        phase_s["cuda halves of the l5 checks"] = time.perf_counter() - t0
+        a8c_here = cuda_halves_here(a8c_runs)
+        phase_s["cuda halves of the l5 and a8c checks"] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
-        # ---- CUDA against CPU, byte for byte, on the first reads (the
-        # CPU halves run in cpu_side's processes) ----
+        # ---- CUDA against CPU, byte for byte, on the first reads (both
+        # halves in processes) ----
         for name, flags, fin in ctx["bbduk_checks"]:
-            run_bbduk(name, flags, fin, work, "cuda")
+            cpu_side.wait(f"bbduk {name} cuda")
             cpu_side.wait(f"bbduk {name}")
             files = {d: read_all(bbduk_argv(name, flags, fin, work, d)[1])
                      for d in ("cuda", "cpu")}
@@ -3680,7 +4275,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name}: cuda and cpu outputs differ")
             print(f"bbduk {name}: cuda == cpu on {CHECK_READS} reads/pairs "
                   f"({len(files['cuda'][0])} output bytes, stats equal)")
-        run_bbmerge(small_pairs, work, "head", "cuda")
+        cpu_side.wait("bbmerge cuda")
         cpu_side.wait("bbmerge")
         files = {d: read_all(bbmerge_argv(small_pairs, work, "head", d)[1])
                  for d in ("cuda", "cpu")}
@@ -3689,13 +4284,12 @@ def main(argv=None) -> int:
         print(f"bbmerge: cuda == cpu on {CHECK_READS} pairs (merged "
               f"{len(files['cuda'][0])} bytes, unmerged and ihist equal)")
         for (name, ins), n in zip(ctx["bbmap_checks"], (MAP_CHECK_READS, MAP_CHECK_PAIRS)):
-            argv, _ = bbmap_check_argv(ctx, ins, name, work, "cuda")
-            _, dt, _ = run_tool("bbmap", argv[1:-1], "cuda")
+            dt = cpu_side.wait(f"bbmap {name} cuda")
             cpu_dt = cpu_side.wait(f"bbmap {name}")
             files = {d: read_all(bbmap_check_argv(ctx, ins, name, work, d)[1])
                      for d in ("cuda", "cpu")}
             print(f"bbmap {name}: {n} reads/pairs in {dt:.2f} s on cuda, {cpu_dt:.2f} s on "
-                  f"cpu (in a process of its own)")
+                  f"cpu (each in a process of its own)")
             if files["cuda"] != files["cpu"]:
                 raise AssertionError(f"bbmap {name}: cuda and cpu SAM differ")
             print(f"bbmap {name}: cuda == cpu on {n} reads/pairs "
@@ -3706,7 +4300,8 @@ def main(argv=None) -> int:
         a6b_checks(asm, pipe, ctx, a6b_out, work, phase_s)
         file_checks("a2/a4b", a2_check_runs(a2, ctx, work), cpu_side, phase_s)
         file_checks("a8a", a8a_check_runs(a8, work), cpu_side, phase_s)
-        file_checks("l5", l5_check_runs(l5, small, work), l5_side, phase_s, here=l5_here)
+        file_checks("l5", l5_check_runs(l5, small, work), cpu_side, phase_s, here=l5_here)
+        a8c_checks(a8c, a8c_runs, cpu_side, a8c_here, phase_s)
         loglog_check(asm)
     finally:
         build_thread.join()

@@ -1889,3 +1889,57 @@ def test_a8a_l5_tools_cuda_equal_cpu(cuda, tmp_path):
             out[dev] = ([open(o + e, "rb").read() for e in exts]
                         + [text.getvalue(), re.sub(r"[0-9.]+ seconds", "", err.getvalue())])
         assert out["cuda"] == out["cpu"], name
+
+
+def test_best_sites_and_indelfree_search_cuda_equal_cpu(cuda):
+    """findprimers' best_sites and indelfree's search (at two tile
+    budgets) give the CPU's numbers on the card, each counted."""
+    from bbtools_torch.models import indelfree
+    from bbtools_torch.models.findprimers import best_sites
+
+    rng = np.random.default_rng(13)
+    bases = rng.integers(0, 5, (4096, 300)).astype(np.uint8)
+    lengths = rng.integers(150, 301, 4096).astype(np.int32)
+    prim = rng.integers(0, 5, (4, 20)).astype(np.uint8)
+    plens = np.array([19, 20, 19, 20], np.int32)
+    bases[::7, 40:59] = prim[0, :19]
+    before = best_sites.device_calls
+    got = best_sites(bases, lengths, prim, plens, "cuda")
+    want = best_sites(bases, lengths, prim, plens, "cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert best_sites.device_calls == before + 1
+    q = rng.integers(0, 4, (64, 55)).astype(np.uint8)
+    ql = rng.integers(22, 56, 64).astype(np.int32)
+    for i in range(64):
+        q[i, ql[i]:] = 4
+    chunk = rng.integers(0, 5, indelfree.CHUNK + 55).astype(np.uint8)
+    chunk[1000:1055] = q[3]
+    want = indelfree._device_search(q, ql, chunk, "cpu").numpy()
+    for budget in (1 << 26, None):
+        before = indelfree._device_search.device_calls
+        got = indelfree._device_search(q, ql, chunk, "cuda", budget).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert indelfree._device_search.device_calls == before + 1
+    assert want[3, 1000] == 0
+
+
+def test_cellnet_fit_cuda_within_tolerance_of_cpu(cuda):
+    """A few epochs of Adam on the card end within the CPU tests' bound
+    (tests/test_torch_mltools.py FIT_WEIGHT_TOL) of the CPU's."""
+    from bbtools_torch.ml.cellnet import CellNet
+
+    rng = np.random.default_rng(2)
+    x = rng.random((2000, 40)).astype(np.float32)
+    y = (x[:, :3].sum(1, keepdims=True) > 1.5).astype(np.float32)
+    nets = {}
+    for dev in ("cpu", "cuda"):
+        nets[dev] = CellNet.create([40, 20, 1], seed=3)
+        nets[dev].device = dev
+        before = CellNet.fit.device_calls
+        nets[dev].loss = nets[dev].fit(x, y, epochs=20, lr=0.05)
+        assert CellNet.fit.device_calls == before + (dev == "cuda")
+    for a, b in zip(nets["cpu"].weights + nets["cpu"].biases,
+                    nets["cuda"].weights + nets["cuda"].biases):
+        assert float(np.abs(a - b).max()) <= 5e-5
+    assert abs(nets["cpu"].loss - nets["cuda"].loss) <= 1e-6

@@ -137,6 +137,8 @@ PARTLY_COPIED = {
                                "align_random_main", "micro_main"],
     # reformat's quality trim runs on the device
     "models/reformat.py": ["main"],
+    # the ML tools that train or run a net take a device=
+    "models/mltools.py": ["train_main", "scoresequence_main", "netfilter_main"],
 }
 
 
@@ -273,7 +275,8 @@ COPIED_FUNCTIONS = [
     ("models.bbmap", "BBMap._cov_init"), ("models.bbmap", "BBMap._coverage_add"),
     ("models.bbmap", "BBMap._write_coverage"),
     ("cli", "_remove_preset"), ("cli", "_bbwrap"), ("cli", "guard_output_files"),
-    ("cli", "_lazy"),
+    ("cli", "_lazy"), ("models.research", "regressiontrainer_main"),
+    ("models.polyfilter", "_max_pure_run"),
 ]
 
 
@@ -287,6 +290,81 @@ def _source(pkg, mod, qualname):
 @pytest.mark.parametrize("mod,qualname", COPIED_FUNCTIONS)
 def test_copied_function_has_not_drifted(mod, qualname):
     assert _source("bbtools_torch", mod, qualname) == _source("bbtools_tpu", mod, qualname)
+
+
+#: functions the port copies but for its device flag and its device
+#: calls: the JAX package's lines it leaves out. Every other line of the
+#: JAX package's function is in the port's, in the same order.
+EDITED_FUNCTIONS = {
+    ("models.findprimers", "main"): [
+        "        off, mm = best_sites(b.bases, b.lengths, q, ql)"],
+    ("models.indelfree", "main"): [
+        "            mism = _device_search(queries, qlens, chunk, max_subs)",
+        "            hits = np.argwhere(mism <= allowed[:, None])",
+        "            for qi, off in hits:",
+        "                nm = int(mism[qi, off])"],
+    ("models.misctools", "kmercoverage"): [
+        "    from ..ops.kmers import canonical_keys_np, rolling_kmers_np",
+        "    def read_keys(batch):",
+        "        fwd, rkm, runlen = rolling_kmers_np(batch.bases, k)",
+        "        keys = canonical_keys_np(fwd, rkm, k)",
+        "        valid = (runlen >= k) & (",
+        "            np.arange(batch.padded_len)[None, :] < batch.lengths[:, None]",
+        "        )", "        return keys, valid", "",
+        '    cms = CountMinSketch(hashes=a.get_int("hashes", default=2))',
+        "            keys, valid = read_keys(b)", "            flat = keys[valid]",
+        "                kk = keys[i][valid[i]]", "                if len(kk):",
+        "                    depths = cms.query(kk)"],
+    ("models.texttools", "bloomfilter"): [
+        "    from ..ops.kmers import rolling_kmers_np", "    cms = CountMinSketch()",
+        "        fwd, rkm, runlen = rolling_kmers_np(codes[None, :], k)",
+        "        ok = runlen[0] >= k", "        cms.add(np.maximum(fwd[0][ok], rkm[0][ok]))",
+        "        fwd, rkm, runlen = rolling_kmers_np(b.bases, k)",
+        "        i_idx = np.arange(b.bases.shape[1])[None, :]",
+        "        ok = (runlen >= k) & (i_idx < b.lengths[:, None])",
+        "        keys = np.maximum(fwd, rkm)", "        flat_ok = ok.reshape(-1)",
+        "        if flat_ok.any():", "            counts = np.zeros(ok.size, np.int64)",
+        "            counts[flat_ok] = cms.query(keys.reshape(-1)[flat_ok])",
+        "            hits = (counts.reshape(ok.shape) > 0).sum(axis=1)"],
+    ("models.polyfilter", "main"): [
+        '        cms = CountMinSketch(hashes=a.get_int("hashes", default=2))',
+        "                for keys in _read_keys(b, k):",
+        "                    if len(keys):",
+        "                        cms.add(keys)",
+        "            ldfrac = np.zeros(n)",
+        "            for i, keys in enumerate(_read_keys(batch, k)):",
+        "                if len(keys):",
+        "                    counts = cms.query(keys)",
+        "                    ldfrac[i] = float((counts < mincount).mean())",
+        "        else:"],
+    ("models.research", "calibrate_main"): [
+        '    rows by gradient descent (jax)."""', "    import jax",
+        "    import jax.numpy as jnp", "", "    xl = jnp.log(x / (1 - x))  # logit",
+        "    yj = jnp.asarray(y)", "    def model(p):",
+        '        s = jax.nn.sigmoid(p["a"] * xl + p["b"])',
+        '        return p["K"] * s ** jnp.exp(p["logc"])', "    def loss(p):",
+        "        return jnp.mean((model(p) - yj) ** 2)",
+        '    p = {"a": jnp.float32(1.0), "b": jnp.float32(0.0),',
+        '         "K": jnp.float32(1.0), "logc": jnp.float32(0.0)}',
+        "    g = jax.jit(jax.grad(loss))", "    lossj = jax.jit(loss)",
+        "    for _ in range(epochs):", "        grads = g(p)",
+        "        p = {k_: v - lr * grads[k_] for k_, v in p.items()}",
+        "    mse = float(lossj(p))"],
+    ("models.mltools", "train_main"): [
+        '    """train.sh -> ml.Trainer (jax gradient training on device)."""'],
+    ("models.mltools", "scoresequence_main"): [],
+    ("models.mltools", "netfilter_main"): [],
+}
+
+
+@pytest.mark.parametrize("mod,qualname", list(EDITED_FUNCTIONS))
+def test_edited_function_keeps_the_jax_lines(mod, qualname):
+    left_out = EDITED_FUNCTIONS[(mod, qualname)]
+    want = _source("bbtools_tpu", mod, qualname).splitlines()
+    got = iter(_source("bbtools_torch", mod, qualname).splitlines())
+    assert set(left_out) <= set(want)
+    missing = [line for line in want if line not in left_out and line not in got]
+    assert not missing, missing
 
 
 def test_cuda_request_without_cuda_raises():
@@ -389,18 +467,10 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    for tool in ("findprimers", "indelfree", "kmercoverage", "bbmask", "fungalrelease"):
+    for tool in ("countduplicates", "mergebarcodes", "rename", "bbmask", "fungalrelease"):
         with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
-
-
-def test_cellnet_fit_raises():
-    from bbtools_torch.ml.cellnet import CellNet
-
-    net = CellNet.create([4, 3, 1])
-    with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
-        net.fit(np.zeros((2, 4), np.float32), np.zeros((2, 1), np.float32))
 
 
 def test_new_tools_default_to_cuda(tmp_path):
@@ -638,3 +708,69 @@ def test_a8a_l5_tools_default_to_cuda(tmp_path, tool):
     with pytest.raises(RuntimeError, match="cuda"):
         main([tool, *argv])
     assert not list(tmp_path.glob("o*"))
+
+
+#: the last device-using tools and the argv that reaches their first
+#: device work; the vector tools have none
+A8C_TOOLS = {
+    "findprimers": ["in={fq}", "out={tmp}/o.sam", "literal=ACGTACGT"],
+    "msa": ["in={fq}", "out={tmp}/o.sam", "ref={tmp}/ref.fa"],
+    "indelfree": ["in={tmp}/ref.fa", "ref={tmp}/ref.fa", "out={tmp}/o.sam"],
+    "indelfreealigner": ["in={fq}", "ref={tmp}/ref.fa", "out={tmp}/o.sam"],
+    "kmercoverage": ["in={fq}", "out={tmp}/o.fq"],
+    "bloomfilter": ["in={fq}", "ref={tmp}/ref.fa", "out={tmp}/o.fq"],
+    "polyfilter": ["in={fq}", "out={tmp}/o.fq", "extra={fq}"],
+    "train": ["data={tmp}/v.tsv", "out={tmp}/o.bbnet", "epochs=2"],
+    "regressiontrainer": ["data={tmp}/v.tsv", "out={tmp}/o.bbnet", "epochs=2"],
+    "scoresequence": ["in={fq}", "net={tmp}/n.bbnet", "out={tmp}/o.fq"],
+    "netfilter": ["in={fq}", "net={tmp}/n.bbnet", "out={tmp}/o.fq"],
+    "calibrate": ["in={tmp}/c.tsv", "out={tmp}/o.txt"],
+    "seqtovec": ["in={fq}", "out={tmp}/o.tsv"],
+    "netconvert": ["in={tmp}/n.bbnet", "out={tmp}/o.bbnet"],
+    "reducecolumns": ["{tmp}/v.tsv", "{tmp}/o.tsv", "0", "2"],
+    "vectorutils": ["in={tmp}/v.tsv", "out={tmp}/o.tsv"],
+    "balancevectors": ["in={tmp}/v.tsv", "out={tmp}/o.tsv"],
+}
+A8C_HOST = ("seqtovec", "netconvert", "reducecolumns", "vectorutils", "balancevectors")
+
+
+@pytest.mark.parametrize("tool", list(A8C_TOOLS))
+def test_a8c_tools_default_to_cuda(tmp_path, tool):
+    """findprimers/msa, indelfree, kmercoverage, bloomfilter, polyfilter,
+    train, regressiontrainer, scoresequence, netfilter and calibrate run
+    on the card unless asked for the CPU: without one, the default raises
+    before any output is written. The vector tools run anywhere."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import contextlib
+    import io
+
+    from bbtools_torch.cli import main
+    from bbtools_torch.ml.cellnet import CellNet, save_bbnet
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n")
+    (tmp_path / "v.tsv").write_text("#dims\t2\t1\n0.1\t0.2\t1\n0.3\t0.1\t0\n")
+    (tmp_path / "c.tsv").write_text("0.2\t0\n0.8\t1\n")
+    save_bbnet(CellNet.create([4, 2, 1]), str(tmp_path / "n.bbnet"))
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A8C_TOOLS[tool]]
+    if tool in A8C_HOST:
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            assert main([tool, *argv]) == 0
+        assert list(tmp_path.glob("o.*"))
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([tool, *argv])
+    assert not list(tmp_path.glob("o.*"))
+
+
+def test_cellnet_fit_defaults_to_cuda():
+    """CellNet.fit trains on the net's device, cuda unless it says cpu."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.ml.cellnet import CellNet
+
+    net = CellNet.create([4, 3, 1])
+    with pytest.raises(RuntimeError, match="cuda"):
+        net.fit(np.zeros((2, 4), np.float32), np.zeros((2, 1), np.float32), epochs=2)

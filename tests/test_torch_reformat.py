@@ -18,6 +18,7 @@ import torch
 
 from bbtools_torch.cli import main as tmain
 from bbtools_tpu.cli import main as jmain
+from torch_parity import warm_native_codecs  # noqa: F401  (autouse: the codecs built first)
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -44,7 +45,9 @@ def _both(tool, argv, outs):
             assert cli([tool, *(x.format(d=d) for x in argv), *extra]) == 0
         res[d] = ([open(o.format(d=d), "rb").read() for o in outs],
                   re.sub(r"Time:\s+\S+", "Time: T", err.getvalue()))
-    assert res["jax"] == res["torch"]
+    for o, j, t in zip(outs, res["jax"][0], res["torch"][0]):
+        assert j == t, f"{o} differs"
+    assert res["jax"][1] == res["torch"][1], "stderr differs"
     return res["torch"][0]
 
 
