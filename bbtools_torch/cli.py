@@ -8,11 +8,13 @@ the vector tools seqtovec, netconvert, reducecolumns, vectorutils and
 balancevectors, run anywhere). A name not in TOOLS raises, naming the ROADMAP item that
 holds it (A8, the long tail). Before any tool runs, `guard_output_files`
 refuses duplicate outputs, an output that is also an input, and an
-existing output under ow=f.
+existing output under ow=f. Where torchrun's variables describe a group
+of processes, `main` joins it first (parallel/distributed.py).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 
@@ -409,6 +411,19 @@ def main(argv=None):
             f"bbtools_torch: tool {tool!r} is not ported (ROADMAP A8); "
             f"ported tools: {', '.join(sorted(TOOLS))}"
         )
+    # several processes: MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK (torchrun's
+    # variables) join this process into a gloo group before any tool runs;
+    # each process then reads its own input and the tools merge what is
+    # global (parallel/distributed.py)
+    if os.environ.get("WORLD_SIZE"):
+        from .parallel.distributed import initialize, rank, world_size
+
+        if initialize():
+            print(
+                f"Joined torch.distributed process group: process "
+                f"{rank()}/{world_size()}, backend gloo",
+                file=sys.stderr,
+            )
     guard_output_files(argv[1:])
     fn(argv[1:])
     return 0

@@ -66,6 +66,12 @@
 // BIG32: a zero column scores 0 and "matches" with BIG32, which changes no
 // minimum.
 //
+// `mm_best` is the same kernel with the lookup's min written undecoded: the
+// priority word, BIG32 on a miss. A matcher whose columns are cut over
+// several devices (parallel/sharded_count.py) takes the min of the slabs'
+// words, which a min over decoded ids would get wrong; its cost is the
+// lookup's, on a slab's columns.
+//
 // `mm_lookup_variant` also runs, for measurement only: the kernel with a
 // max-only epilogue or an epilogue that reads one column per n8 block (the
 // split of product and epilogue; the counterparts of the TPU experiments
@@ -82,7 +88,9 @@ constexpr int TN = 256;     // columns per staged tile
 constexpr int STAGES = 3;   // tiles in the shared-memory ring
 constexpr int ALIGN = 1024; // the 128-byte swizzle's atom
 
-enum Epi { EPI_FULL = 0, EPI_MAX = 1, EPI_ONECOL = 2 };
+// EPI_FULL is the lookup; EPI_BEST the same min, written undecoded (the
+// priority word, BIG32 on a miss) for a column-sharded matcher to combine.
+enum Epi { EPI_FULL = 0, EPI_MAX = 1, EPI_ONECOL = 2, EPI_BEST = 3 };
 
 // Word w of the one-hot of key q (4 bytes, byte b at bits 8b..8b+7).
 __device__ __forceinline__ uint32_t onehot_word(int64_t q, int w, int k,
@@ -171,7 +179,7 @@ template <int EPI, int R, int NB>
 __device__ __forceinline__ void epilogue(const int32_t (&acc)[R][4 * NB],
                                          int32_t (&best)[R][2],
                                          const int32_t* sp, int t) {
-  if (EPI == EPI_FULL) {
+  if (EPI == EPI_FULL || EPI == EPI_BEST) {
     // the sign bit of the AND is clear iff some score is >= 0
     int32_t all = acc[0][0];
 #pragma unroll
@@ -207,7 +215,7 @@ __device__ __forceinline__ void epilogue(const int32_t (&acc)[R][4 * NB],
 
 template <int EPI>
 __device__ __forceinline__ int32_t best_init() {
-  return EPI == EPI_FULL ? BIG32 : EPI == EPI_MAX ? -BIG32 - 1 : 0;
+  return EPI == EPI_FULL || EPI == EPI_BEST ? BIG32 : EPI == EPI_MAX ? -BIG32 - 1 : 0;
 }
 
 // Combine the four threads of rows r0 and r0 + 8; one writes each row.
@@ -221,11 +229,12 @@ __device__ __forceinline__ void write_rows(const int32_t (&best)[2],
 #pragma unroll
     for (int x = 1; x <= 2; x <<= 1) {
       const int32_t o = __shfl_xor_sync(0xFFFFFFFFu, v, x);
-      v = EPI == EPI_FULL ? min(v, o) : EPI == EPI_MAX ? max(v, o) : v + o;
+      v = EPI == EPI_FULL || EPI == EPI_BEST ? min(v, o)
+          : EPI == EPI_MAX ? max(v, o) : v + o;
     }
     const int64_t r = r0 + 8 * h;
     if (t == 0 && r < n)
-      out[r] = EPI != EPI_FULL ? v : v != BIG32 ? (v & 0xFFFF) : 0;
+      out[r] = EPI != EPI_FULL ? v : v != BIG32 ? (v & 0xFFFF) : 0;  // EPI_BEST: v
   }
 }
 
@@ -469,6 +478,8 @@ int launch_dp4a(const Args& x, cudaStream_t stream) {
 
 // the main kernel's warpgroups per block
 constexpr int MAIN_WGS = 4;
+// run()'s code of the main kernel with the undecoded epilogue (`mm_best`)
+constexpr int BEST = 5;
 
 int run(int variant, const Args& x, int Kp, cudaStream_t stream) {
   if (x.n == 0) return (int)cudaSuccess;
@@ -486,6 +497,8 @@ int run(int variant, const Args& x, int Kp, cudaStream_t stream) {
       return launch_wgmma_kp<MAIN_WGS / 2, EPI_FULL>(x, Kp, stream);
     case 4:
       return Kp == 128 ? launch_dp4a<32>(x, stream) : launch_dp4a<64>(x, stream);
+    case BEST:
+      return launch_wgmma_kp<MAIN_WGS, EPI_BEST>(x, Kp, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -501,6 +514,16 @@ extern "C" int mm_lookup(const int64_t* keys, int32_t* out, int64_t n,
                          int k, int mink, int nc, int Kp,
                          cudaStream_t stream) {
   return run(0, Args{keys, out, n, key_t, prio, Dp, k, mink, nc}, Kp, stream);
+}
+
+// The same lookup before its decode: out = each key's best priority word
+// (rank << 16) | id over the Dp columns given, BIG32 where none matches.
+// A min over column slabs of the key matrix is the lookup over all of
+// them (a tp-sharded matcher). Same arguments as mm_lookup.
+extern "C" int mm_best(const int64_t* keys, int32_t* out, int64_t n,
+                       const int32_t* key_t, const int32_t* prio, int Dp,
+                       int k, int mink, int nc, int Kp, cudaStream_t stream) {
+  return run(BEST, Args{keys, out, n, key_t, prio, Dp, k, mink, nc}, Kp, stream);
 }
 
 // The measurement variants, same arguments plus `variant`: 0 the main

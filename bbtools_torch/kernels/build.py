@@ -61,6 +61,7 @@ SIGNATURES = {
     "overlap_scan_variant": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
     # keys, out, n, keyT, prio, Dp, k, mink, nc, Kp, stream
     "mm_lookup": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mm_best": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _P),
     # the same, then variant, stream
     "mm_lookup_variant": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # reads, lens, refs, col0, out_s, out_c, out_st, planes, S, R, ldr, Cc,

@@ -17,9 +17,12 @@ recalibrate=t applies calctruequality's matrices (models/
 calctruequality.py, host numpy); align=t maps the surviving reads to a
 small reference, phiX by default, on the device (models/sidechannel.py)
 and writes them to alignout=. Flags replicate the bbduk.sh key=value
-surface (subset; unknown flags raise). tpshards (A7) and profile= (A9)
-raise NotImplementedError naming their ROADMAP item. Stats counters
-mirror BBDukS's summary lines.
+surface (subset; unknown flags raise). tpshards=N shards the k-mer
+table over N devices (`enable_mesh`, parallel/sharded_index.py), with
+the same output bytes; in a process group (parallel/distributed.py) the
+stats are summed over the processes. profile= (A9) raises
+NotImplementedError naming its ROADMAP item. Stats counters mirror
+BBDukS's summary lines.
 Every result the host needs leaves the device through an explicit
 `.cpu().numpy()`.
 """
@@ -181,7 +184,9 @@ class BBDukConfig:
     batch_reads: int = 16384
     ordered: bool = True
     ziplevel: int | None = None
-    #: multi-device mode (tpshards=N) is not ported yet (ROADMAP A7)
+    #: multi-device mode: shard the k-mer table over `tp_shards` devices
+    #: (kmer%WAYS) with reads data-parallel over the rest of the mesh;
+    #: 1 = off
     tp_shards: int = 1
     #: torch device of the scans: cuda (default), cuda:N or cpu
     device: str = "cuda"
@@ -397,17 +402,7 @@ def parse_args(argv: list[str]) -> BBDukConfig:
     unknown = [k for k, _ in a.pairs if k not in handled]
     if unknown:
         raise ValueError(f"Unknown bbduk flags: {unknown}")
-    _reject_unported(c)
     return c.resolve()
-
-
-def _reject_unported(c: BBDukConfig):
-    """Raise for flags whose stage the port does not have yet."""
-    if c.tp_shards > 1:
-        raise NotImplementedError(
-            "bbtools_torch bbduk: tpshards>1 (multi-GPU) is not ported yet "
-            "(ROADMAP A7)"
-        )
 
 
 @dataclass
@@ -480,7 +475,7 @@ def _join_eligible(cfg: BBDukConfig, n_keys: int) -> bool:
     return SortJoinIndex.supports(n_keys, cfg.qhdist)
 
 
-def build_index(cfg: BBDukConfig):
+def build_index(cfg: BBDukConfig, return_keys: bool = False):
     scaffolds, names = load_reference(cfg)
     keys, ids = build_ref_keys(
         scaffolds,
@@ -519,6 +514,8 @@ def build_index(cfg: BBDukConfig):
         if index is None:
             index = BucketKmerIndex.build(keys, ids, pack=True)
     lengths = [len(s) for s in scaffolds]
+    if return_keys:
+        return index, names, lengths, keys, ids
     return index, names, lengths
 
 
@@ -527,7 +524,9 @@ class BBDuk:
         self.cfg = cfg
         self.stats = BBDukStats()
         self.device = resolve_device(cfg.device)
-        self.index, self.scaffold_names, self.scaffold_lengths = build_index(cfg)
+        (self.index, self.scaffold_names, self.scaffold_lengths,
+         self._ref_keys, self._ref_ids) = build_index(cfg, return_keys=True)
+        self._mesh = None
         self.stats.scaffold_reads = np.zeros(len(self.scaffold_names) + 1, np.int64)
         self.stats.scaffold_bases = np.zeros(len(self.scaffold_names) + 1, np.int64)
         self.entropy = (
@@ -576,6 +575,68 @@ class BBDuk:
             self.recalibrator = Recalibrator(
                 cfg.recal_path, passes=cfg.recal_passes
             )
+        if cfg.tp_shards > 1 and self.index is not None:
+            self.enable_mesh(n_tp=cfg.tp_shards)
+
+    # ------------------------------------------------------------------
+    def enable_mesh(self, mesh=None, n_tp: int | None = None):
+        """Multi-device mode (tpshards=N): shard the k-mer table over the
+        tp mesh axis (kmer%WAYS, kmer/KmerTableSet.java:273-285) with
+        reads data-parallel over dp; every scan sums the shards' lookups.
+        Without `mesh`, the devices of `device=` (parallel/mesh.py
+        `local_devices`): N must divide their count. Outputs are the
+        single-device run's bytes."""
+        from ..parallel.mesh import local_devices, make_mesh
+        from ..parallel.sharded_index import ShardedKmerIndex
+
+        if mesh is None:
+            devices = local_devices(self.device)
+            nd = len(devices)
+            n_tp = n_tp or nd
+            if n_tp > nd or nd % n_tp:
+                raise ValueError(
+                    f"tpshards={n_tp} does not divide {nd} devices"
+                )
+            mesh = make_mesh(n_dp=nd // n_tp, n_tp=n_tp, devices=devices)
+        self._mesh = mesh
+        self._sidx = ShardedKmerIndex.build(
+            self._ref_keys, self._ref_ids, mesh.shape["tp"]
+        )
+        self._tables = self._sidx.place(mesh)
+        self._sharded_scans = {}
+
+    def _sharded_scan_all(self, b, short_left: bool, short_right: bool):
+        """The scans of batch b over the mesh, its rows padded to a
+        multiple of dp with empty reads (N bases, length 0) that are
+        dropped again. Returns host arrays."""
+        from ..parallel.sharded_index import make_sharded_kscan
+
+        fn = self._sharded_scans.get((short_left, short_right))
+        if fn is None:
+            fn = make_sharded_kscan(
+                self._mesh, self.scan_cfg, self._sidx,
+                short_left, short_right,
+            )
+            self._sharded_scans[(short_left, short_right)] = fn
+        n_dp = self._mesh.shape["dp"]
+        B = b.bases.shape[0]
+        pad = (-B) % n_dp
+        bases = b.bases
+        lengths = b.lengths
+        if pad:
+            bases = np.concatenate(
+                [bases, np.full((pad, bases.shape[1]), 4, bases.dtype)]
+            )
+            lengths = np.concatenate(
+                [lengths, np.zeros(pad, lengths.dtype)]
+            )
+        out, sl, sr = fn(
+            self._tables, self._dev(bases), self._dev(lengths),
+        )
+        host = {k: v[:B].cpu().numpy() for k, v in out.items()}
+        sl = tuple(x[:B].cpu().numpy() for x in sl) if sl is not None else None
+        sr = tuple(x[:B].cpu().numpy() for x in sr) if sr is not None else None
+        return host, sl, sr
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a tensor on the scan device."""
@@ -984,6 +1045,8 @@ class BBDuk:
 
     def _scan(self, b):
         """Run the full-k device scan for batch b. Returns host dict."""
+        if self._mesh is not None:
+            return self._sharded_scan_all(b, False, False)[0]
         out = kscan_full(
             self.scan_cfg, self.table_dev, self._dev(b.bases),
             self._dev(b.lengths),
@@ -992,6 +1055,8 @@ class BBDuk:
 
     def _scan_all(self, b, short_left: bool, short_right: bool):
         """Full + short scans of batch b. Returns host arrays."""
+        if self._mesh is not None:
+            return self._sharded_scan_all(b, short_left, short_right)
         out, sl, sr = kscan_combined(
             self.scan_cfg, self.table_dev, self._dev(b.bases),
             self._dev(b.lengths), short_left, short_right,
@@ -1333,6 +1398,7 @@ class BBDuk:
         if side is not None:
             side.close()
         self.elapsed = time.time() - t0
+        self._globalize_stats()
         self.write_stats_file()
         if rstats is not None:
             paired = cfg.in2 is not None
@@ -1347,6 +1413,33 @@ class BBDuk:
             if cfg.bhist:
                 rstats.write_bhist(cfg.bhist)
         return st
+
+    def _globalize_stats(self):
+        """In a process group (parallel/distributed.py): sum every counter
+        and the per-scaffold hit vectors over the processes, so stats= and
+        stderr report the one global answer while each process wrote its
+        own ordered output shard. One process: no-op."""
+        from ..parallel.distributed import global_sum_array, world_size
+
+        if world_size() == 1:
+            return
+        st = self.stats
+        fields = [
+            f.name for f in st.__dataclass_fields__.values()
+            if f.name not in ("scaffold_reads", "scaffold_bases")
+        ]
+        vec = np.array([getattr(st, f) for f in fields], np.int64)
+        nsc = len(st.scaffold_reads) if st.scaffold_reads is not None else 0
+        if nsc:
+            vec = np.concatenate(
+                [vec, st.scaffold_reads, st.scaffold_bases]
+            )
+        g = global_sum_array(vec)
+        for i, f in enumerate(fields):
+            setattr(st, f, int(g[i]))
+        if nsc:
+            st.scaffold_reads = g[len(fields) : len(fields) + nsc]
+            st.scaffold_bases = g[len(fields) + nsc :]
 
     def write_stats_file(self):
         """Write the `stats=` scaffold hit-count file, byte-compatible with

@@ -26,8 +26,9 @@ and take reads of up to 6,000 bases; a class whose traceback planes
 would not fit the plane budget (ops/msa_fill.plane_budget: a share of
 the card's free memory) sends its batch to the staged path, which fills
 and walks the class in groups of tasks; no output changes. covstats=/basecov=/covhist=/bincov= write the
-coverage of the primary alignments (models/pileup.py's writers). Only
-tpshards (A7) raises NotImplementedError, naming its ROADMAP item.
+coverage of the primary alignments (models/pileup.py's writers).
+tpshards=N shards the ungapped scoring and the fill and walk over N
+devices (`enable_mesh`, parallel/sharded_count.py), with the same SAM.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.parser import tokenize
 from ..device import resolve_device
@@ -57,8 +57,8 @@ from ..io.sam import (
 )
 from ..ops import msa_constants as MC
 from ..ops.kmers import rolling_kmers_np
-from ..ops.msa import match_strings_np, msa_walk
-from ..ops.msa_fill import fill_groups, msa_fill, plane_budget, task_bytes
+from ..ops.msa import match_strings_np
+from ..ops.msa_fill import fill_walk
 from ..ops.score_ungapped import score_no_indels, score_no_indels_offsets
 from .bbmap_index import SeedIndex
 
@@ -140,7 +140,8 @@ class BBMapConfig:
     #: deletions at least this long print as N (intron) CIGAR ops
     #: (SamLine INTRON_LIMIT, bbmap.sh intronlen= — RNAseq output mode)
     intronlen: int = 999999999
-    #: tpshards=N multi-device mode (not ported, A7)
+    #: tpshards=N: shard the alignment compute (ungapped scoring + DP
+    #: fill/walk) data-parallel over an N-device mesh; the same bytes
     tp_shards: int = 0
     #: penalizeambiguous=/pambig= (AbstractMapper.java:310): when true
     #: (reference default) near-best runner-up sites depress the map
@@ -173,8 +174,7 @@ def skimmer_preset(c: "BBMapConfig"):
 
 
 def parse_args(argv, preset: str | None = None):
-    """The JAX package's flag surface, plus `device=`. tpshards>1 raises
-    (ROADMAP A7)."""
+    """The JAX package's flag surface, plus `device=`."""
     a = tokenize(argv)
     c = BBMapConfig()
     if preset == "pacbio":
@@ -233,17 +233,7 @@ def parse_args(argv, preset: str | None = None):
         a.get_bool("overwrite", "ow", default=True),
         c.out, inputs=(c.in1, c.in2, c.ref),
     )
-    _reject_unported(c)
     return c
-
-
-def _reject_unported(c: BBMapConfig):
-    """Raise for flags whose modules the port does not have yet."""
-    if c.tp_shards > 1:
-        raise NotImplementedError(
-            "bbtools_torch bbmap: tpshards>1 (multi-GPU) is not ported yet "
-            "(ROADMAP A7)"
-        )
 
 
 def max_quality(length) -> np.ndarray:
@@ -330,8 +320,69 @@ class BBMap:
                 i for i, n in enumerate(self.ref.names)
                 if n.split()[0] in names
             }
+        self._mesh = None
+        if cfg.tp_shards > 1:
+            self.enable_mesh(cfg.tp_shards)
 
     # ------------------------------------------------------------------
+    def enable_mesh(self, n_dp: int | None = None, mesh=None):
+        """Multi-device mode (bbmap tpshards=N): alignment tasks shard
+        data-parallel over a dp mesh; the ungapped scoring pass and the
+        banded DP fill and traceback walk run one slab per device
+        (parallel/sharded_count.py). The reference parallelizes the same
+        loop across worker threads (align2/AbstractMapThread batch loop,
+        align2/BBMap.java:536-561). Without `mesh`, the first N devices
+        of `device=` (parallel/mesh.py `local_devices`). The SAM is the
+        single-device run's."""
+        from ..parallel.mesh import local_devices, make_mesh
+
+        if mesh is None:
+            devices = local_devices(self.device)
+            nd = len(devices)
+            n_dp = n_dp or nd
+            if n_dp > nd:
+                raise ValueError(
+                    f"tpshards={n_dp} exceeds {nd} devices"
+                )
+            mesh = make_mesh(n_dp=n_dp, n_tp=1, devices=devices[:n_dp])
+        self._mesh = mesh
+
+    def _dp_pad(self, *arrays):
+        """Each task array padded to a multiple of dp with copies of task
+        0 (dropped again from the outputs)."""
+        n_dp = int(self._mesh.shape["dp"])
+        extra = (-len(arrays[0])) % n_dp
+        return [np.concatenate([a, np.repeat(a[:1], extra, 0)]) if extra else a
+                for a in arrays]
+
+    def _sharded_ungapped(self, L, W, task_reads, task_lens, refwins, pad):
+        """score_no_indels of the tasks over the mesh; host int32 [T]."""
+        from ..parallel.sharded_count import sharded_ungapped_score_step
+
+        T0 = len(task_lens)
+        task_reads, task_lens, refwins = self._dp_pad(
+            task_reads, task_lens.astype(np.int32), refwins
+        )
+        Tp = len(task_lens)
+        scores = sharded_ungapped_score_step(self._mesh, L, W)(
+            self._dev(task_reads), self._dev(task_lens),
+            self._dev(refwins), self._dev(np.full(Tp, pad, np.int32)),
+        )
+        return scores[:T0].cpu().numpy()
+
+    def _sharded_fill_walk(self, sreads, slens, srefs):
+        """The fill and walk of one window class over the mesh: (best
+        score, column, state, walk ops, steps) on the mesh's first
+        device, the ops [T, L+Wc]."""
+        from ..parallel.sharded_count import make_sharded_fill_walk
+
+        B0 = len(slens)
+        sreads, slens, srefs = self._dp_pad(sreads, slens, srefs)
+        fn = make_sharded_fill_walk(self._mesh, sreads.shape[1], srefs.shape[1])
+        out = fn(sreads, slens, srefs)
+        self.plane_groups += fn.fill_calls
+        return tuple(x[:B0] for x in out)
+
     def _load_or_build_index(self) -> SeedIndex:
         """Build the seed index, caching it under `path=` like the
         reference's on-disk genome index (align2/IndexMaker4; reuse unless
@@ -542,7 +593,8 @@ class BBMap:
             or getattr(self, "_keep_sites", False)
         )
         return (
-            cfg.fused and not keep_sites and cfg.ambig != "random"
+            cfg.fused and self._mesh is None and not keep_sites
+            and cfg.ambig != "random"
         )
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -614,14 +666,19 @@ class BBMap:
                     lengths, n_clusters,
                 )
             self.fused_overflows += 1
-        ug = score_no_indels(
-            L,
-            self._dev(task_reads),
-            self._dev(task_lens.astype(np.int32)),
-            self._dev(refwins),
-            self._dev(np.full(T, cfg.pad, np.int32)),
-            self._dev(np.full(T, W, np.int32)),
-        ).cpu().numpy()
+        if self._mesh is not None:
+            ug = self._sharded_ungapped(
+                L, W, task_reads, task_lens, refwins, cfg.pad
+            )
+        else:
+            ug = score_no_indels(
+                L,
+                self._dev(task_reads),
+                self._dev(task_lens.astype(np.int32)),
+                self._dev(refwins),
+                self._dev(np.full(T, cfg.pad, np.int32)),
+                self._dev(np.full(T, W, np.int32)),
+            ).cpu().numpy()
         maxq = max_quality(task_lens)
         # DP only when an indel alignment could beat the ungapped score
         # (maxImperfectScore gating, MultiStateAligner11ts.java:2293-2304)
@@ -677,33 +734,15 @@ class BBMap:
             srefs = self._ref_windows(dp_start[sel], Wc)
             sreads = task_reads[sel]
             slens = task_lens[sel].astype(np.int32)
-            # the class in groups of tasks whose planes fit the budget;
-            # one group where they all fit
-            groups = fill_groups(len(sel), L, Wc, plane_budget(
-                self.device, len(sel) * task_bytes(L, Wc)))
-            self.plane_groups += len(groups)
-            parts = []
-            for g in groups:
-                slens_d = self._dev(slens[g])
-                bs, bc, bst, planes = msa_fill(
-                    self._dev(sreads[g]), slens_d, self._dev(srefs[g])
-                )
-                # the walk over every DP task of the group, on the device,
-                # over the R' rows the fill kept; only the winners' rows
-                # come back (below)
-                ops_d, nst_d = msa_walk(
-                    planes.shape[2] - 1, Wc, planes, slens_d, bc, bst
-                )
-                del planes
-                if len(groups) > 1:
-                    # rows of one width across the groups; the walk's
-                    # rows read 0 past their end
-                    ops_d = F.pad(ops_d, (0, L + Wc - ops_d.shape[1]))
-                parts.append((bs, bc, bst, ops_d, nst_d))
-            dp_dev[c] = (
-                parts[0] if len(parts) == 1
-                else tuple(torch.cat(x) for x in zip(*parts))
-            )
+            if self._mesh is not None:
+                dp_dev[c] = self._sharded_fill_walk(sreads, slens, srefs)
+            else:
+                # the class in groups of tasks whose planes fit the
+                # budget, one group where they all fit; the walk over
+                # every DP task on the device; only the winners' rows come
+                # back (below)
+                dp_dev[c], n_groups = fill_walk(sreads, slens, srefs, self.device)
+                self.plane_groups += n_groups
             dp_planes[c] = (slens, sel, srefs, Wc)
         if dp_dev:
             # pull only the small per-task arrays now; the [T, steps] ops

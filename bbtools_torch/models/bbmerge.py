@@ -23,7 +23,8 @@ k-mers counted on the device, then host Tadpole extension of unmerged
 pairs and Tadpole correction before the scan; tadpole_ecc.EccEngine)
 and nn (the CellNet gate: mate selection widened and collecting its
 candidate stats, the bundled bbmerge.bbnet applied on the device).
-tpshards raises NotImplementedError naming its ROADMAP item (A7).
+tpshards=N cuts each batch's insert scan over N devices (`_scan`,
+parallel/sharded_count.py `sharded_overlap_step`), with the same output.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from ..ops.overlap import (
     probability_np,
     probability_torch,
 )
+from ..ops.overlap_scan import overlap_counts
 
 RET_NO_SOLUTION = -1
 RET_AMBIG = -2
@@ -128,7 +130,7 @@ class BBMergeConfig:
     #: default true): when quals exist, mateByOverlapRatioJava_WithQualities
     #: is the production path (BBMergeOverlapper.java:122)
     use_quality: bool = True
-    #: tpshards=N multi-device mode (not ported, A7)
+    #: tpshards=N: dp-shard the insert scan over an N-device mesh
     tpshards: int = 0
     #: torch device of the scans: cuda (default), cuda:N or cpu
     device: str = "cuda"
@@ -171,20 +173,43 @@ def parse_args(argv: list[str]) -> BBMergeConfig:
         c.out, c.outu1, c.outu2, c.ihist,
         inputs=(c.in1, c.in2),
     )
-    _reject_unported(c)
     return c
 
 
-def _reject_unported(c: BBMergeConfig):
-    """Raise for flags whose stage the port does not have yet."""
-    if c.tpshards > 1:
-        raise NotImplementedError(
-            "bbtools_torch bbmerge: tpshards>1 (multi-GPU) is not ported yet "
-            "(ROADMAP A7)"
-        )
-
-
 class BBMerge:
+    def _overlap_mesh(self):
+        """dp mesh for tpshards=N (lazy, cached); None when unsharded."""
+        if not self.cfg.tpshards or self.cfg.tpshards <= 1:
+            return None
+        if getattr(self, "_mesh_c", None) is None:
+            from ..parallel.mesh import local_devices, make_mesh
+
+            self._mesh_c = make_mesh(
+                n_dp=self.cfg.tpshards,
+                devices=local_devices(self.device)[: self.cfg.tpshards],
+            )
+        return self._mesh_c
+
+    def _scan(self, a, b_rc, alens, blens, min_insert0: int, n_inserts: int):
+        """The insert scan (ops/overlap_scan.py `overlap_counts`); under
+        tpshards=N dp-sharded over the mesh, the pairs padded to a
+        multiple of dp with empty ones (codes 0, length 0) that are
+        dropped again."""
+        mesh = self._overlap_mesh()
+        if mesh is None:
+            return overlap_counts(a, b_rc, alens, blens, min_insert0, n_inserts)
+        from ..parallel.sharded_count import sharded_overlap_step
+
+        B0 = a.shape[0]
+        pad = (-B0) % mesh.shape["dp"]
+
+        def padb(x):
+            return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) if pad else x
+
+        outs = sharded_overlap_step(mesh, min_insert0, n_inserts)(
+            padb(a), padb(b_rc), padb(alens), padb(blens)
+        )
+        return tuple(x[:B0] for x in outs)
     def __init__(self, cfg: BBMergeConfig):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -277,6 +302,7 @@ class BBMerge:
             extra_mult=4.0 if self.net is not None else 1.2,
             collect=self.net is not None,
             aq=aq_d if use_q else None, bq_rev=bq_d if use_q else None,
+            scan=self._scan,
         )
         insert, bad_int, ambig = (x.cpu().numpy() for x in res[:3])
         nn_stats = None

@@ -16,8 +16,10 @@ writes:
   peaks=  — coverage peak calls (CallPeaks; subset: peak list with
             center/volume via local maxima of the smoothed histogram)
 
-The port runs one process on one device: shards=/tpshards= > 1 raises
-(ROADMAP A7).
+With shards=N (k <= 31) the spectrum is hash-sharded over N devices
+(parallel/sharded_spectrum.py), with the same output bytes. In a process
+group (parallel/distributed.py) each process counts its own input and
+the spectra merge into one global answer, written by every process.
 """
 
 from __future__ import annotations
@@ -55,14 +57,17 @@ def run(argv: list[str]):
         if k > MAX_K:
             raise ValueError(f"k={k} exceeds max supported k={MAX_K}")
     shards = a.get_int("shards", "tpshards", default=0)
-    if shards > 1:
-        raise NotImplementedError(
-            "bbtools_torch kmercountexact: shards>1 (multi-GPU spectrum) is "
-            "not ported yet (ROADMAP A7)"
-        )
     t0 = time.time()
     on_card = device.type == "cuda"
-    if big:
+    if shards > 1 and not big:
+        # hash-sharded multi-device spectrum: kmer % shards ownership over
+        # a dp mesh (kmer/KmerTableSet.java:273-285)
+        from ..parallel.mesh import local_devices, make_mesh
+        from ..parallel.sharded_spectrum import ShardedSpectrum
+
+        mesh = make_mesh(n_dp=shards, devices=local_devices(device)[:shards])
+        spec = ShardedSpectrum(mesh, k)
+    elif big:
         spec = WordSpectrum(k)
     elif on_card:
         # device-resident accumulation: the spectrum never crosses to
@@ -82,7 +87,7 @@ def run(argv: list[str]):
                     b.bases, b.lengths.astype(np.int64), k, device
                 )
                 spec.add_batch(keys, c)
-            elif on_card:
+            elif shards > 1 or on_card:
                 spec.add_batch(b.bases, b.lengths)
             else:
                 v, c = count_batch(b.bases, b.lengths, k, device)
@@ -90,6 +95,22 @@ def run(argv: list[str]):
         reads += reader.reads_in
         bases += reader.bases_in
     spec.flush()
+    from ..parallel.distributed import global_spectrum, global_sum_array, world_size
+
+    if world_size() > 1 and not big:
+        # several processes: each read its own input shard; merge into
+        # ONE global spectrum (the same on every process), so khist, dump,
+        # peaks and stats are the single global answer
+        if hasattr(spec, "spectrum"):
+            lk, lc = spec.spectrum()
+        else:
+            lk, lc = spec.keys, spec.counts
+        gk, gc = global_spectrum(lk, lc, device)
+        spec = KmerSpectrum(k)
+        spec.keys, spec.counts = gk, gc
+        reads, bases = (
+            int(x) for x in global_sum_array(np.array([reads, bases]))
+        )
     elapsed = time.time() - t0
     if khist:
         h = spec.histogram(hist_max)

@@ -26,7 +26,8 @@ the tool's device (`device=`, cuda by default): k <= 31 through
 `KmerSpectrum`, as the JAX package pairs them), k > 31 through the
 W-word device sort into the host `WordSpectrum`. The contig walk, the
 graph cleanup and the error correction are host numpy, as in the JAX
-package. shards= > 1 raises (ROADMAP A7).
+package. With shards=N (k <= 31) the load counts into a spectrum
+hash-sharded over N devices (parallel/sharded_spectrum.py).
 """
 
 from __future__ import annotations
@@ -341,11 +342,6 @@ class Tadpole:
 
     # ------------------------------------------------------------------
     def load_kmers(self, path: str):
-        if self.cfg.shards > 1:
-            raise NotImplementedError(
-                "bbtools_torch tadpole: shards>1 (multi-GPU load) is not "
-                "ported yet (ROADMAP A7)"
-            )
         device = resolve_device(self.cfg.device)
         t0 = time.time()
         # load phase counts kmers only — skip the ascii AND quality
@@ -368,9 +364,28 @@ class Tadpole:
             self.engine = WordKmerEngine(self.table, self.cfg.k)
         else:
             spec = KmerSpectrum(self.cfg.k)
-            for b in reader:
-                v, c = count_batch(b.bases, b.lengths, self.cfg.k, device)
-                spec.add_batch(v, c)
+            if self.cfg.shards > 1:
+                # multi-device load: hash-sharded spectrum over a dp mesh
+                # (kmer%N ownership, the reference's WAYS split,
+                # kmer/KmerTableSet.java:273-285); the merged spectrum is
+                # the same, so everything downstream is unchanged
+                from ..parallel.mesh import local_devices, make_mesh
+                from ..parallel.sharded_spectrum import ShardedSpectrum
+
+                mesh = make_mesh(
+                    n_dp=self.cfg.shards,
+                    devices=local_devices(device)[: self.cfg.shards],
+                )
+                sspec = ShardedSpectrum(mesh, self.cfg.k)
+                for b in reader:
+                    sspec.add_batch(b.bases, b.lengths)
+                kk, cc = sspec.spectrum()
+                if len(kk):
+                    spec.add_batch(kk, cc)
+            else:
+                for b in reader:
+                    v, c = count_batch(b.bases, b.lengths, self.cfg.k, device)
+                    spec.add_batch(v, c)
             spec.flush()
             self.reads_in = reader.reads_in
             self.table = SpectrumTable(spec, self.cfg.k)

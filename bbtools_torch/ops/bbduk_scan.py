@@ -12,7 +12,8 @@ count without early exit and separately selects the
 Lookups go to the backend the index was built as: the lane table
 (kernel csrc/lane_lookup.cu on the GPU), the sorted join (whose cummax is
 the kernel csrc/cummax_i64.cu), the one-hot matcher (kernel
-csrc/mm_match.cu) or the bucket table (torch gathers).
+csrc/mm_match.cu) or the bucket table (torch gathers), which may be
+sharded over a mesh's tp axis (`tp_shards`, parallel/sharded_index.py).
 """
 
 from __future__ import annotations
@@ -56,6 +57,13 @@ class KScanConfig:
     #: MMKmerIndex static params (k, mink, Kp, Dp); when set, `table`
     #: holds (key_words, prio)
     mm: tuple | None = None
+    #: >0 when the bucket table is sharded by key % tp_shards over a
+    #: mesh's tp axis (parallel/sharded_index.py): `table` then holds each
+    #: shard's (keys, ids) on its own device, every shard looks up the
+    #: keys it owns, and the sum of the parts is the answer (a miss
+    #: contributes 0 and exactly one shard can hit) — the kmer%WAYS
+    #: layout of kmer/KmerTableSet.java:273-285
+    tp_shards: int = 0
 
     def resolved_minlen2(self) -> int:
         return self.minlen2 if self.minlen2 > 0 else self.k
@@ -68,10 +76,27 @@ def _lookup(cfg: KScanConfig, table, keys):
         return join_lookup(*table, keys)
     if cfg.lane is not None:
         return lane_lookup(*table, *cfg.lane, keys)
+    if cfg.tp_shards > 0:
+        return _sharded_lookup(cfg, table, keys)
     keys_tbl, ids_tbl = table
     if cfg.packed:
         return BucketKmerIndex.lookup_packed(keys_tbl, cfg.nb, keys)
     return BucketKmerIndex.lookup(keys_tbl, ids_tbl, cfg.nb, keys)
+
+
+def _sharded_lookup(cfg: KScanConfig, table, keys):
+    """The bucket lookup over the tp shards of `table`: every shard's part
+    is launched on its own device before the parts are summed on the
+    keys' device."""
+    parts = []
+    for s, (keys_tbl, ids_tbl) in enumerate(table):
+        q = keys.to(keys_tbl.device)
+        part = BucketKmerIndex.lookup(keys_tbl, ids_tbl, cfg.nb, q)
+        parts.append(torch.where(q % cfg.tp_shards == s, part, 0))
+    out = parts[0].to(keys.device)
+    for part in parts[1:]:
+        out = out + part.to(keys.device)
+    return out
 
 
 def _mutants_lookup_first(cfg: KScanConfig, table, fwd, klen, mm, lmask):

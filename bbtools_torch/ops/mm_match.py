@@ -18,7 +18,10 @@ package's. `mm_lookup` is the kernel wrapper: a CPU tensor runs
 `mm_lookup_plain` (the JAX package's `_mm_xla`: a chunked bf16 product,
 exact because every term and partial sum is an integer below 2**8 in
 magnitude), a CUDA tensor launches the kernel of csrc/mm_match.cu (the
-counterpart of the TPU's `_mm_kernel`), anything else raises.
+counterpart of the TPU's `_mm_kernel`), anything else raises. `mm_best`
+is the same kernel with an epilogue that writes each query's best
+priority word undecoded (plain twin `mm_best_plain`), the part a
+column-sharded matcher combines by a min.
 """
 
 from __future__ import annotations
@@ -326,11 +329,11 @@ def query_onehot(q, k: int, mink: int, Kp: int):
     return torch.cat([oh, cls, const, pad], dim=1).to(torch.int8)
 
 
-def mm_lookup_plain(key_words, prio, k: int, mink: int, Kp: int, Dp: int,
-                    query):
-    """Plain torch version of the lookup (the JAX package's `_mm_xla`):
-    ids for int64 canonical keys `query` (any shape), 0 on a miss.
-    key_words and prio are `MMKmerIndex.device_arrays`."""
+def mm_best_plain(key_words, prio, k: int, mink: int, Kp: int, Dp: int,
+                  query):
+    """Plain torch version of `mm_best` (the JAX package's `mm_best_jnp`):
+    each query's best (rank << 16) | id priority word over these columns,
+    BIG32 on a miss, int32 of `query`'s shape."""
     shape = query.shape
     oh = query_onehot(query.reshape(-1), k, mink, Kp)
     n = oh.shape[0]
@@ -343,8 +346,20 @@ def mm_lookup_plain(key_words, prio, k: int, mink: int, Kp: int, Dp: int,
     for c0 in range(0, n, ch):
         s = torch.matmul(oh[c0 : c0 + ch].to(torch.bfloat16), kb)
         best[c0 : c0 + ch] = torch.where(s >= 0, prio, big).amin(dim=1)
-    out = torch.where(best != big, best & 0xFFFF, 0).to(torch.int32)
-    return out.reshape(shape)
+    return best.reshape(shape)
+
+
+def mm_decode_best(best):
+    """Priority word -> scaffold id (0 on a miss)."""
+    return torch.where(best != int(BIG32), best & 0xFFFF, 0).to(torch.int32)
+
+
+def mm_lookup_plain(key_words, prio, k: int, mink: int, Kp: int, Dp: int,
+                    query):
+    """Plain torch version of the lookup (the JAX package's `_mm_xla`):
+    ids for int64 canonical keys `query` (any shape), 0 on a miss.
+    key_words and prio are `MMKmerIndex.device_arrays`."""
+    return mm_decode_best(mm_best_plain(key_words, prio, k, mink, Kp, Dp, query))
 
 
 def _checked(key_words, prio, k: int, mink: int, Kp: int, Dp: int, query,
@@ -406,6 +421,31 @@ def mm_lookup(key_words, prio, k: int, mink: int, Kp: int, Dp: int, query):
 
 #: kernel launches since the count was last set to 0
 mm_lookup.launches = 0
+
+
+def mm_best(key_words, prio, k: int, mink: int, Kp: int, Dp: int, query):
+    """Each int64 query's best (rank << 16) | id priority word over the
+    columns of `key_words` [Dp, Kp/4] and `prio` [1, Dp], BIG32 on a
+    miss: the lookup before its decode. A min over column slabs of the
+    key matrix is the lookup's winner over all their columns, which is
+    how a tp-sharded matcher combines (parallel/sharded_count.py).
+
+    CPU tensors run `mm_best_plain`; CUDA tensors launch the kernel of
+    csrc/mm_match.cu with the epilogue that writes the word undecoded,
+    or raise."""
+    if query.device.type == "cpu":
+        return mm_best_plain(key_words, prio, k, mink, Kp, Dp, query)
+    if query.device.type != "cuda":
+        raise ValueError(f"mm_best: unsupported device {query.device}")
+    _checked(key_words, prio, k, mink, Kp, Dp, query, "mm_best")
+    out = _launch("mm_best", key_words, prio, k, mink, Kp, Dp, query)
+    if query.numel():
+        mm_best.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+mm_best.launches = 0
 
 #: measurement variants of csrc/mm_match.cu (`mm_lookup_variant`): the
 #: main kernel; its max-only epilogue (out = each query's max score) and

@@ -38,11 +38,12 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import msa_constants as C
-from .msa import col0_scores
+from .msa import col0_scores, msa_walk
 
 NEG_BIG = -(1 << 30)
 #: the sentinel of the reference columns outside the window
@@ -277,17 +278,19 @@ def msa_fill_plain(reads, read_lens, refs, ref_lens=None):
     return bs, bc, bst, planes
 
 
-def msa_fill(reads, read_lens, refs):
+def msa_fill(reads, read_lens, refs, rows: int | None = None):
     """The fill of `msa_fill_plain`. CPU tensors run the plain version;
     CUDA tensors launch the kernels of csrc/msa_fill.cu (reads contiguous
-    uint8 [S, R], read_lens int32 [S], refs uint8 [S, Cc]), or raise."""
+    uint8 [S, R], read_lens int32 [S], refs uint8 [S, Cc]), or raise.
+    `rows` is R' (`trimmed_rows`) where the caller holds the lengths on
+    the host; None pulls it from the device."""
     if reads.device.type == "cpu":
         return msa_fill_plain(reads, read_lens, refs)
     if reads.device.type != "cuda":
         raise ValueError(f"msa_fill: unsupported device {reads.device}")
     _check("msa_fill", reads, read_lens, refs)
     S = reads.shape[0]
-    Rp = trimmed_rows(reads, read_lens)
+    Rp = trimmed_rows(reads, read_lens) if rows is None else rows
     long_ids = _long_tasks(read_lens, Rp)
     n_warp = S - (0 if long_ids is None else long_ids.numel())
     warp = n_warp >= WARP_MIN_TASKS_PER_SM * torch.cuda.get_device_properties(
@@ -359,6 +362,39 @@ def fill_groups(n: int, R: int, Cc: int, budget: int) -> list[slice]:
     is filled and walked alone, so the grouping changes no output."""
     per = max(1, int(budget) // task_bytes(R, Cc))
     return [slice(a, min(a + per, n)) for a in range(0, n, per)]
+
+
+def fill_walk(reads: np.ndarray, read_lens: np.ndarray, refs: np.ndarray, device):
+    """The fill and the walk of one window class's tasks (host arrays:
+    reads uint8 [S, R], read_lens int32 [S], refs uint8 [S, Cc]) on
+    `device`, in the groups of `fill_groups` under `plane_budget`, with
+    no pull from the device. Returns ((best score, column, state, walk
+    ops, steps) as `msa_fill` and `ops.msa.msa_walk` give them, on
+    `device`; the ops [S, R'+Cc], or [S, R+Cc] for more than one group),
+    and the number of groups."""
+    S, R = reads.shape
+    Cc = refs.shape[1]
+    groups = fill_groups(S, R, Cc, plane_budget(device, S * task_bytes(R, Cc)))
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    parts = []
+    for g in groups:
+        lens_d = dev(read_lens[g])
+        rows = max(1, min(R, int(read_lens[g].max())))
+        bs, bc, bst, planes = msa_fill(dev(reads[g]), lens_d, dev(refs[g]), rows=rows)
+        # the walk over every task of the group, on the device, over the
+        # R' rows the fill kept
+        ops, nst = msa_walk(planes.shape[2] - 1, Cc, planes, lens_d, bc, bst)
+        del planes
+        if len(groups) > 1:
+            # rows of one width across the groups; the walk's rows read 0
+            # past their end
+            ops = F.pad(ops, (0, R + Cc - ops.shape[1]))
+        parts.append((bs, bc, bst, ops, nst))
+    out = parts[0] if len(parts) == 1 else tuple(torch.cat(x) for x in zip(*parts))
+    return out, len(groups)
 
 
 def msa_fill_variant(variant: str, reads, read_lens, refs, trim: bool = True):

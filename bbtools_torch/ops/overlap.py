@@ -594,10 +594,11 @@ def overlap_and_mate(a, b_rc, alens, blens, min_insert0_col: int,
                      min_insert0: int, min_insert: int, max_ratio: float,
                      min_second_ratio: float, margin: float, offset: float,
                      extra_mult: float = 1.2, collect: bool = False,
-                     aq=None, bq_rev=None):
+                     aq=None, bq_rev=None, scan=overlap_counts):
     """The device pipeline: insert scan + mate selection on the tensors'
     device; only [B] winners are returned, the [B, D] count planes never
-    leave the device.
+    leave the device. `scan` is the insert scan, `overlap_counts` or one
+    with its arguments and outputs (BBMerge's tpshards= scan over a mesh).
 
     a, b_rc: uint8 codes [B, L] (b_rc reverse-complemented); alens,
     blens: [B]. With aq/bq_rev given (phred [B, L], bq reversed to match
@@ -609,8 +610,7 @@ def overlap_and_mate(a, b_rc, alens, blens, min_insert0_col: int,
     b_rc = b_rc.to(torch.uint8).contiguous()
     al32 = alens.to(torch.int32).contiguous()
     bl32 = blens.to(torch.int32).contiguous()
-    good, bad, ol = overlap_counts(a, b_rc, al32, bl32, min_insert0_col,
-                                   n_inserts)
+    good, bad, ol = scan(a, b_rc, al32, bl32, min_insert0_col, n_inserts)
     good_f = bad_f = None
     if aq is not None:
         good_f, bad_f, _bad_int, _ol = overlap_counts_quality_torch(

@@ -88,7 +88,7 @@ From the root of a checkout, on a machine with a CUDA card:
      contigs and their share of the region's 31-mers), its trim stage
      (`bbduk ref=adapters ... tbo tpe qtrim=r`) and ecco stage (`bbmerge
      ecco=t mix=t strict`) over 50,000 pairs of the whole copy, `bbmerge
-     nn=t` over 75,000 of the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
+     nn=t` over 50,000 of the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
      config #2's 200,000 reads (one add of a batch timed alone) and with
      ecc=t on 500 of the region's reads, `bbmap bloomfilter=t` over
      20,000 map reads and 2,000 foreign ones, and `bbrealign` on the
@@ -101,7 +101,7 @@ From the root of a checkout, on a machine with a CUDA card:
      in two: 26 chunk records), printing reads/s, the mapped share
      and the share placed within 50 bp, B4's launches, the fused phase's
      walk-cap overflows, the plane groups and the walk's seconds; then
-     `bbmapskimmer` on the first 32 of them (its flag-256 lines) and `gradesam`
+     `bbmapskimmer` on the first 16 of them (its flag-256 lines) and `gradesam`
      on mapPacBio's SAM; B4's block kernel at mapPacBio's widest class
      (4 tasks, R=6,000, Cc=13,640) against its plain version, in the
      kernel phase; `bbduk` config #1 with align=t over its reads with one
@@ -164,11 +164,27 @@ From the root of a checkout, on a machine with a CUDA card:
      `bloomfilter ref=<genome> k=31` over the bloom reads, `polyfilter`
      over config #1's reads with poly-G tails (counts the JAX package's
      in a dry run, tools/a8c_dryrun.py), `seqtovec` -> `train` ->
-     `netfilter` and `scoresequence` over config #1's reads, `calibrate
+     `netfilter` and `scoresequence` over 100,000 of config #1's reads, `calibrate
      epochs=2000` over 100,000 rows; then each on both devices on a
      head: byte for byte, but train's nets, calibrate's constants,
      netfilter's reads near the cutoff and scoresequence's scores, held
-     to stated tolerances.
+     to stated tolerances;
+ 14. the multi-device paths (ROADMAP A7) on a virtual mesh of the card
+     (cuda:0 repeated), each held to one device on the same input and
+     each check's seconds printed: BBDuk config #1's flags over (dp=2,
+     tp=2) on 50,000 reads (FASTQ and stats byte-equal), BBMap defaults
+     over dp=4 on one 4,096-read batch (the SAM equal; B4's launches
+     over the slabs), the insert scan over 4 slabs of one 8,192-pair
+     BBMerge batch (equal to overlap_counts; B5's launches), the
+     hash-sharded spectrum over 4 shards of config #2's first 50,000
+     reads at k=31 (spectrum and khist equal to DeviceSpectrum's), the
+     matcher over (2, 2) on the full-k keys of its first batch (equal
+     to mm_lookup; B3's `mm_best` a slab, held against its plain twin
+     and timed beside mm_lookup at the slab: the kernels line's
+     `mm_best` row), and two processes on the card joined by a gloo
+     group running kmercountexact and the one-adapter BBDuk on the
+     halves of 20,000 reads (khist, dump, the outputs in rank order and
+     the stats equal to one process's).
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -286,8 +302,9 @@ PIPE_CHECK_BP = 5_000  # the region's head, for tadpipe's CUDA against CPU
 #: run ~35 pairs/s on a CPU core (PERF.md section 4)
 MERGE_CHECK_PAIRS = 20_000
 #: BBMerge nn=t's rate over the first NN_PAIRS of BBMerge's pairs (all
-#: 150,000 before: cut for the smoke's time, PERF.md section 4 "Cuts")
-NN_PAIRS = 75_000
+#: 150,000 at first, then 75,000: cut for the smoke's time, PERF.md
+#: section 4 "Cuts")
+NN_PAIRS = 50_000
 MERGE_ECCT_CHECK_PAIRS = 500
 #: bbcms: all of config #2's reads with the depth filter; the default
 #: ecc=t on the region's reads (host correction)
@@ -315,11 +332,13 @@ BLOOM_CHECK_READS = 2_048
 #: card, a call a plane group (9 at 512 records, 5 at 128).
 #: bbmapskimmer maps the first SKIM_READS of the same records: its walk
 #: calls cost the same at any count, and fewer tasks need fewer groups
+#: (128 at first, then 32: cut for the smoke's time, PERF.md section 4
+#: "Cuts")
 LONG_READS = 51
 LONG_RANGE = (1000, 6000)
 LONG_CHUNKED = 13
 LONG_CHUNKED_RANGE = (6100, 12000)
-SKIM_READS = 32
+SKIM_READS = 16
 LONG_CHECK_READS = 8  # the CUDA-against-CPU check, reads of 1,000-1,500 bp
 LONG_CHECK_RANGE = (1000, 1500)
 #: the least share of mapped unchunked long reads placed within 50 bp
@@ -470,7 +489,9 @@ BLOOM_MATCHED = 22_000
 #: and half from AT-rich pools (tests/test_mltools.py's classes), made
 #: vectors by seqtovec (k=0, width 55: 224 features), a net trained on
 #: them at train's defaults (2,000 epochs, [224, 64, 1]); netfilter and
-#: scoresequence with it over config #1's reads. The check trains on
+#: scoresequence with it over the first NN_FILTER_READS of config #1's
+#: reads (all 200,000 at first: cut for the smoke's time, PERF.md
+#: section 4 "Cuts"). The check trains on
 #: ML_CHECK_ROWS rows a class on both devices: the nets within
 #: FIT_WEIGHT_TOL in every weight (their files print six decimals) and
 #: the reported mse within the same; netfilter's files equal but for
@@ -478,6 +499,7 @@ BLOOM_MATCHED = 22_000
 #: scoresequence's scores within SCORE_TOL (one unit of their fourth
 #: decimal). The bounds: tests/test_torch_mltools.py, from the dry run
 ML_READS = 20_000
+NN_FILTER_READS = 100_000
 ML_POOLS = (b"GCGCGCAT", b"ATATATGC")
 ML_CHECK_ROWS = 1_000
 FIT_WEIGHT_TOL = 5e-5
@@ -1383,6 +1405,7 @@ def counters():
         "lane_lookup": (lane_index.lane_lookup, "launches"),
         "cummax_i64": (scan.cummax_i64, "launches"),
         "mm_lookup": (mm_match.mm_lookup, "launches"),
+        "mm_best": (mm_match.mm_best, "launches"),
         "overlap_scan": (overlap_scan.overlap_counts, "launches"),
         "lane_table": (lane_table.lookup, "launches"),
         "msa_fill": (msa_fill.msa_fill, "launches"),
@@ -2473,8 +2496,7 @@ def timed_walk():
     a function that undoes the wrapping)."""
     import torch
 
-    from bbtools_torch.models import bbmap
-    from bbtools_torch.ops import map_fused
+    from bbtools_torch.ops import map_fused, msa_fill
 
     orig = map_fused.msa_walk
     secs: list[float] = []
@@ -2487,10 +2509,10 @@ def timed_walk():
         secs.append(time.perf_counter() - t0)
         return out
 
-    map_fused.msa_walk = bbmap.msa_walk = walk
+    map_fused.msa_walk = msa_fill.msa_walk = walk
 
     def undo():
-        map_fused.msa_walk = bbmap.msa_walk = orig
+        map_fused.msa_walk = msa_fill.msa_walk = orig
 
     return secs, undo
 
@@ -3473,6 +3495,7 @@ def make_a8c_data(work: str, genome, ref_fa: str, fq: str, bloom_fq: str, asm: d
                         ("kc_check", d["kc_in"], A8A_CHECK_READS),
                         ("poly_check", d["poly"], A8A_CHECK_READS),
                         ("nn_check", fq, A8A_CHECK_READS),
+                        ("nn_in", fq, NN_FILTER_READS),
                         ("bloom_check", bloom_fq, BLOOM_CHECK_READS)):
         d[tag] = w(f"{tag}.fq.gz")
         head_fastq(src, d[tag], n)
@@ -3516,8 +3539,8 @@ def a8c_phases(a8c: dict, fq: str, n_fq: int, work: str, card: str, phase_s: dic
     hist= over config #2's reads, bloomfilter ref=<genome> over the
     bloom reads, polyfilter over config #1's reads with poly-G tails
     (their counts the JAX package's), seqtovec -> train -> netfilter and
-    scoresequence over config #1's reads (the net trained here, at
-    a8c["net"]), and calibrate epochs=2000."""
+    scoresequence over the first NN_FILTER_READS of config #1's reads
+    (the net trained here, at a8c["net"]), and calibrate epochs=2000."""
 
     def w(name):
         return os.path.join(work, name)
@@ -3615,15 +3638,16 @@ def a8c_phases(a8c: dict, fq: str, n_fq: int, work: str, card: str, phase_s: dic
           f"{card}; {log.strip()}")
     if "acc=1.0000" not in log:
         raise AssertionError(f"train: {log}")
+    nn_in, n_nn = a8c["nn_in"], min(NN_FILTER_READS, n_fq)
     (_, dt, log) = run_routed("netfilter", "netfilter",
-                              [f"in={fq}", f"net={net}", f"out={w('nf.cuda.fq')}",
+                              [f"in={nn_in}", f"net={net}", f"out={w('nf.cuda.fq')}",
                                f"outu={w('nf.cuda.u.fq')}"], {"net_forward": None})
-    print(f"netfilter device=cuda: {n_fq} reads in {dt:.2f} s = {n_fq / dt:.0f} reads/s on "
+    print(f"netfilter device=cuda: {n_nn} reads in {dt:.2f} s = {n_nn / dt:.0f} reads/s on "
           f"{card}; {log.strip()}")
     (_, dt, log) = run_routed("scoresequence", "scoresequence",
-                              [f"in={fq}", f"net={net}", f"out={w('ss.cuda.fq')}",
+                              [f"in={nn_in}", f"net={net}", f"out={w('ss.cuda.fq')}",
                                f"hist={w('ss.cuda.hist.txt')}"], {"net_forward": None})
-    print(f"scoresequence device=cuda: {n_fq} reads in {dt:.2f} s = {n_fq / dt:.0f} reads/s "
+    print(f"scoresequence device=cuda: {n_nn} reads in {dt:.2f} s = {n_nn / dt:.0f} reads/s "
           f"on {card}; {log.strip()}")
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
@@ -3908,6 +3932,295 @@ def cuda_halves_here(runs: dict) -> dict:
             cli_call([*check.argv, "device=cuda"], check.stdout)
         secs[name] = time.perf_counter() - t0
     return secs
+
+
+#: A7 (multi-device): the sharded paths on a virtual mesh of the card
+#: (cuda:0 repeated; NCCL refuses two ranks on one card, gloo does not),
+#: each held to the single-device run on the same input: BBDuk config #1's
+#: flags over (dp=2, tp=2) on the first A7_DUK_READS reads; BBMap defaults
+#: over dp=4 on one 4,096-read batch; the insert scan over 4 slabs of one
+#: BBMerge batch; the spectrum over 4 shards of config #2's first
+#: A7_KMER_READS reads at k=31; the matcher over (2, 2) on the full-k keys
+#: of its first batch; and two processes joined by a gloo group,
+#: kmercountexact and the one-adapter BBDuk each on one half of
+#: A7_JOIN_READS reads, their global answers those of one process on the
+#: whole
+A7_DUK_READS = 50_000
+A7_KMER_READS = 50_000
+A7_JOIN_READS = 20_000
+A7_JOIN_TIMEOUT = 300
+
+#: one process of the two-process check: argv[1:] are the BBDuk flags
+A7_JOIN_WORKER = r"""
+import os, sys
+from bbtools_torch.cli import main
+
+r, w = int(os.environ["RANK"]), os.environ["A7_WORK"]
+main(["kmercountexact", f"in={w}/a7_join{r}.fq.gz", "k=31", f"khist={w}/a7_join{r}.khist.txt",
+      f"dump={w}/a7_join{r}.dump.fa", "device=cuda"])
+main(["bbduk", f"in={w}/a7_join{r}.fq.gz", f"out={w}/a7_join{r}.duk.fq",
+      f"stats={w}/a7_join{r}.duk.stats", *sys.argv[1:], "device=cuda"])
+"""
+
+
+def virtual_mesh(n_dp: int, n_tp: int):
+    """A (dp, tp) mesh of the card repeated: the slabs run one after
+    another on cuda:0, through the kernels a mesh of n_dp * n_tp cards
+    runs on each."""
+    import torch
+
+    from bbtools_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_dp, n_tp, devices=[torch.device("cuda", 0)] * (n_dp * n_tp))
+
+
+def split_fastq(src: str, dsts: list[str]):
+    """The records of a gzipped FASTQ in len(dsts) consecutive parts of
+    equal size (the last takes the rest)."""
+    with gzip.open(src, "rb") as fi:
+        lines = fi.readlines()
+    n = len(lines) // 4
+    per = n // len(dsts)
+    for i, dst in enumerate(dsts):
+        stop = n if i == len(dsts) - 1 else (i + 1) * per
+        with gzip.open(dst, "wb", compresslevel=1) as fo:
+            fo.writelines(lines[4 * i * per : 4 * stop])
+
+
+def a7_phase(fq: str, map_batch: str, ref_fa: str, pairs: list[str], kmer_src: str,
+             kern_fq: str, work: str, card: str, phase_s: dict, launches: dict) -> dict:
+    """The A7 checks (see A7_DUK_READS), each one's seconds and the
+    per-slab launches of B3, B4 and B5 printed; returns the kernels line's
+    row of `mm_best`, B3's undecoded epilogue, held against its plain
+    twin at the matcher's column slab and timed beside mm_lookup there."""
+    import torch
+
+    from bbtools_torch.io.fastq import FastqReader, paired_reader
+    from bbtools_torch.models import bbduk, bbmap
+    from bbtools_torch.models.bbmerge import _rc_batch
+    from bbtools_torch.ops.bbduk_scan import KScanConfig, canonical_keys
+    from bbtools_torch.ops.kmer_count import DeviceSpectrum
+    from bbtools_torch.ops.kmers import rolling_kmers
+    from bbtools_torch.ops.mm_match import MMKmerIndex, mm_best, mm_best_plain, mm_lookup
+    from bbtools_torch.ops.overlap_scan import overlap_counts
+    from bbtools_torch.parallel.sharded_count import sharded_mm_lookup_step, sharded_overlap_step
+    from bbtools_torch.parallel.sharded_spectrum import ShardedSpectrum
+
+    t_phase = time.perf_counter()
+    secs: dict[str, float] = {}
+    dev = torch.device("cuda", 0)
+
+    def w(name):
+        return os.path.join(work, f"a7_{name}")
+
+    # ---- 6, started first: two processes on the card, joined by gloo;
+    # they start and reach the card (~8 s each) while checks 1-5 run ----
+    t_join = time.perf_counter()
+    join_in = w("join.fq.gz")
+    head_fastq(fq, join_in, A7_JOIN_READS)
+    split_fastq(join_in, [w("join0.fq.gz"), w("join1.fq.gz")])
+    duk_flags = CONFIGS["1adapter"]
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    # each process's output to a file, so that no pipe fills while this
+    # process runs checks 1-5
+    logs = [open(w(f"join{r}.log"), "wb") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", A7_JOIN_WORKER, *duk_flags],
+        env=dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(r), A7_WORK=work),
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        # ---- 1. BBDuk config #1 over (dp=2, tp=2): the bucket gather on
+        # each shard against the sorted join (B2) on one device ----
+        t0 = time.perf_counter()
+        duk_in = w("duk.fq.gz")
+        head_fastq(fq, duk_in, A7_DUK_READS)
+        flags = CONFIGS["adapters_fa"]
+        run_tool("bbduk", [f"in={duk_in}", f"out={w('duk.one.fq')}",
+                           f"stats={w('duk.one.stats')}", *flags], "cuda")
+
+        def sharded_bbduk():
+            tool = bbduk.BBDuk(bbduk.parse_args([f"in={duk_in}", f"out={w('duk.mesh.fq')}",
+                                                 f"stats={w('duk.mesh.stats')}", *flags,
+                                                 "device=cuda"]))
+            tool.enable_mesh(mesh=virtual_mesh(2, 2))
+            with contextlib.redirect_stderr(io.StringIO()):
+                tool.run()
+            return tool
+
+        run_path("bbduk over (2, 2)", sharded_bbduk, (), {})
+        if (read_all([w("duk.mesh.fq"), w("duk.mesh.stats")])
+                != read_all([w("duk.one.fq"), w("duk.one.stats")])):
+            raise AssertionError("A7 bbduk: the (2, 2) mesh's FASTQ or stats differ")
+        secs["bbduk"] = time.perf_counter() - t0
+        print(f"A7 bbduk config #1 over (dp=2, tp=2): {A7_DUK_READS} reads, FASTQ and stats "
+              f"byte-equal to one device; {secs['bbduk']:.1f} s")
+
+        # ---- 2. BBMap defaults over dp=4 (B4 per slab) ----
+        t0 = time.perf_counter()
+        base = [f"ref={ref_fa}", f"in={map_batch}"]
+        one = bbmap.BBMap(bbmap.parse_args([*base, f"out={w('map.one.sam')}", "device=cuda"]))
+        with contextlib.redirect_stderr(io.StringIO()):
+            one.run()
+
+        def sharded_bbmap():
+            tool = bbmap.BBMap(bbmap.parse_args([*base, f"out={w('map.mesh.sam')}",
+                                                 "device=cuda"]), index=one.index)
+            tool.enable_mesh(mesh=virtual_mesh(4, 1))
+            with contextlib.redirect_stderr(io.StringIO()):
+                tool.run()
+            return tool
+
+        _, got = run_path("bbmap over dp=4", sharded_bbmap, (), {})
+        b4 = got["msa_fill"] + got["msa_fill_block"]
+        if b4 <= 0:
+            raise AssertionError("A7 bbmap: B4 never launched on the sharded path")
+        if sam_body(w("map.mesh.sam")) != sam_body(w("map.one.sam")):
+            raise AssertionError("A7 bbmap: the dp=4 mesh's SAM differs")
+        secs["bbmap"] = time.perf_counter() - t0
+        print(f"A7 bbmap over dp=4: {MAP_BATCH_READS} reads, SAM equal to one device; B4 "
+              f"launches {got['msa_fill']} (warp) + {got['msa_fill_block']} (block) over the 4 "
+              f"slabs' window classes; {secs['bbmap']:.1f} s")
+
+        # ---- 3. the insert scan over 4 slabs of one BBMerge batch (B5) ----
+        t0 = time.perf_counter()
+        b1m, b2m = list(paired_reader(*pairs, batch_reads=MERGE_BATCH))[0]
+        a = torch.from_numpy(b1m.bases).to(dev)
+        b_rc = torch.from_numpy(_rc_batch(b2m)).to(dev)
+        al = torch.from_numpy(b1m.lengths.astype(np.int32)).to(dev)
+        bl = torch.from_numpy(b2m.lengths.astype(np.int32)).to(dev)
+        min0 = 12
+        D = int((b1m.lengths.astype(np.int64) + b2m.lengths).max() - min0 + 1)
+        want = overlap_counts(a, b_rc, al, bl, min0, D)
+        step = sharded_overlap_step(virtual_mesh(4, 1), min0, D)
+        outs, got = run_path("insert scan over 4 slabs", lambda: step(a, b_rc, al, bl),
+                             ("overlap_scan",), {})
+        if not all(torch.equal(g, x) for g, x in zip(outs, want)):
+            raise AssertionError("A7 insert scan: the 4 slabs differ from overlap_counts")
+        secs["insert scan"] = time.perf_counter() - t0
+        print(f"A7 sharded_overlap_step, 4 slabs of one {a.shape[0]}-pair batch: equal to "
+              f"overlap_counts; B5 launches {got['overlap_scan']}; {secs['insert scan']:.1f} s")
+
+        # ---- 4. the spectrum over 4 shards at k=31 ----
+        t0 = time.perf_counter()
+        kmer_in = w("kmer.fq.gz")
+        head_fastq(kmer_src, kmer_in, A7_KMER_READS)
+        batches = list(FastqReader(kmer_in, batch_reads=BATCH))
+        single = DeviceSpectrum(31, device=dev)
+        for b in batches:
+            single.add_batch(b.bases, b.lengths)
+
+        def sharded_spectrum():
+            ss = ShardedSpectrum(virtual_mesh(4, 1), 31)
+            for b in batches:
+                ss.add_batch(b.bases, b.lengths)
+            ss.flush()
+            return ss
+
+        ss = routed("spectrum over 4 shards", sharded_spectrum, {"merge_spectra": None})
+        if not all(np.array_equal(g, x) for g, x in zip(ss.spectrum(), single.spectrum())):
+            raise AssertionError("A7 spectrum: the 4 shards' spectrum differs")
+        if not np.array_equal(ss.histogram(100_000), single.histogram(100_000)):
+            raise AssertionError("A7 spectrum: the 4 shards' khist differs")
+        secs["spectrum"] = time.perf_counter() - t0
+        print(f"A7 ShardedSpectrum over 4 shards, {A7_KMER_READS} reads of config #2 at k=31: "
+              f"{ss.n_unique} unique k-mers, spectrum and khist equal to DeviceSpectrum's; "
+              f"{secs['spectrum']:.1f} s")
+
+        # ---- 5. the matcher over (2, 2) on its first batch's full-k keys (B3's
+        # mm_best per (row, column) slab) ----
+        t0 = time.perf_counter()
+        mcfg = bbduk.parse_args(MM_CONFIG)
+        scaffolds, _ = bbduk.load_reference(mcfg)
+        mm = MMKmerIndex.build(scaffolds, mcfg.k, mink=mcfg.mink if mcfg.use_short_kmers else 0,
+                               hdist=mcfg.hdist, hdist2=mcfg.hdist2,
+                               mid_mask=mcfg.mid_mask_bits, rcomp=mcfg.rcomp)
+        table = mm.device_arrays(dev)
+        batch = list(FastqReader(kern_fq, batch_reads=BATCH))[0]
+        fwd, rkm, _ = rolling_kmers(torch.from_numpy(batch.bases).to(dev), mcfg.k)
+        q = canonical_keys(KScanConfig(k=mcfg.k, mid_mask=mcfg.mid_mask_bits
+                                       if mcfg.mask_middle else -1), fwd, rkm, mcfg.k)
+        want = mm_lookup(*table, *mm.static_params(), q)
+        step = sharded_mm_lookup_step(virtual_mesh(2, 2), mm.k, mm.mink, mm.Kp)
+        ids, got = run_path("matcher over (2, 2)", lambda: step(*table, q), ("mm_best",), launches)
+        if not torch.equal(ids, want):
+            raise AssertionError("A7 matcher: the (2, 2) mesh differs from mm_lookup")
+        half = mm.Dp // 2
+        kw, pr = table[0][:half].contiguous(), table[1][:, :half].contiguous()
+        qs = q[: q.shape[0] // 2].contiguous()
+        args = (kw, pr, mm.k, mm.mink, mm.Kp, half, qs)
+        best = compare(f"B3 mm_best at the (2, 2) slab: {qs.numel()} keys x {half} of {mm.Dp} "
+                    f"columns", lambda: mm_best(*args), lambda: mm_best_plain(*args), reps=5,
+                    plain_reps=2)
+        best.update(bound(nbytes(qs, kw, pr) + 4 * qs.numel(), 2 * qs.numel() * half * mm.Kp,
+                       INT8_TC_OPS_S))
+        ms = {"mm_best": [], "mm_lookup": []}
+        for order in (("mm_best", "mm_lookup"), ("mm_lookup", "mm_best")):
+            for name in order:
+                fn = mm_best if name == "mm_best" else mm_lookup
+                ms[name].append(cuda_ms(lambda: fn(*args), 5))
+        best["turns_ms"] = {k: sum(v) / len(v) for k, v in ms.items()}
+        secs["matcher"] = time.perf_counter() - t0
+        print(f"A7 sharded_mm_lookup_step over (dp=2, tp=2): {q.numel()} keys, equal to "
+              f"mm_lookup; B3 mm_best launches {got['mm_best']} (one a slab); at the slab "
+              f"in turns: mm_best {best['turns_ms']['mm_best']:.4f} ms, mm_lookup "
+              f"{best['turns_ms']['mm_lookup']:.4f} ms, bound {best['bound_ms']:.4f} ms; "
+              f"{secs['matcher']:.1f} s")
+
+        # ---- 6. the two processes against one process on the whole ----
+        run_tool("kmercountexact", [f"in={join_in}", "k=31", f"khist={w('join.khist.txt')}",
+                                    f"dump={w('join.dump.fa')}"], "cuda")
+        run_tool("bbduk", [f"in={join_in}", f"out={w('join.duk.fq')}",
+                           f"stats={w('join.duk.stats')}", *duk_flags], "cuda")
+        for r, p in enumerate(procs):
+            p.wait(timeout=A7_JOIN_TIMEOUT)
+            log = read_all([w(f"join{r}.log")])[0]
+            if p.returncode:
+                raise AssertionError(f"A7 join: process {r} exited {p.returncode}: "
+                                     f"{log.decode()[-2000:]}")
+            if b"Joined torch.distributed process group" not in log:
+                raise AssertionError(f"A7 join: process {r} did not join the group")
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r in range(2):
+        if (read_all([w(f"join{r}.khist.txt"), w(f"join{r}.dump.fa")])
+                != read_all([w("join.khist.txt"), w("join.dump.fa")])):
+            raise AssertionError(f"A7 join: process {r}'s khist or dump differs")
+    if b"".join(read_all([w("join0.duk.fq"), w("join1.duk.fq")])) != read_all(
+            [w("join.duk.fq")])[0]:
+        raise AssertionError("A7 join: the BBDuk outputs in rank order differ")
+
+    def stats_body(path):
+        return [ln for ln in read_all([path])[0].splitlines() if not ln.startswith(b"#File")]
+
+    if not all(stats_body(w(f"join{r}.duk.stats")) == stats_body(w("join.duk.stats"))
+               for r in range(2)):
+        raise AssertionError("A7 join: the BBDuk stats differ")
+    secs["two processes"] = time.perf_counter() - t_join
+    print(f"A7 two processes on the card, joined by gloo: kmercountexact k=31 and bbduk "
+          f"1adapter on the halves of {A7_JOIN_READS} reads; khist, dump, the outputs in "
+          f"rank order and the stats equal to one process's; {secs['two processes']:.1f} s "
+          f"from their start, beside checks 1-5")
+    phase_s["a7 sharded paths"] = time.perf_counter() - t_phase
+    print("A7 check seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f"; phase {phase_s['a7 sharded paths']:.1f} s on {card}")
+    return {
+        "name": "mm_best", "route": "cuda",
+        "source": "bbtools_torch/csrc/mm_match.cu",
+        "replaces": "bbtools_tpu/ops/mm_match.py:386",
+        "launches": launches["mm_best"], "max_abs_err": best["max_abs_err"],
+        "ms": best["ms"], "plain_ms": best["plain_ms"], "bound_ms": best["bound_ms"],
+        "bound_by": best["bound_by"], "library_ms": None, "turns_ms": best["turns_ms"],
+        "slab": {"queries": qs.numel(), "columns": half, "Dp": mm.Dp},
+    }
 
 
 def read_all(paths) -> list[bytes]:
@@ -4240,6 +4553,8 @@ def main(argv=None) -> int:
         a8a_phases(asm, a2, a8, work, card, phase_s)
         l5_phases(l5, fq, args.reads, work, card, phase_s)
         a8c_phases(a8c, fq, args.reads, work, card, phase_s)
+        kernels.append(a7_phase(fq, map_batch, ref_fa, small_pairs, asm["reads.fq.gz"],
+                                kern_fq, work, card, phase_s, launches))
         early.close()
         # the CUDA halves of the checks, and the CPU halves that need the
         # trained net, in processes once the last rate is taken

@@ -1943,3 +1943,169 @@ def test_cellnet_fit_cuda_within_tolerance_of_cpu(cuda):
                     nets["cuda"].weights + nets["cuda"].biases):
         assert float(np.abs(a - b).max()) <= 5e-5
     assert abs(nets["cpu"].loss - nets["cuda"].loss) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# A7: the sharded paths on a virtual mesh of the card (cuda:0 repeated)
+# ---------------------------------------------------------------------------
+
+
+def _virtual(cuda, n_dp, n_tp):
+    from bbtools_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_dp, n_tp, devices=[cuda] * (n_dp * n_tp))
+
+
+def test_mm_best_equals_plain_at_a_column_slab(cuda):
+    """mm_best (the B3 kernel's undecoded epilogue) against its plain twin
+    on half the columns of a matcher of ~18,000 (the matcher's slab at
+    tp=2) and on all of them; the min of the two halves' words, decoded,
+    is mm_lookup's answer."""
+    from bbtools_torch.ops import mm_match
+
+    rng = np.random.default_rng(14)
+    scafs = [rng.integers(0, 4, 460).astype(np.uint8) for _ in range(20)]
+    idx = mm_match.MMKmerIndex.build(scafs, 23, mink=11, hdist=2)
+    assert idx is not None and idx.Dp >= 16_384
+    q = torch.from_numpy(_mm_queries(rng, scafs, 23, 11, 60_000)).to(cuda)
+    km, pr = idx.device_arrays(cuda)
+    k, mink, Kp, Dp = idx.static_params()
+    half = Dp // 2
+    slabs = [(km[:half].contiguous(), pr[:, :half].contiguous()),
+             (km[half:].contiguous(), pr[:, half:].contiguous())]
+    words = []
+    for kw, p in [*slabs, (km, pr)]:
+        before = mm_match.mm_best.launches
+        got = mm_match.mm_best(kw, p, k, mink, Kp, kw.shape[0], q)
+        torch.cuda.synchronize()
+        assert mm_match.mm_best.launches == before + 1
+        assert torch.equal(got, mm_match.mm_best_plain(kw, p, k, mink, Kp, kw.shape[0], q))
+        words.append(got)
+    assert bool((words[2] != int(mm_match.BIG32)).any())
+    lookup = mm_match.mm_lookup(km, pr, k, mink, Kp, Dp, q)
+    assert torch.equal(mm_match.mm_decode_best(torch.minimum(words[0], words[1])), lookup)
+    assert torch.equal(mm_match.mm_decode_best(words[2]), lookup)
+
+
+def test_sharded_steps_on_a_virtual_mesh_equal_one_device(cuda):
+    """Each sharded step on [cuda:0] * 4 equals the single-device call on
+    the card, through the kernels per slab (B3's mm_best, B4, B5)."""
+    from bbtools_torch.ops import kmer_count as kc
+    from bbtools_torch.ops import mm_match, msa_fill, overlap_scan
+    from bbtools_torch.ops.bbduk_scan import KScanConfig, kscan_combined
+    from bbtools_torch.ops.kmer_index import BucketKmerIndex, build_ref_keys
+    from bbtools_torch.ops.score_ungapped import score_no_indels
+    from bbtools_torch.parallel import sharded_count as sc
+    from bbtools_torch.parallel import sharded_index as si
+    from bbtools_torch.parallel.sharded_spectrum import ShardedSpectrum
+
+    rng = np.random.default_rng(15)
+    # the BBDuk scan: (2, 2) against the unsharded bucket table
+    scafs = [rng.integers(0, 4, 60).astype(np.uint8) for _ in range(30)]
+    keys, ids = build_ref_keys(scafs, 23, mink=11, hdist=1)
+    B, L = 1024, 151
+    bases = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    for r in range(0, B, 3):
+        s = scafs[r % len(scafs)]
+        p = int(rng.integers(0, L - 60))
+        bases[r, p : p + 60] = s
+    lengths = rng.integers(60, L + 1, B).astype(np.int32)
+    b_t, l_t = torch.from_numpy(bases).to(cuda), torch.from_numpy(lengths).to(cuda)
+    sidx = si.ShardedKmerIndex.build(keys, ids, 2)
+    mesh = _virtual(cuda, 2, 2)
+    cfg = KScanConfig(k=23, mink=11)
+    got = si.make_sharded_kscan(mesh, cfg, sidx, True, True)(sidx.place(mesh), b_t, l_t)
+    one = BucketKmerIndex.build(keys, ids)
+    want = kscan_combined(KScanConfig(k=23, mink=11, nb=one.nb), one.device_arrays(cuda),
+                          b_t, l_t, True, True)
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k]), k
+    for g, w in zip((*got[1], *got[2]), (*want[1], *want[2])):
+        assert torch.equal(g, w)
+    assert int(got[0]["nhits"].max()) > 0
+    # counting, ungapped scoring and the insert scan over dp=4
+    mesh4 = _virtual(cuda, 4, 1)
+    v, c, n, h = sc.sharded_count_step(mesh4, 31)(b_t, l_t)
+    cpu = sc.sharded_count_step(_cpu_mesh(4), 31)(torch.from_numpy(bases),
+                                                  torch.from_numpy(lengths))
+    for g, w in zip((v, c, n, h), cpu):
+        assert torch.equal(g.cpu(), w)
+    T, W = 512, 200
+    refs = rng.integers(0, 4, (T, W)).astype(np.uint8)
+    starts = rng.integers(0, 40, T).astype(np.int32)
+    for t in range(T):
+        refs[t, starts[t] : starts[t] + L] = bases[t]
+    args = [torch.from_numpy(x).to(cuda) for x in (bases[:T], lengths[:T], refs, starts)]
+    assert torch.equal(sc.sharded_ungapped_score_step(mesh4, L, W)(*args),
+                       score_no_indels(L, *args, torch.full((T,), W, dtype=torch.int32,
+                                                            device=cuda)))
+    b_rc = torch.flip(b_t, [1]).contiguous()
+    before = overlap_scan.overlap_counts.launches
+    got = sc.sharded_overlap_step(mesh4, 12, 2 * L - 11)(b_t, b_rc, l_t, l_t)
+    assert overlap_scan.overlap_counts.launches == before + 4
+    for g, w in zip(got, overlap_scan.overlap_counts(b_t, b_rc, l_t, l_t, 12, 2 * L - 11)):
+        assert torch.equal(g, w)
+    # the fill and walk over dp=4
+    tasks = _msa_tasks(rng, 400, 151, 151 + 24, 100)
+    fn = sc.make_sharded_fill_walk(mesh4, 151, 151 + 24)
+    before = msa_fill.msa_fill.launches + msa_fill.msa_fill.block_launches
+    got = fn(*tasks)
+    assert msa_fill.msa_fill.launches + msa_fill.msa_fill.block_launches >= before + 4
+    (want, _groups) = msa_fill.fill_walk(*tasks, cuda)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 3:  # walk ops: one width across slabs, zero past each row's steps
+            w = torch.nn.functional.pad(w, (0, g.shape[1] - w.shape[1]))
+        assert torch.equal(g, w)
+    # the matcher over (2, 2)
+    mscafs = [rng.integers(0, 4, 200).astype(np.uint8) for _ in range(20)]
+    idx = mm_match.MMKmerIndex.build(mscafs, 23, mink=11, hdist=2)
+    q = torch.from_numpy(_mm_queries(rng, mscafs, 23, 11, 20_000)).to(cuda)
+    km, pr = idx.device_arrays(cuda)
+    before = mm_match.mm_best.launches
+    got = sc.sharded_mm_lookup_step(mesh, idx.k, idx.mink, idx.Kp)(km, pr, q)
+    assert mm_match.mm_best.launches == before + 4
+    assert torch.equal(got, mm_match.mm_lookup(km, pr, *idx.static_params(), q))
+    # the spectrum over dp=4 against DeviceSpectrum
+    ss, ds = ShardedSpectrum(mesh4, 31), kc.DeviceSpectrum(31, device=cuda)
+    for bases_b, lengths_b in _kmer_batches(16, 5):
+        ss.add_batch(bases_b, lengths_b)
+        ds.add_batch(bases_b, lengths_b)
+    for g, w in zip(ss.spectrum(), ds.spectrum()):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(ss.histogram(200), ds.histogram(200))
+
+
+def _cpu_mesh(n_dp):
+    from bbtools_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_dp, 1, devices=[torch.device("cpu")] * n_dp)
+
+
+def test_bbmap_on_a_virtual_mesh_equals_cpu(cuda, tmp_path):
+    """BBMap with its tasks over [cuda:0] * 4 (the mesh tpshards=4 takes
+    on four cards) writes the SAM of `tpshards=4 device=cpu` and of one
+    card."""
+    from bbtools_torch.cli import main
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.models import bbmap
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(150_000, n_scaffolds=2, seed=8))
+    ref = load_reference(str(tmp_path / "ref.fa"))
+    write_reads(str(tmp_path / "r.fq"), random_reads(
+        ref, 512, read_len=151, snp_rate=0.01, indel_rate=0.1,
+        indel_range=(1, 10), seed=5))
+    base = [f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}"]
+    main(["bbmap", *base, f"out={tmp_path / 'cpu.sam'}", "tpshards=4", "device=cpu"])
+    main(["bbmap", *base, f"out={tmp_path / 'one.sam'}", "device=cuda"])
+    tool = bbmap.BBMap(bbmap.parse_args([*base, f"out={tmp_path / 'mesh.sam'}",
+                                         "device=cuda"]))
+    tool.enable_mesh(mesh=_virtual(cuda, 4, 1))
+    tool.run()
+
+    def body(name):
+        return [ln for ln in (tmp_path / name).read_bytes().splitlines()
+                if not ln.startswith(b"@PG")]
+
+    assert body("mesh.sam") == body("cpu.sam") == body("one.sam")
+    assert len(body("mesh.sam")) > 512

@@ -277,6 +277,8 @@ COPIED_FUNCTIONS = [
     ("cli", "_remove_preset"), ("cli", "_bbwrap"), ("cli", "guard_output_files"),
     ("cli", "_lazy"), ("models.research", "regressiontrainer_main"),
     ("models.polyfilter", "_max_pure_run"),
+    ("parallel.sharded_index", "ShardedKmerIndex.build"),
+    ("parallel.sharded_count", "shard_seed_index"),
 ]
 
 
@@ -388,7 +390,7 @@ def test_wrappers_run_no_plain_version_off_the_cpu():
     """A tensor that is not on the CPU never reaches the plain version."""
     from bbtools_torch.ops import lane_table
     from bbtools_torch.ops.lane_index import lane_lookup
-    from bbtools_torch.ops.mm_match import mm_lookup
+    from bbtools_torch.ops.mm_match import mm_best, mm_lookup
     from bbtools_torch.ops.msa_fill import msa_fill
     from bbtools_torch.ops.overlap_scan import overlap_counts
     from bbtools_torch.ops.scan import cummax_i64
@@ -406,6 +408,7 @@ def test_wrappers_run_no_plain_version_off_the_cpu():
         lambda: lane_table.lookup(t.float(), q.int()),
         lambda: overlap_counts(codes, codes, lens, lens, 5, 50),
         lambda: mm_lookup(key_words, prio, 23, 11, 128, 512, q),
+        lambda: mm_best(key_words, prio, 23, 11, 128, 512, q),
         lambda: msa_fill(codes, lens, codes),
     ]
     for call in calls:
@@ -414,6 +417,7 @@ def test_wrappers_run_no_plain_version_off_the_cpu():
     assert lane_lookup.launches == 0 and cummax_i64.launches == 0
     assert lane_table.lookup.launches == 0 and overlap_counts.launches == 0
     assert mm_lookup.launches == 0 and msa_fill.launches == 0
+    assert mm_best.launches == 0
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -430,11 +434,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("tool,flag,item", [
-    ("bbduk", "tpshards=2", "A7"), ("bbduk", "profile=trace", "A9"),
-    ("bbmerge", "tpshards=2", "A7"),
-    ("bbmap", "tpshards=2", "A7"),
-    ("kmercountexact", "shards=2", "A7"), ("kmercount", "tpshards=4", "A7"),
-    ("khist", "shards=2", "A7"), ("tadpole", "shards=2", "A7"),
+    ("bbduk", "profile=trace", "A9"),
 ])
 def test_unported_flags_raise(tmp_path, tool, flag, item):
     from bbtools_torch.cli import main
@@ -444,6 +444,27 @@ def test_unported_flags_raise(tmp_path, tool, flag, item):
     with pytest.raises(NotImplementedError, match=re.escape(f"(ROADMAP {item})")):
         main([tool, f"in={fq}", "literal=ACGTACGTACGTACGTACGTACGTA", "k=23",
               "device=cpu", *([flag] if flag else [])])
+
+
+@pytest.mark.parametrize("tool,flag", [
+    ("bbduk", "tpshards=2"), ("bbmerge", "tpshards=2"), ("bbmap", "tpshards=2"),
+    ("kmercountexact", "shards=2"), ("kmercount", "tpshards=4"),
+    ("khist", "shards=2"), ("tadpole", "shards=2"),
+])
+def test_shard_flags_run(tmp_path, tool, flag):
+    """The multi-device flags that raised until the A7 port now run, on a
+    mesh of CPU copies."""
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGTTGCAAG" * 6 + "\n+\n" + "I" * 60 + "\n")
+    ref = tmp_path / "ref.fa"
+    ref.write_text(">s\n" + "ACGTTGCAAGCTTCGA" * 40 + "\n")
+    argv = {"bbduk": [f"in={fq}", "literal=ACGTACGTACGTACGTACGTACGTA", "k=23",
+                      f"out={tmp_path}/o.fq"],
+            "bbmerge": [f"in1={fq}", f"in2={fq}", f"out={tmp_path}/o.fq"],
+            "bbmap": [f"ref={ref}", f"in={fq}", f"out={tmp_path}/o.sam", "nodisk"]}
+    main([tool, *argv.get(tool, [f"in={fq}", "k=23"]), flag, "device=cpu"])
 
 
 def test_native_codec_builds_under_concurrent_processes(tmp_path):
