@@ -3,9 +3,10 @@ python -m bbtools_torch <tool> key=value ...
 
 The tools ported so far are registered in TOOLS, each running on the
 card unless given device=cpu (the host-only ones, stats, pileup,
-calctruequality, gradesam, reformatpb, the host aligner launchers and
-the vector tools seqtovec, netconvert, reducecolumns, vectorutils and
-balancevectors, run anywhere). A name not in TOOLS raises, naming the ROADMAP item that
+calctruequality, gradesam, reformatpb, the host aligner launchers, the
+vector tools seqtovec, netconvert, reducecolumns, vectorutils and
+balancevectors, and the read-handling tools around rqcfilter, run
+anywhere). A name not in TOOLS raises, naming the ROADMAP item that
 holds it (A8, the long tail). Before any tool runs, `guard_output_files`
 refuses duplicate outputs, an output that is also an input, and an
 existing output under ow=f. Where torchrun's variables describe a group
@@ -328,6 +329,63 @@ TOOLS = {
     "balancevectors": lambda a: _lazy("mltools", "balancevectors_main", a),
     "calibrate": lambda a: _lazy("research", "calibrate_main", a),
     "regressiontrainer": lambda a: _lazy("research", "regressiontrainer_main", a),
+    # A8b's read-QC slice: RQCFilter2 (every stage's tool on device=) and
+    # DecontaminateByNormalization (BBMap, bbnorm, Tadpole on device=)
+    "rqcfilter": lambda a: _lazy("rqcfilter", "main", a),
+    "rqcfilter2": lambda a: _lazy("rqcfilter", "main", a),
+    "rqcfilter3": lambda a: _lazy("rqcfilter", "main", a),
+    "decontaminate": lambda a: _lazy("decontaminate", "main", a),
+    "crossblock": lambda a: _lazy("decontaminate", "main", a),
+    # host only: the read-handling tools of the same family
+    "summarizecrossblock": lambda a: _lazy("decontaminate", "summarizecrossblock", a),
+    "filterbytile": lambda a: _lazy("filterbytile", "main", a),
+    "analyzeflowcell": lambda a: _lazy("filterbytile", "main", a),
+    "demux": lambda a: _lazy("demux", "main", a),
+    "demuxbyname": lambda a: _lazy("demux", "main", a),
+    "filterbycoverage": lambda a: _lazy("seqtools", "filterbycoverage", a),
+    "trimcontigs": lambda a: _lazy("seqtools", "trimcontigs", a),
+    "shuffle": lambda a: _lazy("seqtools", "shuffle", a),
+    "shuffle2": lambda a: _lazy("seqtools", "shuffle", a),
+    "getreads": lambda a: _lazy("seqtools", "getreads", a),
+    "replaceheaders": lambda a: _lazy("seqtools", "replaceheaders", a),
+    "randomgenome": lambda a: _lazy("seqtools", "randomgenome", a),
+    "makepolymers": lambda a: _lazy("seqtools", "makepolymers", a),
+    "tetramerfreq": lambda a: _lazy("seqtools", "tetramerfreq", a),
+    "callpeaks": lambda a: _lazy("seqtools", "callpeaks", a),
+    "novademux": lambda a: _lazy("novademux", "main", a),
+    "filterbyname": lambda a: _lazy("filtertools", "filterbyname", a),
+    "filterbysequence": lambda a: _lazy("filtertools", "filterbysequence", a),
+    "filtersam": lambda a: _lazy("filtertools", "filtersam", a),
+    "countbarcodes": lambda a: _lazy("filtertools", "countbarcodes", a),
+    "countbarcodes2": lambda a: _lazy("filtertools", "countbarcodes", a),
+    "cutprimers": lambda a: _lazy("filtertools", "cutprimers", a),
+    "repair": lambda a: _lazy("splitpairs", "main", list(a) + ["repair=t"]),
+    "splitpairs": lambda a: _lazy("splitpairs", "main", a),
+    "bbsplitpairs": lambda a: _lazy("splitpairs", "main", a),
+    "sortbyname": lambda a: _lazy("sortbyname", "main", a),
+    "bbsort": lambda a: _lazy("sortbyname", "main", a),
+    "mergesorted": lambda a: _lazy("sortbyname", "mergesorted", a),
+    "bbmask": lambda a: _lazy("bbmask", "main", a),
+    "shred": lambda a: _lazy("smalltools", "shred", a),
+    "fuse": lambda a: _lazy("smalltools", "fuse", a),
+    "fusesequence": lambda a: _lazy("smalltools", "fuse", a),
+    "partition": lambda a: _lazy("smalltools", "partition", a),
+    "partitionreads": lambda a: _lazy("smalltools", "partition", a),
+    "bbcountunique": lambda a: _lazy("smalltools", "count_uniqueness", a),
+    "calcuniqueness": lambda a: _lazy("smalltools", "count_uniqueness", a),
+    "comparelabels": lambda a: _lazy("barcodetools", "comparelabels", a),
+    "muxbyname": lambda a: _lazy("barcodetools", "muxbyname", a),
+    "removebadbarcodes": lambda a: _lazy("barcodetools", "removebadbarcodes", a),
+    "filterbarcodes": lambda a: _lazy("barcodetools", "filterbarcodes", a),
+    "tiledump": lambda a: _lazy("hiseqtools", "tiledump_main", a),
+    "plotflowcell": lambda a: _lazy("hiseqtools", "plotflowcell_main", a),
+    "plothist": lambda a: _lazy("hiseqtools", "plothist_main", a),
+    "plotreadposition": lambda a: _lazy("hiseqtools", "plotreadposition_main", a),
+    "cg2illumina": lambda a: _lazy("hiseqtools", "cg2illumina_main", a),
+    "kapastats": lambda a: _lazy("hiseqtools", "kapastats_main", a),
+    "cbcl2text": lambda a: _lazy("illuminatools", "cbcl2text_main", a),
+    "splitnextera": lambda a: _lazy("splitnextera", "main", a),
+    "splitnexteralmp": lambda a: _lazy("splitnextera", "main", a),
 }
 
 

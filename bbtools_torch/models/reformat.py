@@ -543,14 +543,12 @@ def main(argv=None):
                 writer.add(b, keep)
                 writer2.add(b2, keep)
             elif b2 is not None:
-                # twin -> interleaved single output
-                from ..io.fastq import encode_fastq
+                # twin -> interleaved single output, in one pass (the JAX
+                # package encodes each kept pair with a row of an n x n
+                # identity matrix: quadratic in the batch)
+                from ..io.fastq import encode_fastq, interleave
 
-                payload = bytearray()
-                for i in rows:
-                    payload += encode_fastq(b, np.eye(b.n, dtype=bool)[i])
-                    payload += encode_fastq(b2, np.eye(b2.n, dtype=bool)[i])
-                writer.fh.write(bytes(payload))
+                writer.fh.write(encode_fastq(interleave(b, b2), np.repeat(keep, 2)))
                 writer.reads_out += 2 * len(rows)
             else:
                 writer.add(b, keep)

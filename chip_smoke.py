@@ -120,7 +120,7 @@ From the root of a checkout, on a machine with a CUDA card:
      k=31 target=10 mindepth=5` over config #2's reads (the kept share
      near the target over the 31-mer depth), `ecc` over config #5's
      region's reads, `loglog k=31` over config #2's reads (within 7% of
-     kmercountexact's distinct 31-mers), `dedupe s=2 e=2` over 200,000
+     kmercountexact's distinct 31-mers), `dedupe s=2 e=2` over 100,000
      reads with planted copies and near-copies (kept and duplicates
      exactly the planted), `clumpify k=31` over config #1's reads and
      `dedupe=t` over dedupe's (the same-strand copies removed); then
@@ -164,7 +164,7 @@ From the root of a checkout, on a machine with a CUDA card:
      `bloomfilter ref=<genome> k=31` over the bloom reads, `polyfilter`
      over config #1's reads with poly-G tails (counts the JAX package's
      in a dry run, tools/a8c_dryrun.py), `seqtovec` -> `train` ->
-     `netfilter` and `scoresequence` over 100,000 of config #1's reads, `calibrate
+     `netfilter` and `scoresequence` over 50,000 of config #1's reads, `calibrate
      epochs=2000` over 100,000 rows; then each on both devices on a
      head: byte for byte, but train's nets, calibrate's constants,
      netfilter's reads near the cutoff and scoresequence's scores, held
@@ -184,7 +184,21 @@ From the root of a checkout, on a machine with a CUDA card:
      `mm_best` row), and two processes on the card joined by a gloo
      group running kmercountexact and the one-adapter BBDuk on the
      halves of 20,000 reads (khist, dump, the outputs in rank order and
-     the stats equal to one process's).
+     the stats equal to one process's);
+ 15. the read-QC pipelines (ROADMAP A8b) on device=cuda: `rqcfilter2`
+     with clumpify, filterbytile, removeribo, polyfilter, removeref
+     (the second genome), merge and khist over 10,000 tiled pairs of
+     2x150 bp of the E. coli-length genome with phiX, rRNA,
+     second-genome, poly-G, duplicate and poor-tile pairs planted: each
+     stage's reads, seconds, BBDuk backend and kernel launches printed,
+     B1, B2, B4, B5 and B6 required on the path, filterstats.txt equal
+     to the JAX package's in a dry run (tools/a8b_dryrun.py), each
+     planted class removed at its own stage; `decontaminate` over three
+     libraries with planted contaminant contigs (every one in its
+     library's _dirty.fasta, every true contig clean); then each on both
+     devices, byte for byte: rqcfilter2's output directory on the first
+     2,000 pairs (reproduce.sh with the run's directory replaced), and
+     decontaminate's results, covstats, clean and dirty FASTA.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -384,10 +398,11 @@ BBNORM_FLAGS = ["k=31", "target=10", "mindepth=5"]
 #: dedupe's input: DEDUPE_DISTINCT random reads of 150 bp, DEDUPE_EXACT
 #: exact copies of as many of them (every other reverse-complemented)
 #: and DEDUPE_NEAR near-copies of others (1-2 substitutions or a 1 bp
-#: indel at 40-110), shuffled
-DEDUPE_DISTINCT = 150_000
-DEDUPE_EXACT = 25_000
-DEDUPE_NEAR = 25_000
+#: indel at 40-110), shuffled (twice as many of each at first: cut for
+#: the smoke's time, PERF.md section 4 "Cuts")
+DEDUPE_DISTINCT = 75_000
+DEDUPE_EXACT = 12_500
+DEDUPE_NEAR = 12_500
 DEDUPE_FLAGS = ["s=2", "e=2"]
 #: the dedupe and clumpify checks' heads: past one 16,384-read batch, so
 #: that dedupe's second batch sends pairs to the banded edit distance
@@ -490,8 +505,8 @@ BLOOM_MATCHED = 22_000
 #: vectors by seqtovec (k=0, width 55: 224 features), a net trained on
 #: them at train's defaults (2,000 epochs, [224, 64, 1]); netfilter and
 #: scoresequence with it over the first NN_FILTER_READS of config #1's
-#: reads (all 200,000 at first: cut for the smoke's time, PERF.md
-#: section 4 "Cuts"). The check trains on
+#: reads (all 200,000 at first, then 100,000: cut for the smoke's time,
+#: PERF.md section 4 "Cuts"). The check trains on
 #: ML_CHECK_ROWS rows a class on both devices: the nets within
 #: FIT_WEIGHT_TOL in every weight (their files print six decimals) and
 #: the reported mse within the same; netfilter's files equal but for
@@ -499,7 +514,7 @@ BLOOM_MATCHED = 22_000
 #: scoresequence's scores within SCORE_TOL (one unit of their fourth
 #: decimal). The bounds: tests/test_torch_mltools.py, from the dry run
 ML_READS = 20_000
-NN_FILTER_READS = 100_000
+NN_FILTER_READS = 50_000
 ML_POOLS = (b"GCGCGCAT", b"ATATATGC")
 ML_CHECK_ROWS = 1_000
 FIT_WEIGHT_TOL = 5e-5
@@ -3828,8 +3843,8 @@ def early_runs(ctx: dict, pipe: dict, work: str, device: str) -> list:
 
 
 #: the CUDA halves the late processes start first: the longest
-LATE_FIRST = ("tadpipe cuda", "bbmerge merge cuda", "mappacbio cuda", "bbmapskimmer cuda",
-              "dedupe cuda", "seal cuda")
+LATE_FIRST = ("tadpipe cuda", "rqcfilter2 cuda", "bbmerge merge cuda", "mappacbio cuda",
+              "bbmapskimmer cuda", "dedupe cuda", "seal cuda")
 
 
 def kce_check_argv(asm: dict, k: int, work: str, device: str):
@@ -4223,6 +4238,471 @@ def a7_phase(fq: str, map_batch: str, ref_fa: str, pairs: list[str], kmer_src: s
     }
 
 
+#: A8b (the read-QC slice): RQCFilter2 at rqcfilter2.sh's defaults (ktrim
+#: against the adapters with tbo tpe on pairs, qtrim/maxns/maq, the
+#: artifact + phiX + pJET filter) with clumpify, filterbytile, removeribo,
+#: polyfilter, removeref against the second genome, merge and khist, over
+#: A8B_PAIRS pairs of 2x150 bp of the E. coli-length genome with Illumina
+#: headers that carry tiles (inserts A8B_INSERTS, adapters past short
+#: inserts). Planted, each a share of the pairs: phiX, rRNA of the four
+#: consensus files, pairs of the second genome, poly-G tails on r1 of
+#: A8B_POLYG bases, exact duplicate pairs, and pairs in a corner of tile
+#: A8B_BAD_TILE (x, y < 1000) with phred 2-12. Its CUDA-against-CPU check
+#: runs on the first A8B_CHECK_PAIRS pairs.
+A8B_PAIRS = 10_000
+A8B_CHECK_PAIRS = 2_000
+A8B_INSERTS = (100, 450)
+A8B_SHARES = (("phix", 0.05), ("ribo", 0.03), ("second", 0.05), ("polyg", 0.02),
+              ("badtile", 0.02), ("dup", 0.01))
+A8B_POLYG = (20, 60)
+A8B_BAD_TILE = 1104
+A8B_TILES = (1101, 1102, 1103, 1104)
+A8B_FLAGS = ["clumpify=t", "filterbytile=t", "removeribo=t", "polyfilter=1", "merge=t",
+             "khist=t"]
+#: the stage that removes each planted class, and the infix of each
+#: stage's output (<stem>.<infix>.R1.fastq.gz with keepintermediates=t)
+A8B_STAGE = {"dup": "dedupe", "badtile": "filterbytile", "phix": "filter", "ribo": "ribo",
+             "second": "removal_second"}
+A8B_STAGE_FILES = (("dedupe", "dd"), ("filterbytile", "fbt"), ("ktrim", "a"),
+                   ("qtrim", "anq"), ("filter", "anqpt"), ("polyfilter", "anqptg"),
+                   ("ribo", "anqptgr"), ("removal_second", "anqptgrh0"))
+#: the polyfilter stage trims r1's poly-G tail where it holds a G k-mer
+#: of at least mink=29 bases (literal=G*31 ktrim=r mink=29); shorter
+#: tails stay
+A8B_POLYG_MINK = 29
+#: filterstats.txt of the JAX package's rqcfilter on the phase's input
+#: (tools/a8b_dryrun.py, JAX on the CPU)
+A8B_FILTERSTATS = (
+    "#stage\treads\tbases\treads_pct\tbases_pct\n"
+    "input\t20000\t3000000\t100.00\t100.00\n"
+    "dedupe\t19800\t2970000\t99.00\t99.00\n"
+    "filterbytile\t19400\t2910000\t97.00\t97.00\n"
+    "ktrim\t19400\t2839525\t97.00\t94.65\n"
+    "qtrim\t19400\t2834179\t97.00\t94.47\n"
+    "filter\t18400\t2688804\t92.00\t89.63\n"
+    "polyfilter\t18400\t2682491\t92.00\t89.42\n"
+    "ribo\t17800\t2594375\t89.00\t86.48\n"
+    "removal_second\t16800\t2447651\t84.00\t81.59\n"
+)
+#: DecontaminateByNormalization (decontaminate.sh, crossblock): DECON_LIBS
+#: libraries, each assembled as its own seeded genome of DECON_CONTIGS
+#: contigs of DECON_CONTIG_LEN bp plus DECON_PLANTED contaminant contigs
+#: taken from the next library's genome; its reads its own genome at
+#: DECON_DEPTH x and the next library's at DECON_SHARE x (reads of
+#: DECON_READ_LEN bp), tests/test_decontaminate.py's shapes at three
+#: libraries
+DECON_LIBS = 3
+DECON_CONTIGS = 12
+DECON_CONTIG_LEN = 1_000
+DECON_PLANTED = 2
+DECON_DEPTH = 15
+DECON_SHARE = 1.5
+DECON_READ_LEN = 100
+DECON_FLAGS = ["target=5", "mindepth=2"]
+
+
+def make_a8b_data(work: str, genome_codes, second_fa: str, seed: int) -> dict:
+    """The inputs of the read-QC phase: rqcfilter's pairs (two gzipped
+    files) and their heads, the planted pairs by class (names, and the
+    poly-G tail lengths), and decontaminate's libraries."""
+    from bbtools_torch.io.fasta import iter_fasta
+
+    rng = np.random.default_rng(seed)
+    ascii_ = np.frombuffer(b"ACGT", np.uint8)
+    code = np.zeros(256, np.uint8)
+    code[np.frombuffer(b"ACGTacgt", np.uint8)] = [0, 1, 2, 3, 0, 1, 2, 3]
+    phix_fa = os.path.join(HERE, "bbtools_tpu", "resources", "phix2.fa.gz")
+    sources = {"phix": [code[np.frombuffer(next(iter_fasta(phix_fa)).seq, np.uint8)]],
+               "ribo": [code[np.frombuffer(s, np.uint8)] for t in RIBO_TYPES
+                        for _, s in consensus_records(t) if len(s) > A8B_INSERTS[1]],
+               "second": [code[np.frombuffer(next(iter_fasta(second_fa)).seq, np.uint8)]]}
+    main = np.asarray(genome_codes, np.uint8)
+    n = A8B_PAIRS
+    counts = {c: int(round(s * n)) for c, s in A8B_SHARES}
+    n_dup = counts.pop("dup")
+    cls = np.array(["main"] * (n - n_dup - sum(counts.values()))
+                   + [c for c, m in counts.items() for _ in range(m)], dtype=object)
+    cls = cls[rng.permutation(len(cls))]
+    slots = rng.choice(len(A8B_TILES) * 3000 * 3000, n + n_dup, replace=False)
+    p_err = (10.0 ** (-np.arange(41) / 10.0))
+    L = 150
+    r1s, r2s, planted, tails, made = [], [], {c: set() for c in A8B_STAGE}, {}, []
+    planted["polyg"] = set()
+    for i, c in enumerate(cls):
+        src = sources.get(c)
+        seq = main if src is None else src[int(rng.integers(0, len(src)))]
+        ins = int(rng.integers(A8B_INSERTS[0], min(A8B_INSERTS[1], len(seq)) + 1))
+        p = int(rng.integers(0, len(seq) - ins + 1))
+        frag = seq[p: p + ins]
+        if rng.random() < 0.5:
+            frag = 3 - frag[::-1]
+        mates = []
+        for frag_m, ad in ((frag, ADAPTER), (3 - frag[::-1], ADAPTER2)):
+            s = np.full(L, ord("A"), np.uint8)
+            s[: min(L, ins)] = ascii_[frag_m[:L]]
+            if ins < L:
+                tail = np.frombuffer(ad, np.uint8)[: L - ins]
+                s[ins: ins + len(tail)] = tail
+            mates.append(s)
+        tile_slot, xy = divmod(int(slots[i]), 3000 * 3000)
+        tile, x, y = A8B_TILES[tile_slot], *divmod(xy, 3000)
+        if c == "badtile":
+            tile, x, y = A8B_BAD_TILE, x % 1000, y % 1000
+        elif tile == A8B_BAD_TILE and x < 1000 and y < 1000:
+            x += 1000
+        if c == "polyg":
+            t = int(rng.integers(A8B_POLYG[0], A8B_POLYG[1] + 1))
+            mates[0][L - t:] = ord("G")
+        recs = []
+        for s in mates:
+            if c == "badtile":
+                q = rng.integers(2, 13, L)
+            else:
+                q = np.clip(41 - rng.exponential(7, L), 2, 40).astype(np.int64)
+            e = rng.random(L) < p_err[q]
+            if c == "polyg":
+                e[L - t:] = False
+            s = s.copy()
+            s[e] = ascii_[rng.integers(0, 4, int(e.sum()))]
+            recs.append((s.tobytes(), (q + 33).astype(np.uint8).tobytes()))
+        name = b"M0:7:FC1:1:%d:%d:%d" % (tile, x, y)
+        made.append((name, recs))
+        if c in planted:
+            planted[c].add(name)
+        if c == "polyg":
+            tails[name] = t
+    # the duplicate pairs: copies of main pairs at slots of their own
+    # (outside the poor corner), placed at random positions
+    mains = [j for j, c in enumerate(cls) if c == "main"]
+    copies = [made[int(j)][1] for j in rng.choice(mains, n_dup, replace=False)]
+    for recs, slot in zip(copies, slots[len(cls):]):
+        tile_slot, xy = divmod(int(slot), 3000 * 3000)
+        x, y = divmod(xy, 3000)
+        if A8B_TILES[tile_slot] == A8B_BAD_TILE and x < 1000 and y < 1000:
+            x += 1000
+        dup = b"M0:7:FC1:1:%d:%d:%d" % (A8B_TILES[tile_slot], x, y)
+        made.insert(int(rng.integers(0, len(made) + 1)), (dup, recs))
+        planted["dup"].add(dup)
+    for name, ((s1, q1), (s2, q2)) in made:
+        r1s.append(b"@%s 1:N:0:ACGTACGT\n%s\n+\n%s\n" % (name, s1, q1))
+        r2s.append(b"@%s 2:N:0:ACGTACGT\n%s\n+\n%s\n" % (name, s2, q2))
+    d = {"r1": os.path.join(work, "a8b_1.fq.gz"), "r2": os.path.join(work, "a8b_2.fq.gz"),
+         "head1": os.path.join(work, "a8b_head_1.fq.gz"),
+         "head2": os.path.join(work, "a8b_head_2.fq.gz"), "second_fa": second_fa,
+         "planted": planted, "tails": tails, "pairs": len(made)}
+    for path, recs in ((d["r1"], r1s), (d["r2"], r2s)):
+        with gzip.open(path, "wb", compresslevel=1) as fh:
+            fh.write(b"".join(recs))
+    head_fastq(d["r1"], d["head1"], A8B_CHECK_PAIRS)
+    head_fastq(d["r2"], d["head2"], A8B_CHECK_PAIRS)
+    d["decon"] = make_decon_data(work, rng)
+    return d
+
+
+def make_decon_data(work: str, rng) -> dict:
+    """decontaminate's libraries: each an assembly (its genome in
+    contigs, then the planted contaminant contigs of the next library's
+    genome) and its reads (gzipped FASTQ). Returns the paths and each
+    library's true and planted contig names."""
+    genomes = [rng.integers(0, 4, DECON_CONTIGS * DECON_CONTIG_LEN).astype(np.uint8)
+               for _ in range(DECON_LIBS)]
+    ascii_ = np.frombuffer(b"ACGT", np.uint8)
+    d = {"reads": [], "refs": [], "true": [], "planted": []}
+
+    def tile(codes, depth, prefix):
+        m = int(depth * len(codes) / DECON_READ_LEN)
+        starts = rng.integers(0, len(codes) - DECON_READ_LEN + 1, m)
+        return [b"@%s_%d\n%s\n+\n%s\n" % (prefix, i, ascii_[codes[s: s + DECON_READ_LEN]].tobytes(),
+                                         b"I" * DECON_READ_LEN) for i, s in enumerate(starts)]
+
+    for lib in range(DECON_LIBS):
+        nxt = genomes[(lib + 1) % DECON_LIBS]
+        contigs = [(b"lib%d_c%d" % (lib, c), genomes[lib][c * DECON_CONTIG_LEN:
+                                                          (c + 1) * DECON_CONTIG_LEN])
+                   for c in range(DECON_CONTIGS)]
+        taken = rng.choice(DECON_CONTIGS, DECON_PLANTED, replace=False)
+        planted = [(b"lib%d_contam%d" % (lib, int(c)), nxt[int(c) * DECON_CONTIG_LEN:
+                                                           (int(c) + 1) * DECON_CONTIG_LEN])
+                   for c in taken]
+        ref = os.path.join(work, f"decon_lib{lib}.fa")
+        with open(ref, "wb") as fh:
+            fh.write(b"".join(b">%s\n%s\n" % (nm, ascii_[c].tobytes())
+                              for nm, c in contigs + planted))
+        reads = os.path.join(work, f"decon_lib{lib}.fq.gz")
+        with gzip.open(reads, "wb", compresslevel=1) as fh:
+            fh.write(b"".join(tile(genomes[lib], DECON_DEPTH, b"own%d" % lib)
+                              + tile(nxt, DECON_SHARE, b"other%d" % lib)))
+        d["reads"].append(reads)
+        d["refs"].append(ref)
+        d["true"].append({nm for nm, _ in contigs})
+        d["planted"].append({nm for nm, _ in planted})
+    return d
+
+
+def a8b_rqc_argv(a8b: dict, ins: tuple, outdir: str, extra=()) -> list:
+    """rqcfilter2's argv (without device=) over the pairs `ins` into
+    `outdir`."""
+    return ["rqcfilter2", f"in={ins[0]}", f"in2={ins[1]}", f"path={outdir}",
+            f"removeref={a8b['second_fa']}", *A8B_FLAGS, *extra]
+
+
+def a8b_decon_argv(a8b: dict, outdir: str) -> list:
+    """decontaminate's argv (without device=) over the phase's libraries."""
+    dec = a8b["decon"]
+    return ["decontaminate", f"reads={','.join(dec['reads'])}", f"ref={','.join(dec['refs'])}",
+            f"out={outdir}", *DECON_FLAGS]
+
+
+def fastq_names(path: str) -> dict:
+    """name (the header's first token) -> sequence of each record."""
+    from bbtools_torch.io.fastq import FastqReader
+
+    out = {}
+    for b in FastqReader(path):
+        for i in range(b.n):
+            out[b.ids[i].split()[0]] = b.sequence(i)
+    return out
+
+
+def stage_timed(stages: list):
+    """Wrap the tools rqcfilter runs in this process (BBDuk, clumpify,
+    filterbytile, BBMap, reformat, BBMerge, kmercountexact) so that each
+    call appends (tool, seconds, BBDuk's index type or None, the kernel
+    launches of the call) to `stages`. Returns the undo function."""
+    from bbtools_torch.models import (bbduk, bbmap, bbmerge, clumpify, filterbytile,
+                                      kmercountexact, reformat)
+
+    saved = []
+
+    def wrap(mod, attr, tool):
+        orig = getattr(mod, attr)
+
+        def run(*a, **kw):
+            before = {k: getattr(o, n) for k, (o, n) in counters().items()}
+            t0 = time.perf_counter()
+            res = orig(*a, **kw)
+            dt = time.perf_counter() - t0
+            got = {k: getattr(o, n) - before[k] for k, (o, n) in counters().items()}
+            stages.append((tool, dt, index_of.pop("type", None), got))
+            return res
+
+        saved.append((mod, attr, orig))
+        setattr(mod, attr, run)
+
+    index_of: dict = {}
+    orig_init = bbduk.BBDuk.__init__
+
+    def init(self, *a, **kw):
+        orig_init(self, *a, **kw)
+        index_of["type"] = None if self.index is None else type(self.index).__name__
+
+    saved.append((bbduk.BBDuk, "__init__", orig_init))
+    bbduk.BBDuk.__init__ = init
+    for mod, attr, tool in ((bbduk, "main", "bbduk"), (clumpify, "main", "clumpify"),
+                            (filterbytile, "main", "filterbytile"), (reformat, "main", "reformat"),
+                            (bbmerge, "main", "bbmerge"), (kmercountexact, "run", "kmercountexact")):
+        wrap(mod, attr, tool)
+    orig_run = bbmap.BBMap.run
+
+    def map_run(self, *a, **kw):
+        before = {k: getattr(o, n) for k, (o, n) in counters().items()}
+        t0 = time.perf_counter()
+        res = orig_run(self, *a, **kw)
+        got = {k: getattr(o, n) - before[k] for k, (o, n) in counters().items()}
+        stages.append(("bbmap", time.perf_counter() - t0, None, got))
+        return res
+
+    saved.append((bbmap.BBMap, "run", orig_run))
+    bbmap.BBMap.run = map_run
+
+    def undo():
+        for mod, attr, orig in reversed(saved):
+            setattr(mod, attr, orig)
+
+    return undo
+
+
+def a8b_phases(a8b: dict, work: str, card: str, phase_s: dict, launches: dict):
+    """rqcfilter2 over A8B_PAIRS pairs on device=cuda with
+    keepintermediates=t: each stage's reads, seconds, BBDuk's backend and
+    kernel launches printed; B1, B2, B4, B5 and B6 required on the path
+    (the artifact filter's panel, past the join's and the matcher's caps,
+    takes the bucket table and launches no B3); filterstats.txt against
+    the JAX package's (A8B_FILTERSTATS); each planted class removed at its
+    stage. Then decontaminate over the DECON_LIBS libraries: every
+    planted contaminant in its library's _dirty.fasta, every true contig
+    in _clean.fasta."""
+    t0 = time.perf_counter()
+    out = os.path.join(work, "a8b_rqc.cuda")
+    stages: list = []
+    undo = stage_timed(stages)
+    try:
+        (res, dt, _), got = run_path(
+            "rqcfilter2",
+            lambda: run_tool("rqcfilter2", a8b_rqc_argv(a8b, (a8b["r1"], a8b["r2"]), out,
+                                                         ["ki=t"])[1:], "cuda"),
+            ("lane_lookup", "cummax_i64", "overlap_scan", "lane_table", "msa_fill"), launches)
+    finally:
+        undo()
+    rows, final = res
+    reads = {tag: r for tag, r, _ in rows}
+    print(f"rqcfilter2 device=cuda: {a8b['pairs']} pairs in {dt:.2f} s = "
+          f"{a8b['pairs'] / dt:.0f} pairs/s (wall, every stage's index build and IO) on "
+          f"{card}; final {os.path.basename(final)}, {rows[-1][1]} reads")
+    labels = [t for t, _, _ in rows[1:]] + ["interleave", "merge", "khist"]
+    for (tool, secs, index, got_s), tag in zip(stages, labels):
+        kern = {k: v for k, v in got_s.items() if v}
+        print(f"  stage {tag:<15} {tool:<15} reads {reads.get(tag, '-')!s:>6}  "
+              f"{secs:7.2f} s  backend {index or '-'}  launches {kern}")
+    if any(s[2] == "MMKmerIndex" for s in stages) or got["mm_lookup"]:
+        raise AssertionError("rqcfilter2: a stage took the matcher")
+    with open(os.path.join(out, "filterstats.txt")) as fh:
+        stats = fh.read()
+    print("rqcfilter2 filterstats.txt:\n" + stats.rstrip())
+    if stats != A8B_FILTERSTATS:
+        raise AssertionError("rqcfilter2: filterstats.txt differs from the JAX package's "
+                             "(A8B_FILTERSTATS)")
+    a8b_planted_check(a8b, out)
+    phase_s["rqcfilter2"] = time.perf_counter() - t0
+
+    # ---- decontaminate (crossblock): BBMap, bbnorm on the card ----
+    t0 = time.perf_counter()
+    dec = a8b["decon"]
+    dout = os.path.join(work, "a8b_decon.cuda")
+    (_, dt, _), got = run_path(
+        "decontaminate",
+        lambda: routed("decontaminate",
+                       lambda: run_tool("decontaminate", a8b_decon_argv(a8b, dout)[1:], "cuda"),
+                       {"cms_add": None, "read_depths": None}),
+        (), {})
+    if not got["msa_fill"] + got["msa_fill_block"]:
+        raise AssertionError("decontaminate: B4 never launched")
+    n_reads = sum(len(fastq_names(p)) for p in dec["reads"])
+    print(f"decontaminate device=cuda: {DECON_LIBS} libraries, {n_reads} reads in {dt:.2f} s "
+          f"on {card}; B4 launches {got['msa_fill']} (warp), {got['msa_fill_block']} (block)")
+    decon_check(a8b, dout)
+    phase_s["decontaminate"] = time.perf_counter() - t0
+
+
+def a8b_planted_check(a8b: dict, out: str):
+    """Each planted class of rqcfilter2's input leaves at its own stage
+    (`out` written with keepintermediates=t): every planted pair that
+    reaches the stage is removed there, at most 5% of the class earlier;
+    the stage of duplicates removes exactly the planted copies; no phiX,
+    rRNA, second-genome or poor-corner pair reaches the final output;
+    every poly-G tail of at least A8B_POLYG_MINK bases that reaches the
+    polyfilter stage is trimmed there."""
+    stem = os.path.basename(a8b["r1"]).split(".")[0]
+    present = {"input": set(fastq_names(a8b["r1"]))}
+    seqs = {}
+    for tag, infix in A8B_STAGE_FILES:
+        seqs[tag] = fastq_names(os.path.join(out, f"{stem}.{infix}.R1.fastq.gz"))
+        present[tag] = set(seqs[tag])
+    order = ["input"] + [t for t, _ in A8B_STAGE_FILES]
+    for cls, stage in A8B_STAGE.items():
+        names = a8b["planted"][cls]
+        prev = present[order[order.index(stage) - 1]]
+        before = names & prev
+        left_here = before - present[stage]
+        earlier = names - prev
+        if cls == "dup":
+            removed = len(prev) - len(present[stage])
+            ok = removed == len(names)
+            detail = f"{removed} pairs removed by the stage, {len(names)} planted"
+        else:
+            ok = left_here == before and len(earlier) <= 0.05 * len(names)
+            detail = (f"{len(left_here)} of the {len(before)} that reached it removed there, "
+                      f"{len(earlier)} earlier")
+        print(f"rqcfilter2 planted {cls} ({len(names)} pairs) -> stage {stage}: {detail}")
+        if not ok:
+            raise AssertionError(f"rqcfilter2: planted {cls} not removed at {stage}")
+        if cls != "dup" and names & present[order[-1]]:
+            raise AssertionError(f"rqcfilter2: planted {cls} pairs in the final output")
+    tails = a8b["tails"]
+    reached = {nm for nm, t in tails.items() if t >= A8B_POLYG_MINK} & set(seqs["filter"])
+    untrimmed = [nm for nm in reached if seqs["polyfilter"].get(nm, b"").endswith(
+        b"G" * A8B_POLYG_MINK)]
+    short = {nm for nm, t in tails.items() if t < A8B_POLYG_MINK} & set(seqs["filter"])
+    kept = [nm for nm in short if seqs["polyfilter"].get(nm) == seqs["filter"][nm]]
+    print(f"rqcfilter2 planted poly-G tails: {len(reached)} of at least {A8B_POLYG_MINK} bases "
+          f"reached the polyfilter stage, {len(untrimmed)} left untrimmed there; "
+          f"{len(kept)} of the {len(short)} shorter ones passed it unchanged")
+    if untrimmed or not reached:
+        raise AssertionError(f"rqcfilter2: poly-G tails left: {untrimmed[:3]}")
+
+
+def decon_check(a8b: dict, dout: str):
+    """Every planted contaminant contig in its library's _dirty.fasta,
+    every true contig in _clean.fasta."""
+    dec = a8b["decon"]
+    bad = []
+    for lib in range(DECON_LIBS):
+        core = f"decon_lib{lib}"
+        clean = set(fasta_names(os.path.join(dout, f"{core}_clean.fasta")))
+        dirty = set(fasta_names(os.path.join(dout, f"{core}_dirty.fasta")))
+        print(f"decontaminate {core}: clean {len(clean)} contigs ({len(clean & dec['true'][lib])} "
+              f"of {DECON_CONTIGS} true), dirty {len(dirty)} ({len(dirty & dec['planted'][lib])} "
+              f"of {DECON_PLANTED} planted)")
+        if dirty != dec["planted"][lib] or clean != dec["true"][lib]:
+            bad.append(core)
+    if bad:
+        raise AssertionError(f"decontaminate: contigs misplaced in {bad}")
+
+
+def fasta_names(path: str) -> list[bytes]:
+    """The record names of a FASTA file (first token)."""
+    with open(path, "rb") as fh:
+        return [ln[1:].split()[0] for ln in fh.read().splitlines() if ln.startswith(b">")]
+
+
+def a8b_check_runs(a8b: dict, work: str) -> dict:
+    """The CUDA-against-CPU checks of the read-QC phase: name -> (argv on
+    device d, the directory d's run writes). rqcfilter2 on the first
+    A8B_CHECK_PAIRS pairs; decontaminate on the phase's libraries (its
+    CUDA run is the phase's)."""
+    return {
+        "rqcfilter2": lambda d: Check(a8b_rqc_argv(a8b, (a8b["head1"], a8b["head2"]),
+                                                   os.path.join(work, f"a8b_rqcchk.{d}")),
+                                      [os.path.join(work, f"a8b_rqcchk.{d}")]),
+        "decontaminate": lambda d: Check(a8b_decon_argv(a8b, os.path.join(work,
+                                                                         f"a8b_decon.{d}")),
+                                         [os.path.join(work, f"a8b_decon.{d}")]),
+    }
+
+
+def a8b_checks(a8b: dict, runs: dict, cpu_side: CpuSide, phase_s: dict):
+    """The read-QC checks, CUDA against CPU: every file of rqcfilter2's
+    output directory (the final FASTQ, filterstats.txt, file-list.txt,
+    the ihist, the khist, reproduce.sh with the run's directory replaced)
+    and decontaminate's results.txt, covstats, clean and dirty FASTA,
+    byte for byte."""
+    t0 = time.perf_counter()
+    for name, fn in runs.items():
+        cpu_s = cpu_side.wait(name)
+        cuda_s = cpu_side.wait(f"{name} cuda") if name != "decontaminate" else None
+        dirs = {d: fn(d).outs[0] for d in ("cuda", "cpu")}
+        files = {}
+        for d, path in dirs.items():
+            files[d] = {f: open(os.path.join(path, f), "rb").read().replace(
+                path.encode(), b"DIR") for f in sorted(os.listdir(path))}
+        if files["cuda"] != files["cpu"]:
+            differ = sorted(f for f in set(files["cuda"]) | set(files["cpu"])
+                            if files["cuda"].get(f) != files["cpu"].get(f))
+            raise AssertionError(f"{name}: cuda and cpu outputs differ in {differ}")
+        need = ({"filterstats.txt", "file-list.txt", "reproduce.sh", "a8b_head_1.khist.txt",
+                 "a8b_head_1.ihist_merge.txt"} if name == "rqcfilter2" else
+                {"results.txt"} | {f"decon_lib{i}_covstats{p}.txt" for i in range(DECON_LIBS)
+                                   for p in (0, 1)})
+        if not need <= set(files["cuda"]):
+            raise AssertionError(f"{name}: missing {sorted(need - set(files['cuda']))}")
+        where = (f"cuda {cuda_s:.2f} s in a process of its own, " if cuda_s is not None
+                 else "cuda in its phase, ")
+        print(f"{name}: cuda == cpu ({len(files['cuda'])} files, "
+              f"{sum(len(v) for v in files['cuda'].values())} bytes; {where}cpu {cpu_s:.2f} s "
+              f"in a process of its own)")
+    phase_s["cuda == cpu, a8b"] = time.perf_counter() - t0
+
+
 def read_all(paths) -> list[bytes]:
     out = []
     for p in paths:
@@ -4401,6 +4881,13 @@ def main(argv=None) -> int:
               f"{a8c['poly_tails']} of config #1's reads given a poly-G tail; {ML_READS} "
               f"reads of two classes; {CAL_ROWS} calibration rows; made in "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        a8b = make_a8b_data(work, genome.scaffold_codes(0), a2["second_fa"], args.seed + 70)
+        print(f"a8b input: {a8b['pairs']} pairs of 2x150 bp of the genome with tiled headers "
+              f"(inserts {A8B_INSERTS[0]}-{A8B_INSERTS[1]}), planted "
+              f"{ {k: len(v) for k, v in a8b['planted'].items()} }; decontaminate's "
+              f"{DECON_LIBS} libraries of {DECON_CONTIGS} x {DECON_CONTIG_LEN} bp contigs and "
+              f"{DECON_PLANTED} contaminants each; made in {time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
         kernels_built()
 
@@ -4541,7 +5028,8 @@ def main(argv=None) -> int:
                         + early_runs(ctx, pipe, work, "cpu")
                         + pool_runs(a8a_check_runs(a8, work))[0]
                         + [r for r in pool_runs(a8c_check_runs(a8c, work))[0]
-                           if r[0] not in A8C_NEED_NET], work,
+                           if r[0] not in A8C_NEED_NET]
+                        + pool_runs(a8b_check_runs(a8b, work))[0], work,
                         workers=EARLY_SIDE_WORKERS, tag="early_side")
         print(f"CPU halves of the checks: {EARLY_SIDE_WORKERS} processes, from the config "
               f"#2/#5 phases on")
@@ -4555,6 +5043,7 @@ def main(argv=None) -> int:
         a8c_phases(a8c, fq, args.reads, work, card, phase_s)
         kernels.append(a7_phase(fq, map_batch, ref_fa, small_pairs, asm["reads.fq.gz"],
                                 kern_fq, work, card, phase_s, launches))
+        a8b_phases(a8b, work, card, phase_s, launches)
         early.close()
         # the CUDA halves of the checks, and the CPU halves that need the
         # trained net, in processes once the last rate is taken
@@ -4562,7 +5051,8 @@ def main(argv=None) -> int:
         late = (early_runs(ctx, pipe, work, "cuda")
                 + pool_runs(a2_check_runs(a2, ctx, work))[1]
                 + pool_runs(a8a_check_runs(a8, work), skip=("ecc",))[1]
-                + [r for r in pool_runs(a8c_runs)[0] if r[0] in A8C_NEED_NET])
+                + [r for r in pool_runs(a8c_runs)[0] if r[0] in A8C_NEED_NET]
+                + pool_runs(a8b_check_runs(a8b, work), skip=("decontaminate",))[1])
         print(f"CUDA halves of the checks: {CPU_SIDE_WORKERS} processes")
         import torch
 
@@ -4617,6 +5107,7 @@ def main(argv=None) -> int:
         file_checks("a8a", a8a_check_runs(a8, work), cpu_side, phase_s)
         file_checks("l5", l5_check_runs(l5, small, work), cpu_side, phase_s, here=l5_here)
         a8c_checks(a8c, a8c_runs, cpu_side, a8c_here, phase_s)
+        a8b_checks(a8b, a8b_check_runs(a8b, work), cpu_side, phase_s)
         loglog_check(asm)
     finally:
         build_thread.join()

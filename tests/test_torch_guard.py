@@ -62,6 +62,12 @@ COPIED_MODULES = [
     "io/stream.py", "models/tadpole_ecc.py", "ml/__init__.py",
     "models/assemblystats.py", "models/calctruequality.py", "models/pileup.py",
     "models/gradesam.py", "utils/graders.py", "models/kmernorm_ecc.py",
+    # A8b's read-QC slice: the host tools
+    "models/demux.py", "models/seqtools.py",
+    "models/novademux.py", "models/filtertools.py", "models/splitpairs.py",
+    "models/sortbyname.py", "models/bbmask.py", "models/smalltools.py",
+    "models/barcodetools.py", "models/hiseqtools.py", "models/illuminatools.py",
+    "models/splitnextera.py",
 ]
 
 
@@ -139,6 +145,12 @@ PARTLY_COPIED = {
     "models/reformat.py": ["main"],
     # the ML tools that train or run a net take a device=
     "models/mltools.py": ["train_main", "scoresequence_main", "netfilter_main"],
+    # decontaminate passes its device= to BBMap, bbnorm and Tadpole
+    "models/decontaminate.py": ["main"],
+    # filterbytile also takes pairs (in2=, out2=), judged as the
+    # interleaved stream
+    "models/filterbytile.py": ["FBTConfig", "parse_args", "FilterByTile._records",
+                               "FilterByTile.analyze", "FilterByTile.filter"],
 }
 
 
@@ -279,6 +291,7 @@ COPIED_FUNCTIONS = [
     ("models.polyfilter", "_max_pure_run"),
     ("parallel.sharded_index", "ShardedKmerIndex.build"),
     ("parallel.sharded_count", "shard_seed_index"),
+    ("models.rqcfilter", "_count_fq"),
 ]
 
 
@@ -356,6 +369,27 @@ EDITED_FUNCTIONS = {
         '    """train.sh -> ml.Trainer (jax gradient training on device)."""'],
     ("models.mltools", "scoresequence_main"): [],
     ("models.mltools", "netfilter_main"): [],
+    # rqcfilter and decontaminate give every stage's tool their device=,
+    # and rqcfilter reads the JAX package's resources by path
+    ("models.rqcfilter", "main"): [
+        "", "        bbduk_main(full + args)", "        clumpify_main(args)",
+        "        reformat_main(args)", "            import PKG as _pkg",
+        '                os.path.dirname(_pkg.__file__), "resources",',
+        "        import PKG as _pkg",
+        '        res_dir = os.path.join(os.path.dirname(_pkg.__file__), "resources")',
+        "        import PKG", '                os.path.dirname(PKG.__file__), "resources"',
+        '                       "overwrite=t"])',
+        '        bbmerge_main([f"in={cur}", f"in2={cur2}", f"ihist={ih}"])',
+        '        kce_run([f"in={final1}", f"khist={kh}", "k=31"])'],
+    ("models.decontaminate", "main"): [
+        '            f"ambig={ambig}", "ow=t",', '            f"k={tadpole_k}",'],
+    ("models.filterbytile", "FBTConfig"): [],
+    ("models.filterbytile", "parse_args"): [],
+    ("models.filterbytile", "FilterByTile.analyze"): [
+        "        for b in FastqReader(cfg.in1):"],
+    ("models.filterbytile", "FilterByTile.filter"): [
+        "        for b in FastqReader(cfg.in1):", "            if w:",
+        "        for x in (w, wb):"],
 }
 
 
@@ -488,7 +522,7 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    for tool in ("countduplicates", "mergebarcodes", "rename", "bbmask", "fungalrelease"):
+    for tool in ("countduplicates", "mergebarcodes", "rename", "mergesketch", "fungalrelease"):
         with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
@@ -795,3 +829,32 @@ def test_cellnet_fit_defaults_to_cuda():
     net = CellNet.create([4, 3, 1])
     with pytest.raises(RuntimeError, match="cuda"):
         net.fit(np.zeros((2, 4), np.float32), np.zeros((2, 1), np.float32), epochs=2)
+
+
+#: the pipelines of ROADMAP A8b and the argv that reaches their first
+#: device work
+A8B_PIPELINES = {
+    "rqcfilter": ["in={fq}", "path={tmp}/o"],
+    "rqcfilter2": ["in={fq}", "path={tmp}/o", "removeribo=t"],
+    "rqcfilter3": ["in={fq}", "path={tmp}/o", "ktrim=f"],
+    "decontaminate": ["reads={fq}", "ref={tmp}/ref.fa", "out={tmp}/o"],
+    "crossblock": ["reads={fq}", "ref={tmp}/ref.fa", "out={tmp}/o", "mapraw=f"],
+}
+
+
+@pytest.mark.parametrize("tool", list(A8B_PIPELINES))
+def test_a8b_pipelines_default_to_cuda(tmp_path, tool):
+    """rqcfilter and decontaminate run every device stage on the card
+    unless asked for the CPU: without one, the default raises before the
+    output directory is made."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGT" * 10 + "\n+\n" + "I" * 40 + "\n")
+    (tmp_path / "ref.fa").write_text(">s\n" + "ACGT" * 50 + "\n")
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A8B_PIPELINES[tool]]
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([tool, *argv])
+    assert not (tmp_path / "o").exists()
