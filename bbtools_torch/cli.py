@@ -209,6 +209,48 @@ def _clumpify(args):
     return main(args)
 
 
+def _sketch(args):
+    from .models.sketch import main
+
+    return main(args)
+
+
+def _quickclade(args):
+    from .models.clade import main
+
+    return main(args)
+
+
+def _gradevcf(args):
+    from .utils.graders2 import grade_vcf_main
+
+    return grade_vcf_main(args)
+
+
+def _grademerged(args):
+    from .utils.graders2 import grade_merged_main
+
+    return grade_merged_main(args)
+
+
+def _server(args):
+    from .models.server import main
+
+    return main(args)
+
+
+def _taxonomy(args):
+    from .models.taxonomy import main
+
+    return main(args)
+
+
+def _filterbytaxa(args):
+    from .models.taxonomy import filter_by_taxa
+
+    return filter_by_taxa(args)
+
+
 def _lazy(module: str, fn: str, args, *extra):
     import importlib
 
@@ -386,6 +428,154 @@ TOOLS = {
     "cbcl2text": lambda a: _lazy("illuminatools", "cbcl2text_main", a),
     "splitnextera": lambda a: _lazy("splitnextera", "main", a),
     "splitnexteralmp": lambda a: _lazy("splitnextera", "main", a),
+    # A8b's host tools: aliases of ported modules (BBDukF's older launcher,
+    # the stats launchers) and the version line
+    "bbdukold": _bbduk,
+    "bbstats": _assemblystats,
+    "stats3": _assemblystats,
+    "bbversion": lambda a: print("bbtools_torch 2.0 (BBTools 39.x surface)"),
+    # the VCF and merged-read graders
+    "gradevcf": _gradevcf,
+    "comparevcf": _gradevcf,
+    "grademerge": _grademerged,
+    "grademerged": _grademerged,
+    "grademergedreads": _grademerged,
+    # MinHash sketches, the taxonomy tree, QuickClade and the HTTP server
+    # (bound to 127.0.0.1)
+    "sketch": _sketch,
+    "bbsketch": _sketch,
+    "comparesketch": _sketch,
+    "sendsketch": _sketch,
+    "mergesketch": lambda a: _lazy("sketch", "mergesketch", a),
+    "subsketch": lambda a: _lazy("sketch", "subsketch", a),
+    "summarizesketch": lambda a: _lazy("sketch", "summarizesketch", a),
+    "taxonomy": _taxonomy,
+    "taxtree": _taxonomy,
+    "filterbytaxa": _filterbytaxa,
+    "splitbytaxa": lambda a: _lazy("taxonomy", "split_by_taxa", a),
+    "fusebytaxa": lambda a: _lazy("taxonomy", "fuse_by_taxa", a),
+    "gi2taxid": lambda a: _lazy("taxonomy", "gi2taxid", a),
+    "gi2ancestors": lambda a: _lazy("taxonomy", "gi2ancestors", a),
+    "gitable": lambda a: _lazy("taxonomy", "gitable", a),
+    "taxsize": lambda a: _lazy("taxonomy", "taxsize", a),
+    "explodetree": lambda a: _lazy("taxonomy", "explodetree", a),
+    "analyzeaccession": lambda a: _lazy("taxonomy", "analyzeaccession", a),
+    "shrinkaccession": lambda a: _lazy("taxonomy", "shrinkaccession", a),
+    "filterassemblysummary": lambda a: _lazy(
+        "taxonomy", "filterassemblysummary", a
+    ),
+    "fetchproks": lambda a: _lazy("taxonomy", "fetchproks", a),
+    "quickclade": _quickclade,
+    "clade": _quickclade,
+    "sendclade": _quickclade,
+    "cladeloader": lambda a: _lazy("clade", "cladeloader_main", a),
+    "server": _server,
+    "taxserver": _server,
+    "sketchserver": _server,
+    "cladeserver": _server,
+    "ssuserver": _server,
+    "demuxserver": _server,
+    # the SSU tools; comparessu and findssu align on the run's device (L5)
+    "findssu": lambda a: _lazy("ssutools", "findssu_main", a),
+    "comparessu": lambda a: _lazy("ssutools", "comparessu_main", a),
+    "filtersilva": lambda a: _lazy("ssutools", "filtersilva_main", a),
+    "reducesilva": lambda a: _lazy("ssutools", "reducesilva_main", a),
+    "addssu": lambda a: _lazy("ssutools", "addssu_main", a),
+    "idtree": lambda a: _lazy("ssutools", "idtree_main", a),
+    "trnaconsensus": lambda a: _lazy("ssutools", "trnaconsensus_main", a),
+    "runhmm": lambda a: _lazy("ssutools", "runhmm_main", a),
+    # synthesis and k-mer tools; kmerlimit tracks its cardinality on the
+    # run's device (models/loglog.py)
+    "mutate": lambda a: _lazy("synthtools", "mutate", a),
+    "mutategenome": lambda a: _lazy("synthtools", "mutate", a),
+    "bbfakereads": lambda a: _lazy("synthtools", "fakereads", a),
+    "fakereads": lambda a: _lazy("synthtools", "fakereads", a),
+    "kcompress": lambda a: _lazy("synthtools", "kcompress", a),
+    "kmerlimit": lambda a: _lazy("synthtools", "kmerlimit", a),
+    "kmerlimit2": lambda a: _lazy("synthtools", "kmerlimit", a),
+    "findrepeats": lambda a: _lazy("synthtools", "findrepeats", a),
+    "addadapters": lambda a: _lazy("synthtools", "addadapters", a),
+    "makechimeras": lambda a: _lazy("synthtools", "makechimeras", a),
+    "checkstrand": lambda a: _lazy("synthtools", "checkstrand", a),
+    "kmutate": lambda a: _lazy("synthtools", "kmutate", a),
+    "randomreadsmg": lambda a: _lazy("synthtools", "randomreadsmg", a),
+    "kmerfilterset": lambda a: _lazy("synthtools", "kmerfilterset", a),
+    "icecreammaker": lambda a: _lazy("synthtools", "icecreammaker", a),
+    "icecreamgrader": lambda a: _lazy("synthtools", "icecreamgrader", a),
+    # sequence, SAM and interval odds and ends
+    "adjusthomopolymers": lambda a: _lazy(
+        "seqmisc", "adjusthomopolymers_main", a),
+    "restorebases": lambda a: _lazy("seqmisc", "restorebases_main", a),
+    "representative": lambda a: _lazy("seqmisc", "representative_main", a),
+    "bedset": lambda a: _lazy("seqmisc", "bedset_main", a),
+    "tagandmerge": lambda a: _lazy("seqmisc", "tagandmerge_main", a),
+    "processhi-c": lambda a: _lazy("seqmisc", "hic_junctions_main", a),
+    "synthmda": lambda a: _lazy("seqmisc", "synthmda_main", a),
+    "kmercountshort": lambda a: _lazy("seqmisc", "kmercountshort_main", a),
+    "kmerhashdump": lambda a: _lazy("seqmisc", "kmerhashdump_main", a),
+    "estherfilter": lambda a: _lazy("seqmisc", "estherfilter_main", a),
+    "renameref": lambda a: _lazy("seqmisc", "renameref_main", a),
+    "renamebymapping": lambda a: _lazy("seqmisc", "renamebymapping_main", a),
+    "renamecami": lambda a: _lazy("seqmisc", "renamecami_main", a),
+    "renameimg": lambda a: _lazy("seqmisc", "renameimg_main", a),
+    "renamebysketch": lambda a: _lazy("seqmisc", "renamebysketch_main", a),
+    # file and launcher utilities
+    "unzip": lambda a: _lazy("fileutils", "unzip_main", a),
+    "cat": lambda a: _lazy("fileutils", "cat_main", a),
+    "copyfile": lambda a: _lazy("fileutils", "copyfile_main", a),
+    "textfile": lambda a: _lazy("fileutils", "textfile_main", a),
+    "filescan": lambda a: _lazy("fileutils", "filescan_main", a),
+    "printtime": lambda a: _lazy("fileutils", "printtime_main", a),
+    "stream": lambda a: _lazy("fileutils", "streamer_main", a),
+    "samstreamer": lambda a: _lazy("fileutils", "samstreamer_main", a),
+    "diskbench": lambda a: _lazy("fileutils", "diskbench_main", a),
+    "testfilesystem": lambda a: _lazy("fileutils", "testfilesystem_main", a),
+    "a_sample_mt": lambda a: _lazy("fileutils", "sample_mt_main", a),
+    "calcmem": lambda a: _lazy("fileutils", "calcmem_main", a),
+    "memdetect": lambda a: _lazy("fileutils", "calcmem_main", a),
+    "javasetup": lambda a: _lazy("fileutils", "javasetup_main", a),
+    "profile": lambda a: _lazy("fileutils", "profile_main", a),
+    "fix_script_paths": lambda a: _lazy(
+        "fileutils", "fix_script_paths_main", a),
+    "addx": lambda a: _lazy("fileutils", "addx_main", a),
+    "zz_rename_package": lambda a: _lazy(
+        "fileutils", "zz_rename_package_main", a),
+    "processspeed": lambda a: _lazy("fileutils", "processspeed_main", a),
+    "webcheck": lambda a: _lazy("fileutils", "webcheck_main", a),
+    "summarizecontam": lambda a: _lazy(
+        "fileutils", "summarizecontam_main", a),
+    "analyzesketchresults": lambda a: _lazy(
+        "fileutils", "analyzesketchresults_main", a),
+    # the text and report tools beside bloomfilter; kmercountmulti tracks
+    # its cardinalities on the run's device
+    "readlength": lambda a: _lazy("texttools", "readlength", a),
+    "countgc": lambda a: _lazy("texttools", "countgc", a),
+    "testformat": lambda a: _lazy("texttools", "testformat", a),
+    "testformat2": lambda a: _lazy("texttools", "testformat", a),
+    "translate6frames": lambda a: _lazy("texttools", "translate6frames", a),
+    "statswrapper": lambda a: _lazy("texttools", "statswrapper", a),
+    "sketchblacklist": lambda a: _lazy("texttools", "sketchblacklist", a),
+    "sketchblacklist2": lambda a: _lazy("texttools", "sketchblacklist", a),
+    "rename": lambda a: _lazy("texttools", "rename", a),
+    "bbrename": lambda a: _lazy("texttools", "rename", a),
+    "kmercountmulti": lambda a: _lazy("texttools", "kmercountmulti", a),
+    "filterlines": lambda a: _lazy("texttools", "filterlines", a),
+    "countsharedlines": lambda a: _lazy("texttools", "countsharedlines", a),
+    "unicode2ascii": lambda a: _lazy("texttools", "unicode2ascii", a),
+    "phylip2fasta": lambda a: _lazy("texttools", "phylip2fasta", a),
+    "summarizeseal": lambda a: _lazy("texttools", "summarizeseal", a),
+    "picksubset": lambda a: _lazy("texttools", "picksubset", a),
+    "summarizecoverage": lambda a: _lazy("texttools", "summarizecoverage", a),
+    "summarizescafstats": lambda a: _lazy("texttools", "summarizescafstats", a),
+    "fastqscan": lambda a: _lazy("texttools", "fastqscan", a),
+    "loadreads": lambda a: _lazy("texttools", "fastqscan", a),
+    "plotgc": lambda a: _lazy("texttools", "plotgc", a),
+    "summarizemerge": lambda a: _lazy("texttools", "summarizemerge", a),
+    "summarizequast": lambda a: _lazy("texttools", "summarizequast", a),
+    "invertkey": lambda a: _lazy("texttools", "invertkey", a),
+    "bam2sam": lambda a: _lazy("texttools", "bam2sam", a),
+    "bamlinestreamer": lambda a: _lazy("texttools", "bam2sam", a),
+    "streamsam": lambda a: _lazy("texttools", "bam2sam", a),
 }
 
 

@@ -86,7 +86,19 @@ def partition(argv=None):
         raise ValueError("partition requires out= containing %")
     outs = [open_output(out1.replace("%", str(w))) for w in range(ways)]
     n = 0
-    for b in FastqReader(in1):
+    from ..io.fileformat import Format, test_input
+
+    if test_input(in1).format is Format.FASTA:
+        # FASTA records are dealt as FASTA, wrapped as write_fasta wraps
+        # them (a FastqReader takes a FASTA file's lines as records)
+        for rec in iter_fasta(in1):
+            outs[n % ways].write(b">" + rec.name + b"\n" + b"".join(
+                rec.seq[i:i + 70] + b"\n" for i in range(0, len(rec.seq), 70)))
+            n += 1
+        batches = ()
+    else:
+        batches = FastqReader(in1)
+    for b in batches:
         rows = (np.arange(b.n) + n) % ways
         for w in range(ways):
             sel = rows == w

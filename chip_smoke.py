@@ -90,7 +90,7 @@ From the root of a checkout, on a machine with a CUDA card:
      ecco=t mix=t strict`) over 50,000 pairs of the whole copy, `bbmerge
      nn=t` over 50,000 of the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
      config #2's 200,000 reads (one add of a batch timed alone) and with
-     ecc=t on 500 of the region's reads, `bbmap bloomfilter=t` over
+     ecc=t on 250 of the region's reads, `bbmap bloomfilter=t` over
      20,000 map reads and 2,000 foreign ones, and `bbrealign` on the
      clipped SAM; then each on both devices, byte for byte (BBMerge nn=t
      but for pairs whose net score lay within 1e-5 of the cutoff);
@@ -120,7 +120,10 @@ From the root of a checkout, on a machine with a CUDA card:
      k=31 target=10 mindepth=5` over config #2's reads (the kept share
      near the target over the 31-mer depth), `ecc` over config #5's
      region's reads, `loglog k=31` over config #2's reads (within 7% of
-     kmercountexact's distinct 31-mers), `dedupe s=2 e=2` over 100,000
+     kmercountexact's distinct 31-mers), `kmerlimit k=31` over config
+     #2's reads with limit= a quarter of those (LogLog's count on the
+     card, the reads it passes equal to a device=cpu run's), `dedupe s=2
+     e=2` over 100,000
      reads with planted copies and near-copies (kept and duplicates
      exactly the planted), `clumpify k=31` over config #1's reads and
      `dedupe=t` over dedupe's (the same-strand copies removed); then
@@ -321,8 +324,11 @@ MERGE_CHECK_PAIRS = 20_000
 NN_PAIRS = 50_000
 MERGE_ECCT_CHECK_PAIRS = 500
 #: bbcms: all of config #2's reads with the depth filter; the default
-#: ecc=t on the region's reads (host correction)
+#: ecc=t on the region's first CMS_ECC_READS reads (host correction,
+#: ~46 reads/s; 500 at first: cut for the smoke's time, PERF.md section
+#: 4 "Cuts")
 CMS_FILTER = ["ecc=f", "mincount=2", "hcf=0.5"]
+CMS_ECC_READS = 250
 CMS_CHECK_READS = 2_000
 #: BBMap bloomfilter=t over the map reads' head and seeded foreign reads,
 #: one of them after every ten real reads. At E. coli's length the
@@ -410,6 +416,9 @@ A8A_CHECK_READS = 20_000
 #: loglog's estimate against kmercountexact's distinct count: 3 standard
 #: errors (1.04 / sqrt(buckets)) at 2,048 buckets
 LOGLOG_BAND = 0.07
+#: kmerlimit's limit= as a share of kmercountexact's distinct 31-mers:
+#: it stops after a few 4,096-read batches of config #2's reads
+KMERLIMIT_SHARE = 4
 #: reformat's quality trim (its device route) over config #1's reads
 REFORMAT_FLAGS = ["qtrim=rl", "trimq=10", "minlen=40"]
 #: the tools on the glocal identity aligner (ROADMAP L5). alltoall:
@@ -1546,7 +1555,7 @@ def make_asm_data(work: str, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     d = {k: os.path.join(work, f"asm_{k}") for k in (
         "ref.fa", "copy.fa", "reads.fq.gz", "kce93.fq.gz", "head.fq.gz", "cv.fq.gz",
-        "region.fq.gz", "ecc.fq.gz")}
+        "region.fq.gz", "ecc.fq.gz", "cms_ecc.fq.gz")}
     write_fasta(d["ref.fa"], random_genome(ASM_GENOME, seed=seed))
     codes = load_reference(d["ref.fa"]).scaffold_codes(0)
     copy, d["truth"] = plant_variants(codes, rng)
@@ -1560,6 +1569,7 @@ def make_asm_data(work: str, seed: int) -> dict:
     region = [r for r in reads if parse_truth(r[0])[1] + ASM_READ_LEN <= ASM_REGION]
     write_reads(d["region.fq.gz"], region)
     write_reads(d["ecc.fq.gz"], region[:ECC_CHECK_READS])
+    write_reads(d["cms_ecc.fq.gz"], region[:CMS_ECC_READS])
     d["region_reads"] = len(region)
     d["copy_codes"] = copy
     d["depth31"] = (ASM_READS * ASM_READ_LEN / len(copy) * (ASM_READ_LEN - 30)
@@ -2166,9 +2176,9 @@ def a6b_phases(asm: dict, pipe: dict, ctx: dict, work: str, card: str,
     ecc_fq = os.path.join(work, "cms_ecc.cuda.fq")
     ((kept, _, errors), dt, _), _ = run_path("bbcms ecc=t", lambda: routed(
         "bbcms ecc=t", lambda: run_tool("bbcms", [
-            f"in={asm['ecc.fq.gz']}", f"out={ecc_fq}"], "cuda"),
+            f"in={asm['cms_ecc.fq.gz']}", f"out={ecc_fq}"], "cuda"),
         {"cms_add": None}), (), {})
-    n_in = ECC_CHECK_READS
+    n_in = CMS_ECC_READS
     print(f"bbcms ecc=t device=cuda: the region's first {n_in} reads in {dt:.2f} s = "
           f"{n_in / dt:.0f} reads/s (wall; the correction is host code) on {card}; "
           f"{errors} errors corrected")
@@ -2858,6 +2868,26 @@ def a8a_phases(asm: dict, a2: dict, a8: dict, work: str, card: str, phase_s: dic
     if abs(card_est / exact - 1) > LOGLOG_BAND:
         raise AssertionError(f"loglog: {card_est} against {exact}")
     phase_s["loglog"] = time.perf_counter() - t0
+
+    # ---- kmerlimit: config #2's reads until LogLog counts the limit ----
+    t0 = time.perf_counter()
+    limit = exact // KMERLIMIT_SHARE
+    lim = {d: w(f"kmerlimit.{d}.fq") for d in ("cuda", "cpu")}
+    argv = [f"in={asm['reads.fq.gz']}", f"limit={limit}"]
+    n_out, dt, log = run_routed("kmerlimit", "kmerlimit", [*argv, f"out={lim['cuda']}"],
+                                {"loglog_update": None})
+    n_cpu, dt_cpu, log_cpu = run_tool("kmerlimit", [*argv, f"out={lim['cpu']}"], "cpu")
+    count = int(log.split("Unique Kmers:")[1].split()[0])
+    print(f"kmerlimit k=31 limit={limit} (a quarter of kmercountexact's {exact}) device=cuda: "
+          f"{n_out} of {ASM_READS} reads passed in {dt:.2f} s = {n_out / dt:.0f} reads/s on "
+          f"{card}; LogLog's count at the stop {count}; device=cpu {dt_cpu:.2f} s")
+    if not 0 < n_out < ASM_READS or count < limit:
+        raise AssertionError(f"kmerlimit: {n_out} reads passed, count {count}")
+    if (n_cpu, log_cpu) != (n_out, log) or read_all([lim["cuda"]]) != read_all([lim["cpu"]]):
+        raise AssertionError("kmerlimit: cuda and cpu outputs differ")
+    print(f"kmerlimit: cuda == cpu ({n_out} reads, {os.path.getsize(lim['cuda'])} bytes, "
+          f"stderr equal)")
+    phase_s["kmerlimit"] = time.perf_counter() - t0
 
     # ---- dedupe s=2 e=2: fuzzy pairs on the banded edit distance ----
     t0 = time.perf_counter()

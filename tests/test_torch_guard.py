@@ -68,7 +68,23 @@ COPIED_MODULES = [
     "models/sortbyname.py", "models/bbmask.py", "models/smalltools.py",
     "models/barcodetools.py", "models/hiseqtools.py", "models/illuminatools.py",
     "models/splitnextera.py",
+    # A8b's sketch, taxonomy and file-tool slice (callgenes for
+    # translate6frames' translate; its launcher comes with pgm)
+    "utils/graders2.py", "ops/sketch_hash.py", "models/taxonomy.py", "models/clade.py",
+    "models/server.py", "models/seqmisc.py", "models/callgenes.py",
 ]
+
+
+def _function_text(src: str, name: str) -> str:
+    """The source lines of the top-level function `name` of src."""
+    node = next(n for n in ast.parse(src).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return "".join(src.splitlines(keepends=True)[node.lineno - 1:node.end_lineno])
+
+
+#: copied modules with one function departing from the copy (its lines
+#: are held by EDITED_FUNCTIONS): C7's partition deals FASTA as FASTA
+EDITED_IN_COPY = {"models/smalltools.py": "partition"}
 
 
 @pytest.mark.parametrize("rel", COPIED_MODULES)
@@ -87,6 +103,9 @@ def test_copied_module_has_not_drifted(rel):
         want = want.replace(
             build, '    tmp = f"{cache}.{os.getpid()}.tmp"\n' + build
         ).replace('cache + ".tmp"', "tmp")
+    if rel in EDITED_IN_COPY:
+        name = EDITED_IN_COPY[rel]
+        want = want.replace(_function_text(want, name), _function_text(port, name))
     assert port == want
 
 
@@ -151,6 +170,16 @@ PARTLY_COPIED = {
     # interleaved stream
     "models/filterbytile.py": ["FBTConfig", "parse_args", "FilterByTile._records",
                                "FilterByTile.analyze", "FilterByTile.filter"],
+    # the blacklist keywords name the JAX package's resources, by path
+    "models/sketch.py": ["load_blacklist"],
+    # comparessu and findssu align on the run's device (L5)
+    "models/ssutools.py": ["comparessu_main", "findssu_main"],
+    # kmerlimit's LogLog hashes on the run's device
+    "models/synthtools.py": ["kmerlimit"],
+    # javasetup reports torch's devices in place of JAX's
+    "models/fileutils.py": ["javasetup_main"],
+    # bloomfilter's sketch and kmercountmulti's LogLogs live on the device
+    "models/texttools.py": ["bloomfilter", "kmercountmulti"],
 }
 
 
@@ -292,6 +321,9 @@ COPIED_FUNCTIONS = [
     ("parallel.sharded_index", "ShardedKmerIndex.build"),
     ("parallel.sharded_count", "shard_seed_index"),
     ("models.rqcfilter", "_count_fq"),
+    ("cli", "_sketch"), ("cli", "_quickclade"), ("cli", "_gradevcf"),
+    ("cli", "_grademerged"), ("cli", "_server"), ("cli", "_taxonomy"),
+    ("cli", "_filterbytaxa"),
 ]
 
 
@@ -390,6 +422,22 @@ EDITED_FUNCTIONS = {
     ("models.filterbytile", "FilterByTile.filter"): [
         "        for b in FastqReader(cfg.in1):", "            if w:",
         "        for x in (w, wb):"],
+    # C7: FASTA input is dealt as FASTA records, FASTQ as before
+    ("models.smalltools", "partition"): ["    for b in FastqReader(in1):"],
+    ("models.sketch", "load_blacklist"): [
+        "        here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))"],
+    ("models.synthtools", "kmerlimit"): ["    ll = LogLog(k=k)"],
+    ("models.texttools", "kmercountmulti"): ["    lls = {k: LogLog(k=k) for k in ks}"],
+    ("models.ssutools", "comparessu_main"): [
+        "                                  [seqs[ri] for ri in keep])[0]"],
+    ("models.ssutools", "findssu_main"): [
+        "        ident = _batch_identities([q], [s for _, s in panel])[0]"],
+    ("models.fileutils", "javasetup_main"): [
+        '    (python/numpy/jax versions and visible devices)."""', "    try:",
+        "        import jax", "", '        print(f"jax\\t{jax.__version__}")',
+        '        print("devices\\t" + ",".join(str(d) for d in jax.devices()))',
+        "    except Exception as e:  # noqa: BLE001 - report instead of crash",
+        '        print(f"jax\\tunavailable ({e})")'],
 }
 
 
@@ -522,7 +570,7 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 def test_unknown_tool_raises():
     from bbtools_torch.cli import main
 
-    for tool in ("countduplicates", "mergebarcodes", "rename", "mergesketch", "fungalrelease"):
+    for tool in ("countduplicates", "mergebarcodes", "quickbin", "vcf2gff", "fungalrelease"):
         with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
@@ -858,3 +906,34 @@ def test_a8b_pipelines_default_to_cuda(tmp_path, tool):
     with pytest.raises(RuntimeError, match="cuda"):
         main([tool, *argv])
     assert not (tmp_path / "o").exists()
+
+
+#: the tools of A8b's sketch, taxonomy and file-tool slice that do device
+#: work, and the argv that reaches it
+A8B_SLICE_DEVICE_TOOLS = {
+    "kmerlimit": ["in={fq}", "out={tmp}/o.fq", "limit=100"],
+    "kmerlimit2": ["in={fq}", "out={tmp}/o.fq", "limit=100"],
+    "kmercountmulti": ["in={fq}", "out={tmp}/o.txt"],
+    "comparessu": ["in={tmp}/ssu.fa", "out={tmp}/o.txt", "ata=t"],
+    "findssu": ["in={tmp}/ssu.fa", "ref={tmp}/ssu.fa", "out={tmp}/o.txt"],
+}
+
+
+@pytest.mark.parametrize("tool", list(A8B_SLICE_DEVICE_TOOLS))
+def test_a8b_slice_device_tools_default_to_cuda(tmp_path, tool):
+    """kmerlimit/kmerlimit2 and kmercountmulti (LogLog) and comparessu/
+    findssu (the glocal identity aligner) run on the card unless asked
+    for the CPU: without one, the default raises before any output is
+    written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from bbtools_torch.cli import main
+
+    fq = tmp_path / "in.fq"
+    fq.write_text("@r\n" + "ACGTTGCAAG" * 6 + "\n+\n" + "I" * 60 + "\n")
+    (tmp_path / "ssu.fa").write_text(">tid|1|a\n" + "ACGTTGCA" * 20 + "\n>tid|2|b\n"
+                                     + "ACGTAGCA" * 20 + "\n")
+    argv = [a.format(fq=fq, tmp=tmp_path) for a in A8B_SLICE_DEVICE_TOOLS[tool]]
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([tool, *argv])
+    assert not list(tmp_path.glob("o.*"))

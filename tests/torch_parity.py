@@ -58,3 +58,65 @@ def warm_native_codecs():
         fcntl.flock(fh, fcntl.LOCK_EX)
         jnative.get_lib()
         tnative.get_lib()
+
+
+def capture(cli, argv):
+    """Run cli(argv) with stdout and stderr captured as text, the tools'
+    byte writes (sys.stdout.buffer) included, in the order written."""
+    out_b, err_b = io.BytesIO(), io.BytesIO()
+    out = io.TextIOWrapper(out_b, encoding="utf-8", write_through=True)
+    err = io.TextIOWrapper(err_b, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli(argv)
+    return (out_b.getvalue().decode(errors="replace"),
+            err_b.getvalue().decode(errors="replace"))
+
+
+def file_tree(root):
+    """{relative path: content} of every file under root; a .npz file's
+    content is its arrays (its zip entries carry the time of writing), a
+    .gz file's its decompressed bytes (its header carries that time)."""
+    import gzip
+
+    import numpy as np
+
+    tree = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            rel = os.path.relpath(path, root)
+            if f.endswith(".npz"):
+                with np.load(path, allow_pickle=False) as z:
+                    tree[rel] = sorted((k, z[k].dtype.str, z[k].shape, z[k].tobytes())
+                                       for k in z.files)
+            else:
+                with (gzip.open if f.endswith(".gz") else open)(path, "rb") as fh:
+                    tree[rel] = fh.read()
+    return tree
+
+
+def run_host_both(tool, argv, inputs, tmp_path, device=False, masks=(), prepare=None):
+    """Run argv ({i} the inputs, {o} the side's output directory) through
+    both CLIs; the port gets device=cpu where the tool does device work.
+    Returns {side: (stdout, stderr, files)}, with the side's directory
+    named O (in the streams and in the files) and each (pattern,
+    replacement) of masks applied to the standard streams. prepare(o),
+    where given, fills each side's directory before its run."""
+    res = {}
+    for d, cli, extra in CLIS:
+        o = tmp_path / d
+        o.mkdir()
+        if prepare is not None:
+            prepare(o)
+        out, err = capture(cli, [tool, *(a.format(i=inputs, o=o) for a in argv),
+                                 *(extra if device else [])])
+        texts = []
+        for t in (out, err):
+            t = t.replace(str(o), "O")
+            for pat, rep in masks:
+                t = re.sub(pat, rep, t)
+            texts.append(t)
+        files = {rel: c.replace(str(o).encode(), b"O") if isinstance(c, bytes) else c
+                 for rel, c in file_tree(o).items()}
+        res[d] = (*texts, files)
+    return res
