@@ -1,13 +1,12 @@
 """Unified CLI of the port — the `tool.sh key=value` surface:
 python -m bbtools_torch <tool> key=value ...
 
-The tools ported so far are registered in TOOLS, each running on the
-card unless given device=cpu (the host-only ones, stats, pileup,
-calctruequality, gradesam, reformatpb, the host aligner launchers, the
-vector tools seqtovec, netconvert, reducecolumns, vectorutils and
-balancevectors, and the read-handling tools around rqcfilter, run
-anywhere). A name not in TOOLS raises, naming the ROADMAP item that
-holds it (A8, the long tail). Before any tool runs, `guard_output_files`
+Every tool of bbtools_tpu is registered in TOOLS under its name, each
+running on the card unless given device=cpu (the host-only ones, stats,
+pileup, calctruequality, gradesam, reformatpb, the host aligner
+launchers, the vector tools, the read-handling tools around rqcfilter
+and most of the long tail, run anywhere). A name not in TOOLS raises
+(unknown tool). Before any tool runs, `guard_output_files`
 refuses duplicate outputs, an output that is also an input, and an
 existing output under ow=f. Where torchrun's variables describe a group
 of processes, `main` joins it first (parallel/distributed.py).
@@ -249,6 +248,54 @@ def _filterbytaxa(args):
     from .models.taxonomy import filter_by_taxa
 
     return filter_by_taxa(args)
+
+
+def _randomreads(args):
+    from .models.randomreads import main
+
+    return main(args)
+
+
+def _consensus(args):
+    from .models.consensus import main
+
+    return main(args)
+
+
+def _lilypad(args):
+    from .models.lilypad import main
+
+    return main(args)
+
+
+def _quickbin(args):
+    from .models.quickbin import main
+
+    return main(args)
+
+
+def _callgenes(args):
+    from .models.callgenes import main
+
+    return main(args)
+
+
+def _crosscontaminate(args):
+    from .models.contam import cross_contaminate
+
+    return cross_contaminate(args)
+
+
+def _makecontaminated(args):
+    from .models.contam import make_contaminated
+
+    return make_contaminated(args)
+
+
+def _splitsam_n(args, way: int):
+    from .models.samutils import splitsam
+
+    return splitsam(args, way=way)
 
 
 def _lazy(module: str, fn: str, args, *extra):
@@ -576,6 +623,82 @@ TOOLS = {
     "bam2sam": lambda a: _lazy("texttools", "bam2sam", a),
     "bamlinestreamer": lambda a: _lazy("texttools", "bam2sam", a),
     "streamsam": lambda a: _lazy("texttools", "bam2sam", a),
+    # A8b group 4, the last of the long tail. On the device: postfilter
+    # (BBMap, B4), reassemble (Tadpole's load) and the cardinality
+    # harness (LogLog); the rest is host code copied from the JAX package
+    "postfilter": lambda a: _lazy("research", "postfilter_main", a),
+    "reassemble": lambda a: _lazy("research", "reassemble_main", a),
+    "fll2simulate": lambda a: _lazy("research", "cardinality_sim_main", a, "fll2"),
+    "ttllsimulate": lambda a: _lazy("research", "cardinality_sim_main", a, "ttll"),
+    "dlctieraccuracy": lambda a: _lazy("research", "cardinality_sim_main", a, "dlctier"),
+    "trainlchist": lambda a: _lazy("research", "cardinality_sim_main", a, "lchist"),
+    "mantissacompare": lambda a: _lazy("research", "cardinality_sim_main", a, "mantissa"),
+    "lowcomplexcalibrate": lambda a: _lazy(
+        "research", "cardinality_sim_main", a, "lowcomplex"),
+    # the ddl sketch pipeline and the binning and log-collating research launchers
+    "ddlwriter": lambda a: _lazy("research", "ddlwriter_main", a),
+    "ddlmerger": lambda a: _lazy("research", "ddlmerger_main", a),
+    "ddlcompare": lambda a: _lazy("research", "ddlcompare_main", a),
+    "ddlblacklist": lambda a: _lazy("research", "ddlblacklist_main", a),
+    "ddlcalibrate": lambda a: _lazy("research", "ddlcalibrate_main", a),
+    "rankingvectorizer": lambda a: _lazy("research", "rankingvectorizer_main", a),
+    "covmaker": lambda a: _lazy("research", "covmaker_main", a),
+    "makequickbinvector": lambda a: _lazy("research", "makequickbinvector_main", a),
+    "matrixtocolumns": lambda a: _lazy("research", "matrixtocolumns_main", a),
+    "bloomfilterparser": lambda a: _lazy("research", "bloomfilterparser_main", a),
+    "processfrag": lambda a: _lazy("research", "processfrag_main", a),
+    # binning, gene calling and its models, scaffolding, consensus
+    "quickbin": _quickbin,
+    "gradebins": lambda a: _lazy("gradebins", "main", a),
+    "callgenes": _callgenes,
+    "analyzegenes": lambda a: _lazy("pgmtrain", "analyzegenes_main", a),
+    "mergepgm": lambda a: _lazy("pgmtrain", "mergepgm_main", a),
+    "consensus": _consensus,
+    "consensusmaker": _consensus,
+    "lilypad": _lilypad,
+    "fixgaps": lambda a: _lazy("fixgaps", "main", a),
+    "fungalrelease": lambda a: _lazy("fungalrelease", "main", a),
+    "bbcrisprfinder": lambda a: _lazy("crispr", "main", a),
+    # read and contig odds and ends
+    "randomreads": _randomreads,
+    "crosscontaminate": _crosscontaminate,
+    "makecontaminatedgenomes": _makecontaminated,
+    "countduplicates": lambda a: _lazy("misctools", "countduplicates", a),
+    "commonkmers": lambda a: _lazy("misctools", "commonkmers", a),
+    "kmerposition": lambda a: _lazy("misctools", "kmerposition", a),
+    "mergebarcodes": lambda a: _lazy("misctools", "mergebarcodes", a),
+    "removesmartbell": lambda a: _lazy("misctools", "removesmartbell", a),
+    "filtersubs": lambda a: _lazy("misctools", "filtersubs", a),
+    "consect": lambda a: _lazy("misctools", "consect", a),
+    "mergeotus": lambda a: _lazy("misctools", "mergeotus", a),
+    "mergefastacontigs": lambda a: _lazy("misctools", "mergefastacontigs", a),
+    "partitionfastafile": lambda a: _lazy("misctools", "partitionfastafile", a),
+    # SAM, VCF and GFF tools
+    "dedupebymapping": lambda a: _lazy("samutils", "dedupebymapping", a),
+    "mergesam": lambda a: _lazy("samutils", "mergesam", a),
+    "mergesam2": lambda a: _lazy("samutils", "mergesam", a),
+    "samtoest": lambda a: _lazy("samutils", "samtoest", a),
+    "bbest": lambda a: _lazy("samutils", "samtoest", a),
+    "samtoroc": lambda a: _lazy("samutils", "samtoroc", a),
+    "splitsam": lambda a: _lazy("samutils", "splitsam", a),
+    "splitsam4way": lambda a: _splitsam_n(a, 4),
+    "splitsam6way": lambda a: _splitsam_n(a, 6),
+    "invertvcf": lambda a: _lazy("vcftools", "invertvcf", a),
+    "filtervcf": lambda a: _lazy("vcftools", "filtervcf", a),
+    "applyvariants": lambda a: _lazy("vcftools", "applyvariants", a),
+    "vcf2gff": lambda a: _lazy("vcftools", "vcf2gff", a),
+    "gbff2gff": lambda a: _lazy("gfftools", "gbff2gff", a),
+    "cutgff": lambda a: _lazy("gfftools", "cutgff", a),
+    "comparegff": lambda a: _lazy("gfftools", "comparegff", a),
+    # protein search and marker genes, scalar summaries
+    "proteinsearch": lambda a: _lazy("prottools", "proteinsearch_main", a),
+    "clusterproteins": lambda a: _lazy("prottools", "clusterproteins_main", a),
+    "markerfactory": lambda a: _lazy("prottools", "markerfactory_main", a),
+    "markervector": lambda a: _lazy("prottools", "markervector_main", a),
+    "magqc": lambda a: _lazy("prottools", "magqc_main", a),
+    "scalars": lambda a: _lazy("scalartools", "scalars_main", a),
+    "scalarintervals": lambda a: _lazy("scalartools", "scalarintervals_main", a),
+    "cloudplot": lambda a: _lazy("scalartools", "cloudplot_main", a),
 }
 
 
@@ -656,8 +779,8 @@ def main(argv=None):
     fn = TOOLS.get(tool)
     if fn is None:
         raise NotImplementedError(
-            f"bbtools_torch: tool {tool!r} is not ported (ROADMAP A8); "
-            f"ported tools: {', '.join(sorted(TOOLS))}"
+            f"bbtools_torch: unknown tool {tool!r}; "
+            f"tools: {', '.join(sorted(TOOLS))}"
         )
     # several processes: MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK (torchrun's
     # variables) join this process into a gloo group before any tool runs;

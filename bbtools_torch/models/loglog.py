@@ -10,8 +10,9 @@ On the run's device (`device=`, cuda by default) each batch's k-mers
 (`batch_kmers`), their splitmix64 (`mix64_t`, int64 bits), the rank (a
 count of trailing zeros by halving, on logical shifts) and the bucket
 maxima (`scatter_reduce` amax) stay on the device; the maxima come to
-the host once, for the estimate. `loglog_update.device_calls` counts
-batches hashed on CUDA tensors.
+the host once, for the estimate. `hash_kmers` takes keys made on the
+host (the cardinality harness's) to the device the same way.
+`loglog_update.device_calls` counts batches hashed on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -64,6 +65,12 @@ class LogLog:
         self.k = k
         self.device = resolve_device(str(device))
         self.maxima = torch.zeros(buckets, dtype=torch.int64, device=self.device)
+
+    def hash_kmers(self, keys: np.ndarray):
+        """Raise the bucket maxima by int64 keys given on the host."""
+        if len(keys):
+            loglog_update(self.maxima, torch.as_tensor(keys, dtype=torch.int64,
+                                                       device=self.device), self.p)
 
     def add_batch(self, bases, lengths):
         keys = batch_keys(bases, lengths, self.k, self.device)

@@ -5,18 +5,22 @@ The PyTorch port of what BBMap needs from bbtools_tpu/ops/msa.py:
 `msa_walk` (traceback2, MultiStateAligner11ts.java:1167-1266) as a torch
 loop of R+Cc steps with one per-lane gather each, and copies of the host
 functions `col0_scores`, `prepare_limits_np` and `match_strings_np`,
-and `realign_batch`, CallVariants' realignment. The unpruned fill itself
-is ops/msa_fill.py: the B4 kernel over full-width windows, and its plain
-torch wavefront, which realignment runs over ragged windows on any
-device. The pruned fill (fillLimited, `prune=True`) has no caller yet
-and is not ported (ROADMAP queue A).
+and `realign_batch`, CallVariants' realignment. The unpruned fill with
+traceback planes is ops/msa_fill.py: the B4 kernel over full-width
+windows, and its plain torch wavefront, which realignment runs over
+ragged windows on any device. `msa_fill_batch` is the score-only fill
+of the JAX package's host wrapper: fillLimitedX (prune=True, :128-610)
+or fillUnlimited (prune=False), torch ops over the anti-diagonals on
+the run's device, with no planes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..device import resolve_device
 from . import msa_constants as C
 
 
@@ -200,3 +204,244 @@ def realign_batch(reads, read_lens, refs, ref_lens, device="cuda"):
         ndiag = sum(m.count(x) for x in (b"m", b"S", b"N", b"D"))
         start_cols[b] = int(max_col[b]) - ndiag
     return matches, start_cols, score
+
+
+def _calc_del_score(length):
+    """The penalty of a deletion of `length` columns (calcDelScore)."""
+    score = torch.where(length > 0, C.POINTS_DEL, 0)
+    score = score + torch.where(
+        length > C.LIMIT_FOR_COST_5,
+        torch.div(length - C.LIMIT_FOR_COST_5 + C.MASK5, C.TIMESLIP,
+                  rounding_mode="floor") * C.POINTS_DEL5,
+        0,
+    )
+    l5 = length.clamp(max=C.LIMIT_FOR_COST_5)
+    score = score + torch.where(
+        l5 > C.LIMIT_FOR_COST_4, (l5 - C.LIMIT_FOR_COST_4) * C.POINTS_DEL4, 0)
+    l4 = l5.clamp(max=C.LIMIT_FOR_COST_4)
+    score = score + torch.where(
+        l4 > C.LIMIT_FOR_COST_3, (l4 - C.LIMIT_FOR_COST_3) * C.POINTS_DEL3, 0)
+    l3 = l4.clamp(max=C.LIMIT_FOR_COST_3)
+    return score + torch.where(l3 > 1, (l3 - 1) * C.POINTS_DEL2, 0)
+
+
+def _calc_ins_score(length, cum_ins):
+    """The penalty of an insertion of `length` rows (calcInsScore)."""
+    return torch.where(length > 0, cum_ins[length.clamp(0, 603).long()], 0)
+
+
+def _fill_scores(reads, read_lens, refs, ref_lens, vert, horiz, floor, subfloor,
+                 prune: bool):
+    """(max_score, max_col, max_state) int32 [B] of the wavefront fill, one
+    step of torch ops per diagonal over [B, R+1] rows: fillLimitedX with
+    prune (each cell held to its limit, a dead cell at subfloor), else
+    fillUnlimited. All tensors on one device; limits int32."""
+    from .msa_fill import NEG_BIG, REF_PAD, _del_ext_cost, _ins_array_cost, \
+        _shift_row, _sub_array_cost
+
+    B, R = reads.shape
+    Cc = refs.shape[1]
+    W = R + 1
+    dev = reads.device
+    i32 = torch.int32
+    rr = torch.arange(W, dtype=i32, device=dev)[None, :]
+    rd = reads.to(i32)
+    call1 = torch.cat([torch.full((B, 1), 99, dtype=i32, device=dev), rd], 1)
+    call0 = torch.cat([torch.full((B, 2), 98, dtype=i32, device=dev), rd[:, :-1]], 1)
+    # reversed once, so each diagonal's row-ordered values are a view:
+    # row r reads ref[c-1] = refp[d - r + R + 1] and horiz[c] = hp[d - r + R + 2]
+    PAD = R + 2
+    rev = F.pad(refs.to(i32), (PAD, PAD), value=REF_PAD).flip(1)
+    hrev = F.pad(horiz, (PAD, PAD), value=1 << 29).flip(1)
+    n, nh = rev.shape[1], hrev.shape[1]
+    col0 = torch.as_tensor(col0_scores(R), dtype=i32, device=dev)[None, :]
+    cum_ins = torch.as_tensor(C.POINTS_INS_ARRAY_C, dtype=i32, device=dev)
+    rows = read_lens.to(i32)[:, None]
+    cols = ref_lens.to(i32)[:, None]
+    sf = subfloor[:, None]
+    fl = floor[:, None]
+    del_barrier = (rr < C.BARRIER_D1) | (rr > rows - C.BARRIER_D1)
+    ins_lo = rr < C.BARRIER_I1
+    ins_hi = rr > rows - C.BARRIER_I1
+    fin_row = rows.long()
+
+    def init_diag(dd):
+        c = dd - rr
+        s = torch.where(c == 0, col0, torch.where(rr == 0, 0, NEG_BIG))
+        return s.to(i32).expand(B, W)
+
+    zero = torch.zeros((B, W), dtype=i32, device=dev)
+    s0, s1 = init_diag(0), init_diag(1)
+    # (ms_s, ms_t, del_s, del_t, ins_s, ins_t) of diagonals d-1 and d-2
+    p1 = (s1, zero, s1, zero, s1, zero)
+    p2 = (s0, zero, s0, zero, s0, zero)
+    best_s = [torch.full((B,), NEG_BIG, dtype=i32, device=dev) for _ in range(3)]
+    best_c = [torch.full((B,), -1, dtype=i32, device=dev) for _ in range(3)]
+    for d in range(2, R + Cc + 1):
+        c = d - rr
+        lo = n - 1 - (d + R + 1)
+        ref1 = rev[:, lo : lo + W]
+        ref0 = rev[:, lo + 1 : lo + 1 + W]
+        hlo = nh - 1 - (d + R + 2)
+        hcol = hrev[:, hlo : hlo + W]
+        in_range = (rr >= 1) & (c >= 1)
+        match = (call1 == ref1) & (ref1 < 4)
+        prev_match = (call0 == ref0) & (ref0 < 4)
+        q_ms_s, q_ms_t, q_del_s, _, q_ins_s, _ = p2
+        p_ms_s, _, p_del_s, p_del_t, p_ins_s, p_ins_t = p1
+        # --- MS from (r-1, c-1) ---
+        s_diag = _shift_row(q_ms_s)
+        s_del = _shift_row(q_del_s)
+        s_ins = _shift_row(q_ins_s)
+        streak = _shift_row(q_ms_t)
+        m_sMS = torch.where(
+            match,
+            s_diag + torch.where(prev_match, C.POINTS_MATCH2, C.POINTS_MATCH),
+            torch.where(
+                (ref1 < 4) & (call1 < 4),
+                s_diag + torch.where(
+                    prev_match,
+                    torch.where(streak <= 1, C.POINTS_SUBR, C.POINTS_SUB),
+                    _sub_array_cost(streak),
+                ),
+                s_diag + C.POINTS_NOCALL,
+            ),
+        )
+        m_sD = s_del + torch.where(match, C.POINTS_MATCH, C.POINTS_SUB)
+        m_sI = s_ins + torch.where(match, C.POINTS_MATCH, C.POINTS_SUB)
+        pick_ms = (m_sMS >= m_sD) & (m_sMS >= m_sI)
+        pick_d = ~pick_ms & (m_sD >= m_sI)
+        ms_score = torch.where(pick_ms, m_sMS, torch.where(pick_d, m_sD, m_sI))
+        ms_time = torch.where(
+            pick_ms,
+            torch.where(
+                match,
+                torch.where(prev_match, streak + 1, 1),
+                torch.where(prev_match, 1, streak + 1),
+            ),
+            1,
+        )
+        # --- DEL from (r, c-1) ---
+        refn_pen = torch.where(ref1 >= 4, C.POINTS_DEL_REF_N, 0)
+        d_sMS = p_ms_s + C.POINTS_DEL + refn_pen
+        d_sD = p_del_s + _del_ext_cost(p_del_t) + refn_pen
+        d_pick = d_sMS >= d_sD
+        del_score = torch.where(d_pick, d_sMS, d_sD)
+        del_time = torch.where(d_pick, 1, p_del_t + 1)
+        # --- INS from (r-1, c) ---
+        i_ms = _shift_row(p_ms_s)
+        i_ins = _shift_row(p_ins_s)
+        i_streak = _shift_row(p_ins_t)
+        i_sMS = i_ms + C.POINTS_INS
+        i_sI = i_ins + _ins_array_cost(i_streak)
+        i_pick = i_sMS >= i_sI
+        ins_score = torch.where(i_pick, i_sMS, i_sI)
+        ins_time = torch.where(i_pick, 1, i_streak + 1)
+        # --- gates and pruning ---
+        ins_barrier = (ins_lo & (c > 1)) | (ins_hi & (c < cols - 1))
+        if prune:
+            limit = torch.maximum(vert, hcol)
+            limit3 = torch.maximum(fl, torch.where(match, limit - C.POINTS_MATCH2,
+                                                   limit - C.POINTS_SUB3))
+            del_needed = (rr - c - 1).clamp(min=0)
+            ins_needed = ((rows - rr) - (cols - c) - 1).clamp(min=0)
+            del_pen = _calc_del_score(del_needed)
+            ins_pen = _calc_ins_score(ins_needed, cum_ins)
+            ms_dead = (s_diag <= limit3) & (s_del <= limit3) & (s_ins <= limit3)
+            ms_limit2 = torch.where(del_needed > 0, limit - del_pen,
+                                    torch.where(ins_needed > 0, limit - ins_pen, limit))
+            ms_score = torch.where(ms_dead | (ms_score < ms_limit2), sf, ms_score)
+            ms_time = torch.where(ms_dead, 0, ms_time)
+            del_dead = ((p_ms_s <= limit) & (p_del_s <= limit)) | del_barrier
+            del_limit2 = torch.where(
+                ins_needed > 0, limit - ins_pen,
+                torch.where(del_needed > 0,
+                            limit - _calc_del_score(del_time + del_needed)
+                            + _calc_del_score(del_time),
+                            limit))
+            del_score = torch.where(del_dead | (del_score < del_limit2), sf, del_score)
+            del_time = torch.where(del_dead, 0, del_time)
+            ins_dead = ((i_ms <= limit) & (i_ins <= limit)) | ins_barrier
+            ins_limit2 = torch.where(
+                del_needed > 0, limit - del_pen,
+                torch.where(ins_needed > 0,
+                            limit - _calc_ins_score(ins_time + ins_needed, cum_ins)
+                            + _calc_ins_score(ins_time, cum_ins),
+                            limit))
+            ins_score = torch.where(ins_dead | (ins_score < ins_limit2), sf, ins_score)
+            ins_time = torch.where(ins_dead, 0, ins_time)
+        else:
+            del_score = torch.where(del_barrier, sf, del_score)
+            del_time = torch.where(del_barrier, 0, del_time)
+            ins_score = torch.where(ins_barrier, sf, ins_score)
+            ins_time = torch.where(ins_barrier, 0, ins_time)
+        # --- time clamp, boundary ---
+        clamp = C.MAX_TIME - C.MASK5
+        ms_time = torch.where(ms_time > C.MAX_TIME, clamp, ms_time)
+        del_time = torch.where(del_time > C.MAX_TIME, clamp, del_time)
+        ins_time = torch.where(ins_time > C.MAX_TIME, clamp, ins_time)
+        bnd = torch.where(c == 0, col0, torch.where(rr == 0, 0, NEG_BIG))
+        out = []
+        for v, b in ((ms_score, bnd), (ms_time, 0), (del_score, bnd),
+                     (del_time, 0), (ins_score, bnd), (ins_time, 0)):
+            out.append(torch.where(in_range, v, b).to(i32))
+        # --- final-row capture: r == len, 1 <= c <= ref_len, strict > ---
+        fin_c = d - rows[:, 0]
+        valid = (fin_c >= 1) & (fin_c <= cols[:, 0])
+        for st, plane in enumerate(out[0::2]):
+            fs = plane.gather(1, fin_row)[:, 0]
+            cand = valid & (fs > best_s[st])
+            best_s[st] = torch.where(cand, fs, best_s[st])
+            best_c[st] = torch.where(cand, fin_c, best_c[st])
+        p2, p1 = p1, tuple(out)
+    # combine states in state-major order with strict >
+    bs, bc = best_s[0], best_c[0]
+    bst = torch.where(bc >= 0, 0, -1).to(i32)
+    for st in (1, 2):
+        take = best_s[st] > bs
+        bs = torch.where(take, best_s[st], bs)
+        bc = torch.where(take, best_c[st], bc)
+        bst = torch.where(take, st, bst).to(i32)
+    return bs, bc, bst
+
+
+def msa_fill_batch(reads, read_lens, refs, ref_lens, min_score, prune=True,
+                   device="cuda"):
+    """The score-only fill on `device` (cuda by default): the limits on
+    the host, then the wavefront over reads[:, :R'] (R' the longest read;
+    rows past it feed no final-row cell).
+
+    min_score: int array [B] (raw, before MIN_SCORE_ADJUST) for prune mode.
+    Per-task dispatch to unlimited happens on the host (reference :137).
+    Returns (max_score, max_col, max_state) int32 numpy arrays; tasks where
+    prune mode found nothing get max_score < min_score (caller filters).
+    """
+    dev = resolve_device(str(device))
+    if dev.type == "cuda":
+        msa_fill_batch.device_calls += 1
+    reads = np.asarray(reads, np.uint8)
+    refs = np.asarray(refs, np.uint8)
+    read_lens = np.asarray(read_lens)
+    ref_lens = np.asarray(ref_lens)
+    B, R = reads.shape
+    if prune:
+        ms = np.asarray(min_score, dtype=np.int64) - C.MIN_SCORE_ADJUST
+    else:
+        ms = np.zeros(B, dtype=np.int64)
+    vert, horiz, floor, subfloor = prepare_limits_np(reads, read_lens, refs, ref_lens, ms)
+    if not prune:
+        maxgain = (read_lens.astype(np.int64) - 1) * C.POINTS_MATCH2 + C.POINTS_MATCH
+        subfloor = -2 * maxgain
+    Rp = max(1, min(R, int(read_lens.max()))) if B else R
+
+    def t(x, dtype=np.int32):
+        return torch.as_tensor(np.ascontiguousarray(x, dtype), device=dev)
+
+    out = _fill_scores(
+        t(reads[:, :Rp], np.uint8), t(read_lens), t(refs, np.uint8), t(ref_lens),
+        t(vert[:, : Rp + 1]), t(horiz), t(floor), t(subfloor), prune)
+    return tuple(x.cpu().numpy() for x in out)
+
+
+#: calls on CUDA since the count was last set to 0
+msa_fill_batch.device_calls = 0

@@ -87,8 +87,8 @@ From the root of a checkout, on a machine with a CUDA card:
      first 25,000 bp (each stage's seconds, the recommended k, the
      contigs and their share of the region's 31-mers), its trim stage
      (`bbduk ref=adapters ... tbo tpe qtrim=r`) and ecco stage (`bbmerge
-     ecco=t mix=t strict`) over 50,000 pairs of the whole copy, `bbmerge
-     nn=t` over 50,000 of the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
+     ecco=t mix=t strict`) over 25,000 pairs of the whole copy, `bbmerge
+     nn=t` over 25,000 of the smoke's pairs, `bbcms ecc=f mincount=2 hcf=0.5` over
      config #2's 200,000 reads (one add of a batch timed alone) and with
      ecc=t on 250 of the region's reads, `bbmap bloomfilter=t` over
      20,000 map reads and 2,000 foreign ones, and `bbrealign` on the
@@ -123,7 +123,7 @@ From the root of a checkout, on a machine with a CUDA card:
      kmercountexact's distinct 31-mers), `kmerlimit k=31` over config
      #2's reads with limit= a quarter of those (LogLog's count on the
      card, the reads it passes equal to a device=cpu run's), `dedupe s=2
-     e=2` over 100,000
+     e=2` over 50,000
      reads with planted copies and near-copies (kept and duplicates
      exactly the planted), `clumpify k=31` over config #1's reads and
      `dedupe=t` over dedupe's (the same-strand copies removed); then
@@ -167,7 +167,7 @@ From the root of a checkout, on a machine with a CUDA card:
      `bloomfilter ref=<genome> k=31` over the bloom reads, `polyfilter`
      over config #1's reads with poly-G tails (counts the JAX package's
      in a dry run, tools/a8c_dryrun.py), `seqtovec` -> `train` ->
-     `netfilter` and `scoresequence` over 50,000 of config #1's reads, `calibrate
+     `netfilter` and `scoresequence` over 25,000 of config #1's reads, `calibrate
      epochs=2000` over 100,000 rows; then each on both devices on a
      head: byte for byte, but train's nets, calibrate's constants,
      netfilter's reads near the cutoff and scoresequence's scores, held
@@ -201,7 +201,22 @@ From the root of a checkout, on a machine with a CUDA card:
      library's _dirty.fasta, every true contig clean); then each on both
      devices, byte for byte: rqcfilter2's output directory on the first
      2,000 pairs (reproduce.sh with the run's directory replaced), and
-     decontaminate's results, covstats, clean and dirty FASTA.
+     decontaminate's results, covstats, clean and dirty FASTA;
+ 16. A8b group 4 on device=cuda: `postfilter` at its defaults over
+     config #2's genome cut into 100 contigs of 10,000 bp with 40
+     contigs of 300-2,000 bp of the second genome and 20 of 100-199 bp
+     planted, and the first 20,000 of config #2's reads (every genome
+     contig kept, every planted and short one removed; contigs/s, reads/s
+     and B4's launches printed); `reassemble k=31` over two tid_ inputs
+     of 1,000 reads of a 5,000 bp region each (every header labelled,
+     each region's 31-mers at least 0.9 in its contigs); `fll2simulate`
+     at its defaults (~10M keys through loglog_update on the card, every
+     meanRelErr under 0.05; its device=cpu run in this process) and the
+     pruned fill (`msa_fill_batch prune=True`) in one call over the
+     windows of the BBMap row's first 256 reads (its device=cpu half in
+     a process of its own); postfilter on a head (10
+     genome contigs, the planted ones, the reads that fall in them) and
+     reassemble against device=cpu, byte for byte.
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -302,12 +317,12 @@ CV_FALSE_MAX = 10
 #: past a short insert, with ASM_ERR base errors. Its stages past trim and
 #: ecco (Tadpole's correction and walks, BBMerge's extension) are host
 #: code, so the whole pipeline runs on the region; its two device stages
-#: run on their own over PIPE_FULL_PAIRS pairs (15x; 30x before the same
-#: cut) of the whole copy.
+#: run on their own over PIPE_FULL_PAIRS pairs (7.5x; 30x and 15x before
+#: the same cuts) of the whole copy.
 #: Its check runs on PIPE_CHECK_PAIRS pairs (30x) of the region's head
 PIPE_PAIRS = 1_250
 PIPE_CHECK_PAIRS = 500
-PIPE_FULL_PAIRS = 50_000
+PIPE_FULL_PAIRS = 25_000
 PIPE_INSERTS = (100, 450)
 PIPE_TRIM = ["ref=adapters", "ktrim=r", "k=23", "mink=11", "hdist=1", "qtrim=r",
              "trimq=10", "tbo", "tpe", "minlen=62"]
@@ -319,9 +334,9 @@ PIPE_CHECK_BP = 5_000  # the region's head, for tadpipe's CUDA against CPU
 #: run ~35 pairs/s on a CPU core (PERF.md section 4)
 MERGE_CHECK_PAIRS = 20_000
 #: BBMerge nn=t's rate over the first NN_PAIRS of BBMerge's pairs (all
-#: 150,000 at first, then 75,000: cut for the smoke's time, PERF.md
-#: section 4 "Cuts")
-NN_PAIRS = 50_000
+#: 150,000 at first, then 75,000, 50,000: cut for the smoke's time,
+#: PERF.md section 4 "Cuts")
+NN_PAIRS = 25_000
 MERGE_ECCT_CHECK_PAIRS = 500
 #: bbcms: all of config #2's reads with the depth filter; the default
 #: ecc=t on the region's first CMS_ECC_READS reads (host correction,
@@ -404,11 +419,11 @@ BBNORM_FLAGS = ["k=31", "target=10", "mindepth=5"]
 #: dedupe's input: DEDUPE_DISTINCT random reads of 150 bp, DEDUPE_EXACT
 #: exact copies of as many of them (every other reverse-complemented)
 #: and DEDUPE_NEAR near-copies of others (1-2 substitutions or a 1 bp
-#: indel at 40-110), shuffled (twice as many of each at first: cut for
-#: the smoke's time, PERF.md section 4 "Cuts")
-DEDUPE_DISTINCT = 75_000
-DEDUPE_EXACT = 12_500
-DEDUPE_NEAR = 12_500
+#: indel at 40-110), shuffled (four and two times as many of each at
+#: first: cut for the smoke's time, PERF.md section 4 "Cuts")
+DEDUPE_DISTINCT = 37_500
+DEDUPE_EXACT = 6_250
+DEDUPE_NEAR = 6_250
 DEDUPE_FLAGS = ["s=2", "e=2"]
 #: the dedupe and clumpify checks' heads: past one 16,384-read batch, so
 #: that dedupe's second batch sends pairs to the banded edit distance
@@ -514,8 +529,8 @@ BLOOM_MATCHED = 22_000
 #: vectors by seqtovec (k=0, width 55: 224 features), a net trained on
 #: them at train's defaults (2,000 epochs, [224, 64, 1]); netfilter and
 #: scoresequence with it over the first NN_FILTER_READS of config #1's
-#: reads (all 200,000 at first, then 100,000: cut for the smoke's time,
-#: PERF.md section 4 "Cuts"). The check trains on
+#: reads (all 200,000 at first, then 100,000, 50,000: cut for the smoke's
+#: time, PERF.md section 4 "Cuts"). The check trains on
 #: ML_CHECK_ROWS rows a class on both devices: the nets within
 #: FIT_WEIGHT_TOL in every weight (their files print six decimals) and
 #: the reported mse within the same; netfilter's files equal but for
@@ -523,7 +538,7 @@ BLOOM_MATCHED = 22_000
 #: scoresequence's scores within SCORE_TOL (one unit of their fourth
 #: decimal). The bounds: tests/test_torch_mltools.py, from the dry run
 ML_READS = 20_000
-NN_FILTER_READS = 50_000
+NN_FILTER_READS = 25_000
 ML_POOLS = (b"GCGCGCAT", b"ATATATGC")
 ML_CHECK_ROWS = 1_000
 FIT_WEIGHT_TOL = 5e-5
@@ -1264,6 +1279,31 @@ def sass_innermost_loops(lib: str, kernel: str, opcode: str) -> list[int] | None
 B4_MAIN_SLICES = 5
 
 
+#: reference path -> its BBMap index, built once for fused_windows
+WINDOW_INDEX: dict = {}
+
+
+def fused_windows(ref_fa: str, batch_fq: str):
+    """The fill tasks that the port's fused phase prepares for the first
+    batch of `batch_fq` against `ref_fa` on the card (the index built once
+    a reference, WINDOW_INDEX): (the BBMap tool,
+    the batch's reads and padded length, window class -> its (reads,
+    lens, refs), the last three of the class's fill arguments)."""
+    from bbtools_torch.models.bbmap import BBMap, parse_args
+
+    tool = BBMap(parse_args([f"ref={ref_fa}", f"in={batch_fq}", "device=cuda"]),
+                 index=WINDOW_INDEX.get(ref_fa))
+    WINDOW_INDEX[ref_fa] = tool.index
+    batch = list(tool._read_batches(batch_fq))[0]
+    lengths = batch.lengths.astype(np.int64)
+    B, L = batch.bases.shape
+    cand = tool.candidates_for_batch(batch.bases, lengths)
+    task = tool._build_tasks(batch.bases, lengths, cand[0], cand[2], cand[5])
+    prep = tool._fused_prep(B, L, cand[0], cand[3], cand[4], cand[5], cand[1], *task[:3])
+    return tool, B, L, {wc: args[-3:] for (wc, _n), args in zip(prep["args"][3],
+                                                                prep["args"][9])}
+
+
 def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     """B4 against its plain version on four task sets: the window-class
     0 and class 3 tasks that the port's fused phase prepares for one
@@ -1280,7 +1320,6 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     import torch
 
     from bbtools_torch.kernels import build
-    from bbtools_torch.models.bbmap import BBMap, parse_args
     from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
 
     dev = torch.device("cuda")
@@ -1290,16 +1329,8 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     print(f"B4 SASS: the diagonal loop of the warp kernel at {B4_MAIN_SLICES} slices holds "
           f"{n_ins} instructions: {ops_per_cell:.1f} a cell"
           + ("" if n_ins else f" (no cuobjdump: the recorded {B4_OPS_PER_CELL})"))
-    tool = BBMap(parse_args([f"ref={ref_fa}", f"in={batch_fq}", "device=cuda"]))
-    batch = list(tool._read_batches(batch_fq))[0]
-    lengths = batch.lengths.astype(np.int64)
-    B, L = batch.bases.shape
-    cand = tool.candidates_for_batch(batch.bases, lengths)
-    task = tool._build_tasks(batch.bases, lengths, cand[0], cand[2], cand[5])
-    prep = tool._fused_prep(B, L, cand[0], cand[3], cand[4], cand[5], cand[1], *task[:3])
+    tool, B, L, by_wc = fused_windows(ref_fa, batch_fq)
     extras = tool.cfg.window_extras
-    # each class's (reads, lens, refs), the last three of its arguments
-    by_wc = {wc: args[-3:] for (wc, _n), args in zip(prep["args"][3], prep["args"][9])}
     print(f"B4 one batch of {B} reads (L={L}): tasks per window class "
           + ", ".join(f"Cc={wc}: {t[0].shape[0]}" for wc, t in sorted(by_wc.items())))
     rng = np.random.default_rng(4)
@@ -1372,7 +1403,7 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     if not any(r["block_kernel"] for r in rows):
         raise AssertionError("B4: no set launched the block kernel")
     crossover = b4_crossover(synthetic, L, L + extras[0])
-    del tool, prep
+    del tool
 
     def row(name: str, r: dict) -> dict:
         return {"name": name, "route": "cuda", "source": "bbtools_torch/csrc/msa_fill.cu",
@@ -4733,6 +4764,285 @@ def a8b_checks(a8b: dict, runs: dict, cpu_side: CpuSide, phase_s: dict):
     phase_s["cuda == cpu, a8b"] = time.perf_counter() - t0
 
 
+#: A8b group 4: `postfilter` at its defaults (mincov=2 minlen=200
+#: minreads=6; inside it BBMap maxindel=0 minid=0.9; Postfilter.java,
+#: postfilter.sh, the contig filter that assembly pipelines run after
+#: assembly) over config #2's 1,000,000 bp genome cut into G4_CONTIGS
+#: contigs of G4_CONTIG_LEN bp, with G4_PLANTED contigs of G4_PLANTED_LEN
+#: bp of the second genome and G4_SHORT of G4_SHORT_LEN bp of config #2's
+#: planted among them, and the first G4_PF_READS of config #2's reads
+#: (3x): every genome contig kept, every planted and short one removed.
+#: Its CUDA-against-CPU check runs on the first G4_PF_CHECK_CONTIGS
+#: genome contigs, the planted ones and the reads that fall in the first
+#: ones
+G4_CONTIGS = 100
+G4_CONTIG_LEN = 10_000
+G4_PLANTED = 40
+G4_PLANTED_LEN = (300, 2_000)
+G4_SHORT = 20
+G4_SHORT_LEN = (100, 199)
+G4_PF_READS = 20_000
+G4_PF_CHECK_CONTIGS = 10
+#: `reassemble k=31` over two tid_ inputs, each G4_RA_READS reads of 150
+#: bp (30x, 0.5% errors) of a G4_RA_REGION bp region, one of config #2's
+#: genome and one of the second genome: every header carries its input's
+#: tid_ label, each region's 31-mers at least G4_RA_RECALL_MIN in its
+#: contigs
+G4_RA_READS = 1_000
+G4_RA_REGION = 5_000
+G4_RA_RECALL_MIN = 0.9
+#: `fll2simulate` at its defaults (buckets=2048 trials=9
+#: tiers=1000,10000,100000,1000000): 9,999,000 keys through
+#: loglog_update, one call a trial; each tier's meanRelErr under
+#: G4_SIM_ERR_MAX
+G4_SIM_TIERS = (1_000, 10_000, 100_000, 1_000_000)
+G4_SIM_TRIALS = 9
+G4_SIM_ERR_MAX = 0.05
+#: the pruned fill (`ops.msa.msa_fill_batch` prune=True) over the window
+#: classes the fused phase prepares for the BBMap row's first
+#: MAP_CHECK_READS reads, min_score at BBMap's default minratio
+G4_MINRATIO = 0.56
+
+
+def make_g4_data(work: str, asm: dict, second_fa: str, seed: int) -> dict:
+    """The inputs of the group-4 phase: postfilter's assembly (genome
+    contigs, planted and short ones in a seeded order), its reads and its
+    check's head; reassemble's two tid_ inputs and their regions."""
+    from bbtools_torch.core.dna import CODE_TO_BASE
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.utils.synth import parse_truth
+
+    rng = np.random.default_rng(seed)
+    first = load_reference(asm["ref.fa"]).scaffold_codes(0)
+    second = load_reference(second_fa).scaffold_codes(0)
+
+    def text(codes):
+        return CODE_TO_BASE[np.minimum(codes, 4)].tobytes()
+
+    def pieces(tag, src, n, lens):
+        out = []
+        for j in range(n):
+            ln = int(rng.integers(lens[0], lens[1] + 1))
+            p = int(rng.integers(0, len(src) - ln))
+            out.append((b"%s_%d" % (tag, j), text(src[p: p + ln])))
+        return out
+
+    genome = [(b"contig_%d" % i, text(first[i * G4_CONTIG_LEN: (i + 1) * G4_CONTIG_LEN]))
+              for i in range(G4_CONTIGS)]
+    planted = pieces(b"planted", second, G4_PLANTED, G4_PLANTED_LEN)
+    short = pieces(b"short", first, G4_SHORT, G4_SHORT_LEN)
+    d = {k: os.path.join(work, f"g4_{k}") for k in (
+        "asm.fa", "pf.fq.gz", "pf_check.fa", "pf_check.fq.gz")}
+    recs = genome + planted + short
+    write_fasta(d["asm.fa"], [recs[i] for i in rng.permutation(len(recs))])
+    write_fasta(d["pf_check.fa"], genome[:G4_PF_CHECK_CONTIGS] + planted + short)
+    head_fastq(asm["reads.fq.gz"], d["pf.fq.gz"], G4_PF_READS)
+    with gzip.open(d["pf.fq.gz"], "rb") as fh:
+        lines = fh.read().split(b"\n")
+    span = G4_PF_CHECK_CONTIGS * G4_CONTIG_LEN
+    head = [b"\n".join(lines[i: i + 4]) + b"\n" for i in range(0, len(lines) - 3, 4)
+            if parse_truth(lines[i][1:])[1] + ASM_READ_LEN <= span]
+    with gzip.open(d["pf_check.fq.gz"], "wb", compresslevel=1) as fh:
+        fh.write(b"".join(head))
+    d["check_reads"] = len(head)
+    d["kept"] = {n for n, _ in genome}
+    d["n_contigs"] = len(recs)
+    d["tid"] = {}
+    for tid, tag, src in ((1, "a", first), (2, "b", second)):
+        p0 = int(rng.integers(0, len(src) - G4_RA_REGION))
+        region = src[p0: p0 + G4_RA_REGION]
+        path = os.path.join(work, f"tid_{tid}_{tag}.fq")
+        reads = []
+        for i in range(G4_RA_READS):
+            p = int(rng.integers(0, G4_RA_REGION - ASM_READ_LEN + 1))
+            r = region[p: p + ASM_READ_LEN].copy()
+            e = rng.random(ASM_READ_LEN) < ASM_ERR
+            r[e] = (r[e] + rng.integers(1, 4, int(e.sum()))) % 4
+            if i % 2:
+                r = 3 - r[::-1]
+            reads.append(b"@t%d_%d\n%s\n+\n%s\n" % (tid, i, text(r), b"F" * ASM_READ_LEN))
+        with open(path, "wb") as fh:
+            fh.write(b"".join(reads))
+        d["tid"][tid] = (path, region)
+    return d
+
+
+def g4_check_runs(g4: dict, work: str) -> dict:
+    """The group-4 CUDA-against-CPU checks: name -> (argv on device d,
+    d's output file). postfilter on its check's head; reassemble on the
+    phase's inputs (its CUDA run is the phase's)."""
+    def w(name):
+        return os.path.join(work, name)
+
+    ins = ",".join(g4["tid"][t][0] for t in (1, 2))
+    return {
+        "postfilter": lambda d: Check(["postfilter", f"in={g4['pf_check.fq.gz']}",
+                                       f"ref={g4['pf_check.fa']}",
+                                       f"out={w(f'g4_pfchk.{d}.fa')}"],
+                                      [w(f"g4_pfchk.{d}.fa")]),
+        "reassemble": lambda d: Check(["reassemble", f"in={ins}", f"out={w(f'g4_ra.{d}.fa')}",
+                                       "k=31"], [w(f"g4_ra.{d}.fa")]),
+    }
+
+
+def g4_phases(g4: dict, ctx: dict, work: str, card: str, phase_s: dict) -> dict:
+    """A8b group 4 on device=cuda: postfilter over the G4 assembly (the
+    kept contigs exactly the genome's; B4's launches printed, none
+    required: maxindel=0 may leave no task past the ungapped scorer);
+    reassemble k=31 over the two tid_ inputs (Tadpole's load on the card,
+    every header labelled, each region's 31-mers in its contigs); then
+    fll2simulate at its defaults on both devices (equal), and the pruned
+    fill over one BBMap batch's windows on the card, its CPU half started
+    in a process for g4_fill_check. Returns what g4_fill_check takes."""
+    import torch
+
+    from bbtools_torch.io.fasta import iter_fasta
+    from bbtools_torch.ops import msa
+    from bbtools_torch.ops import msa_constants as C
+
+    # ---- postfilter: BBMap (B4 past the ungapped scorer), pileup and
+    # FilterByCoverage ----
+    t0 = time.perf_counter()
+    out = os.path.join(work, "g4_pf.cuda.fa")
+    (_, dt, log), got = run_path(
+        "postfilter", lambda: run_tool("postfilter", [f"in={g4['pf.fq.gz']}",
+                                                      f"ref={g4['asm.fa']}", f"out={out}"],
+                                       "cuda"), (), {})
+    kept = set(fasta_names(out))
+    print(f"postfilter device=cuda: {g4['n_contigs']} contigs, {G4_PF_READS} reads in "
+          f"{dt:.2f} s = {g4['n_contigs'] / dt:.1f} contigs/s, {G4_PF_READS / dt:.0f} reads/s "
+          f"(wall, the index build, pileup and the filter included) on {card}; kept "
+          f"{len(kept)} ({len(kept & g4['kept'])} of the {G4_CONTIGS} genome contigs), removed "
+          f"{g4['n_contigs'] - len(kept)}; B4 launches {got['msa_fill']} (warp), "
+          f"{got['msa_fill_block']} (block); "
+          + "; ".join(ln.strip() for ln in log.splitlines() if "mapped" in ln or "Kept" in ln))
+    if kept != g4["kept"]:
+        raise AssertionError(f"postfilter: kept {sorted(kept ^ g4['kept'])[:5]} wrongly")
+    phase_s["postfilter"] = time.perf_counter() - t0
+
+    # ---- reassemble k=31: Tadpole once a tid_ input ----
+    t0 = time.perf_counter()
+    check = g4_check_runs(g4, work)["reassemble"]("cuda")
+    _, dt, _ = run_routed("reassemble", "reassemble", check.argv[1:], {"sort_reduce": None})
+    recs = list(iter_fasta(check.outs[0]))
+    recall = {t: kmer_recall([r.seq for r in recs if r.name.startswith(b"tid_%d_" % t)],
+                             g4["tid"][t][1]) for t in (1, 2)}
+    labelled = all(r.name.startswith((b"tid_1_", b"tid_2_")) for r in recs)
+    print(f"reassemble k=31 device=cuda: {2 * G4_RA_READS} reads in 2 inputs in {dt:.2f} s = "
+          f"{2 * G4_RA_READS / dt:.0f} reads/s (wall, Tadpole's load on the card, its walk on "
+          f"the host) on {card}; {len(recs)} contigs, every header labelled {labelled}; the "
+          f"regions' 31-mers in their contigs: "
+          + ", ".join(f"tid_{t} {v:.4f}" for t, v in recall.items()))
+    if not recs or not labelled or min(recall.values()) < G4_RA_RECALL_MIN:
+        raise AssertionError(f"reassemble: labelled {labelled}, recall {recall}")
+    phase_s["reassemble"] = time.perf_counter() - t0
+
+    # ---- fll2simulate: the cardinality harness on LogLog ----
+    t0 = time.perf_counter()
+    res = {}
+    for d in ("cuda", "cpu"):
+        buf = io.StringIO()
+
+        def sim():
+            with contextlib.redirect_stdout(buf):
+                return run_tool("fll2simulate", [], d)
+
+        _, dt, log = (routed("fll2simulate", sim,
+                             {"loglog_update": len(G4_SIM_TIERS) * G4_SIM_TRIALS})
+                      if d == "cuda" else sim())
+        res[d] = (buf.getvalue(), log, dt)
+    rows = [ln.split("\t") for ln in res["cuda"][0].splitlines() if ln and ln[0] != "#"]
+    errs = {int(r[0]): float(r[2]) for r in rows}
+    n_keys = G4_SIM_TRIALS * sum(G4_SIM_TIERS)
+    print(f"fll2simulate device=cuda: {n_keys} keys in {res['cuda'][2]:.2f} s = "
+          f"{n_keys / res['cuda'][2]:.0f} keys/s on {card}; meanRelErr "
+          + ", ".join(f"{n} {e:.4f}" for n, e in errs.items())
+          + f"; device=cpu {res['cpu'][2]:.2f} s")
+    if sorted(errs) != list(G4_SIM_TIERS) or max(errs.values()) >= G4_SIM_ERR_MAX:
+        raise AssertionError(f"fll2simulate: {errs}")
+    if res["cuda"][:2] != res["cpu"][:2]:
+        raise AssertionError("fll2simulate: cuda and cpu outputs differ")
+    print(f"fll2simulate: cuda == cpu ({len(res['cuda'][0])} bytes of stdout, stderr equal)")
+    phase_s["fll2simulate"] = time.perf_counter() - t0
+
+    # ---- the pruned fill over one 256-read BBMap batch's windows ----
+    t0 = time.perf_counter()
+    _, B, _, by_wc = fused_windows(ctx["ref_fa"], ctx["map_small"])
+    # one call over the batch's windows: each class's windows padded to
+    # the widest, each task's own window length its ref_len (columns past
+    # a task's ref_len feed none of its cells at or before it)
+    classes = [tuple(x.cpu().numpy() for x in by_wc[wc]) for wc in sorted(by_wc)]
+    R, Cw = max(c[0].shape[1] for c in classes), max(by_wc)
+    reads = np.concatenate([np.pad(r, ((0, 0), (0, R - r.shape[1])), constant_values=4)
+                            for r, _, _ in classes])
+    refs = np.concatenate([np.pad(f, ((0, 0), (0, Cw - f.shape[1])), constant_values=4)
+                           for _, _, f in classes])
+    lens = np.concatenate([ln for _, ln, _ in classes])
+    cols = np.concatenate([np.full(len(ln), f.shape[1], np.int32) for _, ln, f in classes])
+    mins = (G4_MINRATIO * (C.POINTS_MATCH + (lens.astype(np.int64) - 1)
+                           * C.POINTS_MATCH2)).astype(np.int64)
+    inputs = (reads, lens, refs, cols, mins)
+    before = msa.msa_fill_batch.device_calls
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = msa.msa_fill_batch(*inputs, prune=True, device="cuda")
+    secs = time.perf_counter() - t1
+    calls = msa.msa_fill_batch.device_calls - before
+    killed = int((got[0] < mins - C.MIN_SCORE_ADJUST).sum())
+    print(f"msa_fill_batch prune=True device=cuda: {len(lens)} tasks of {B} reads, the window "
+          f"classes' ({', '.join(f'Cc={wc}: {t[0].shape[0]}' for wc, t in sorted(by_wc.items()))}) "
+          f"in one call, {secs:.2f} s = {len(lens) / secs:.0f} tasks/s ({R + Cw - 1} diagonal "
+          f"steps) on {card}; {killed} tasks pruned below min_score; {calls} call on the card")
+    if calls != 1 or not len(lens):
+        raise AssertionError(f"msa_fill_batch: {calls} calls on the card, {len(lens)} tasks")
+    # the CPU half (a torch loop on the host, a minute or two on one
+    # thread) in a process of its own beside the checks' processes;
+    # g4_fill_check compares
+    io_paths = [os.path.join(work, f"g4_fill.{x}.npz") for x in ("in", "cpu")]
+    np.savez(io_paths[0], **dict(zip(("reads", "lens", "refs", "cols", "mins"), inputs)))
+    with open(os.path.join(work, "g4_fill.log"), "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-c", G4_FILL_WORKER, *io_paths], cwd=HERE,
+                                env=dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="1"),
+                                stdout=log, stderr=subprocess.STDOUT)
+    SIDE_PROCS.append(proc)
+    phase_s["pruned fill"] = time.perf_counter() - t0
+    return {"fill": (proc, got, io_paths[1], os.path.join(work, "g4_fill.log"))}
+
+
+#: the pruned fill's CPU half: argv[1] the inputs (.npz), argv[2] where
+#: its outputs and seconds go
+G4_FILL_WORKER = r"""
+import sys, time
+import numpy as np
+from bbtools_torch.ops.msa import msa_fill_batch
+
+with np.load(sys.argv[1]) as z:
+    args = [z[k] for k in ("reads", "lens", "refs", "cols", "mins")]
+t0 = time.perf_counter()
+out = msa_fill_batch(*args, prune=True, device="cpu")
+np.savez(sys.argv[2], *out, s=time.perf_counter() - t0)
+"""
+#: processes the phases start outside CpuSide (main stops them)
+SIDE_PROCS: list = []
+
+
+def g4_fill_check(pending: dict):
+    """The pruned fill's CPU half (started by g4_phases) against its CUDA
+    half: score, column and state of every task equal."""
+    proc, got, out, log = pending["fill"]
+    if proc.wait():
+        with open(log, errors="replace") as fh:
+            print(fh.read()[-3000:])
+        raise AssertionError(f"the CPU half of the pruned fill failed (rc {proc.returncode})")
+    with np.load(out) as z:
+        cpu = [z[f"arr_{i}"] for i in range(3)]
+        secs = float(z["s"])
+    if not all(np.array_equal(a, b) for a, b in zip(got, cpu)):
+        raise AssertionError("msa_fill_batch: cuda and cpu differ")
+    print(f"msa_fill_batch prune=True: cuda == cpu on every task (score, column, "
+          f"state; cpu {secs:.2f} s in a process of its own, one thread)")
+
+
 def read_all(paths) -> list[bytes]:
     out = []
     for p in paths:
@@ -4918,6 +5228,13 @@ def main(argv=None) -> int:
               f"{ {k: len(v) for k, v in a8b['planted'].items()} }; decontaminate's "
               f"{DECON_LIBS} libraries of {DECON_CONTIGS} x {DECON_CONTIG_LEN} bp contigs and "
               f"{DECON_PLANTED} contaminants each; made in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        g4 = make_g4_data(work, asm, a2["second_fa"], args.seed + 80)
+        print(f"group 4 input: postfilter's {g4['n_contigs']} contigs ({G4_CONTIGS} of "
+              f"{G4_CONTIG_LEN} bp of config #2's genome, {G4_PLANTED} of the second genome, "
+              f"{G4_SHORT} short), its check's {g4['check_reads']} reads; reassemble's 2 x "
+              f"{G4_RA_READS} reads of {G4_RA_REGION} bp regions; made in "
+              f"{time.perf_counter() - t0:.1f} s")
         phase_s["input"] = time.perf_counter() - t_start
         kernels_built()
 
@@ -5059,7 +5376,8 @@ def main(argv=None) -> int:
                         + pool_runs(a8a_check_runs(a8, work))[0]
                         + [r for r in pool_runs(a8c_check_runs(a8c, work))[0]
                            if r[0] not in A8C_NEED_NET]
-                        + pool_runs(a8b_check_runs(a8b, work))[0], work,
+                        + pool_runs(a8b_check_runs(a8b, work))[0]
+                        + pool_runs(g4_check_runs(g4, work))[0], work,
                         workers=EARLY_SIDE_WORKERS, tag="early_side")
         print(f"CPU halves of the checks: {EARLY_SIDE_WORKERS} processes, from the config "
               f"#2/#5 phases on")
@@ -5074,6 +5392,7 @@ def main(argv=None) -> int:
         kernels.append(a7_phase(fq, map_batch, ref_fa, small_pairs, asm["reads.fq.gz"],
                                 kern_fq, work, card, phase_s, launches))
         a8b_phases(a8b, work, card, phase_s, launches)
+        g4_pending = g4_phases(g4, ctx, work, card, phase_s)
         early.close()
         # the CUDA halves of the checks, and the CPU halves that need the
         # trained net, in processes once the last rate is taken
@@ -5082,7 +5401,8 @@ def main(argv=None) -> int:
                 + pool_runs(a2_check_runs(a2, ctx, work))[1]
                 + pool_runs(a8a_check_runs(a8, work), skip=("ecc",))[1]
                 + [r for r in pool_runs(a8c_runs)[0] if r[0] in A8C_NEED_NET]
-                + pool_runs(a8b_check_runs(a8b, work), skip=("decontaminate",))[1])
+                + pool_runs(a8b_check_runs(a8b, work), skip=("decontaminate",))[1]
+                + pool_runs(g4_check_runs(g4, work), skip=("reassemble",))[1])
         print(f"CUDA halves of the checks: {CPU_SIDE_WORKERS} processes")
         import torch
 
@@ -5138,11 +5458,16 @@ def main(argv=None) -> int:
         file_checks("l5", l5_check_runs(l5, small, work), cpu_side, phase_s, here=l5_here)
         a8c_checks(a8c, a8c_runs, cpu_side, a8c_here, phase_s)
         a8b_checks(a8b, a8b_check_runs(a8b, work), cpu_side, phase_s)
+        file_checks("a8b group 4", g4_check_runs(g4, work), cpu_side, phase_s)
+        g4_fill_check(g4_pending)
         loglog_check(asm)
     finally:
         build_thread.join()
         for side in CpuSide.started:
             side.stop()
+        for proc in SIDE_PROCS:
+            if proc.poll() is None:
+                proc.kill()
         shutil.rmtree(work, ignore_errors=True)
 
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

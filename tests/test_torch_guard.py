@@ -72,6 +72,12 @@ COPIED_MODULES = [
     # translate6frames' translate; its launcher comes with pgm)
     "utils/graders2.py", "ops/sketch_hash.py", "models/taxonomy.py", "models/clade.py",
     "models/server.py", "models/seqmisc.py", "models/callgenes.py",
+    # A8b group 4: the host modules of the long tail
+    "models/consensus.py", "models/contam.py", "models/crispr.py", "models/fixgaps.py",
+    "models/fungalrelease.py", "models/gfftools.py", "models/gradebins.py",
+    "models/lilypad.py", "models/pgmtrain.py", "models/prottools.py", "models/quickbin.py",
+    "models/randomreads.py", "models/samutils.py", "models/scalartools.py",
+    "models/vcftools.py",
 ]
 
 
@@ -180,6 +186,15 @@ PARTLY_COPIED = {
     "models/fileutils.py": ["javasetup_main"],
     # bloomfilter's sketch and kmercountmulti's LogLogs live on the device
     "models/texttools.py": ["bloomfilter", "kmercountmulti"],
+    # kmercoverage's sketch lives on the device; the rest is host code
+    "models/misctools.py": ["kmercoverage"],
+    # the launchers that reach the device take a device=; calibrate fits
+    # with torch autograd
+    "models/research.py": ["cardinality_sim_main", "calibrate_main", "calibrate_fit",
+                           "calibrate_fit.device_calls", "postfilter_main",
+                           "reassemble_main"],
+    # the bundled gene model is the JAX package's, read by path
+    "models/pgm.py": ["parse_pgm"],
 }
 
 
@@ -323,7 +338,9 @@ COPIED_FUNCTIONS = [
     ("models.rqcfilter", "_count_fq"),
     ("cli", "_sketch"), ("cli", "_quickclade"), ("cli", "_gradevcf"),
     ("cli", "_grademerged"), ("cli", "_server"), ("cli", "_taxonomy"),
-    ("cli", "_filterbytaxa"),
+    ("cli", "_filterbytaxa"), ("cli", "_randomreads"), ("cli", "_consensus"),
+    ("cli", "_lilypad"), ("cli", "_quickbin"), ("cli", "_callgenes"),
+    ("cli", "_crosscontaminate"), ("cli", "_makecontaminated"), ("cli", "_splitsam_n"),
 ]
 
 
@@ -438,6 +455,19 @@ EDITED_FUNCTIONS = {
         '        print("devices\\t" + ",".join(str(d) for d in jax.devices()))',
         "    except Exception as e:  # noqa: BLE001 - report instead of crash",
         '        print(f"jax\\tunavailable ({e})")'],
+    # A8b group 4: LogLog, BBMap and Tadpole on the run's device
+    ("models.research", "cardinality_sim_main"): [
+        '    """Accuracy-vs-cardinality sweep of the production HLL estimator."""',
+        "            ll = LogLog(buckets=buckets)"],
+    ("models.research", "postfilter_main"): [
+        '    contigs by coverage (two-phase; Postfilter.java:1-12)."""',
+        '                    "maxindel=0", "minid=0.9"])'],
+    ("models.research", "reassemble_main"): [
+        '    concatenate, preserving labels (Reassemble.java:1-10)."""',
+        '            tadpole_main([f"in={p}", f"out={sub}", f"k={k}"])'],
+    ("models.pgm", "parse_pgm"): [
+        "            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),",
+        '            "resources", "model.pgm",'],
 }
 
 
@@ -568,10 +598,14 @@ def test_native_codec_builds_under_concurrent_processes(tmp_path):
 
 
 def test_unknown_tool_raises():
-    from bbtools_torch.cli import main
+    """A name that neither package registers raises (the JAX package
+    prints "Unknown tool:" and returns 2); nothing runs in its place."""
+    from bbtools_torch.cli import TOOLS, main
+    from bbtools_tpu.cli import TOOLS as JAX_TOOLS
 
-    for tool in ("countduplicates", "mergebarcodes", "quickbin", "vcf2gff", "fungalrelease"):
-        with pytest.raises(NotImplementedError, match=re.escape("(ROADMAP A8)")):
+    for tool in ("bbdukx", "mapreads", "notatool", "quickbin2", "vcf2bed"):
+        assert tool not in TOOLS and tool not in JAX_TOOLS
+        with pytest.raises(NotImplementedError, match=re.escape(f"unknown tool {tool!r}")):
             main([tool, "in=x.fq"])
     assert main(["help"]) == 0
 
