@@ -20,9 +20,10 @@ and writes them to alignout=. Flags replicate the bbduk.sh key=value
 surface (subset; unknown flags raise). tpshards=N shards the k-mer
 table over N devices (`enable_mesh`, parallel/sharded_index.py), with
 the same output bytes; in a process group (parallel/distributed.py) the
-stats are summed over the processes. profile= (A9) raises
-NotImplementedError naming its ROADMAP item. Stats counters mirror
-BBDukS's summary lines.
+stats are summed over the processes. profile=<dir> writes a
+torch.profiler trace of the run, the card's kernels included
+(utils/timer.py `device_profile`). Stats counters mirror BBDukS's
+summary lines.
 Every result the host needs leaves the device through an explicit
 `.cpu().numpy()`.
 """
@@ -1642,19 +1643,18 @@ def _has_min_consecutive(b, min_run: int) -> np.ndarray:
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     a = tokenize(argv)
-    if a.get("profile") not in (None, "f", "false"):
-        raise NotImplementedError(
-            "bbtools_torch bbduk: profile= is not ported yet (ROADMAP A9)"
-        )
+    profile = a.get("profile")
     showtimes = a.get_bool("showtimes", "xtime", default=False)
-    from ..utils.timer import PhaseTimer
+    from ..utils.timer import PhaseTimer, device_profile
 
     timer = PhaseTimer()
-    cfg = parse_args(argv)
-    with timer.phase("Setup"):
-        tool = BBDuk(cfg)
-    with timer.phase("Processing"):
-        stats = tool.run()
+    with device_profile(profile if profile not in ("f", "false") else None,
+                        a.get("device", default="cuda")):
+        cfg = parse_args(argv)
+        with timer.phase("Setup"):
+            tool = BBDuk(cfg)
+        with timer.phase("Processing"):
+            stats = tool.run()
     tool.print_stats()
     if showtimes:
         timer.report()

@@ -23,7 +23,8 @@ The PyTorch port of bbtools_tpu/models/icecream.py. On the run's device
 `glocal_counts` call, whose matches over columns is the host aligner's
 float64 identity (the JAX package refines each hit on the host with
 `glocal_align_np`, one Python step a DP cell: seconds a read at PacBio
-lengths). reformatpb is the JAX package's host code.
+lengths). That per-read host path, `check_read`, and reformatpb are the
+JAX package's host code.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 
 from ..core.parser import tokenize
 from ..io.fastq import FastqReader, FastqWriter
+from ..ops.idalign import glocal_align_np
 
 TARGET_QLEN = 352
 MIN_QLEN = 100
@@ -90,7 +92,7 @@ def check_batch(codes_list: list[np.ndarray], cfg: ICConfig):
     """Batched check on cfg.device: the pass-1 tip-vs-remainder
     alignments of the whole batch in ONE glocal_identity call, the
     junction refinements of its hits in one glocal_counts call. Verdicts
-    are identical to the JAX package's per-read check_read."""
+    are identical to the per-read host check_read's."""
     from ..ops.idalign import glocal_counts, glocal_identity
 
     tasks = []  # (read index, side) aligned with kernel rows
@@ -146,6 +148,56 @@ def check_batch(codes_list: list[np.ndarray], cfg: ICConfig):
         else:
             results[i] = _verdict(len(codes_list[i]), h[0], h[1])
     return [results[i] for i in range(len(codes_list))]
+
+
+def check_read(codes: np.ndarray, cfg: ICConfig):
+    """Returns (is_icecream, junction) — junction in read coords or -1."""
+    n = len(codes)
+    qlen = int(max(MIN_QLEN, min(TARGET_QLEN, n * MAX_QLEN_FRACTION)))
+    if qlen > 0.45 * n:
+        return False, -1
+    # left tip vs remainder
+    ident_l, rs_l, re_l = glocal_align_np(_rc(codes[:qlen]), codes[qlen:])
+    # right tip vs remainder
+    ident_r, rs_r, re_r = glocal_align_np(_rc(codes[-qlen:]), codes[:-qlen])
+    return _finish_read(
+        codes, qlen, cfg, ident_l, rs_l, re_l, ident_r, rs_r, re_r
+    )
+
+
+def _finish_read(codes, qlen, cfg, ident_l, rs_l, re_l, ident_r, rs_r, re_r):
+    n = len(codes)
+    left = ident_l >= ident_r
+    ident = max(ident_l, ident_r)
+    if ident < cfg.min_ratio1:
+        return False, -1
+    if left:
+        max_rpos = qlen + re_l  # end of the IR copy, whole-read coords
+        junction = max_rpos // 2
+    else:
+        inner_left = rs_r
+        inner_right = n - qlen
+        junction = (inner_left + inner_right) // 2
+    # refinement pass with a junction-sized query (:1315-1329)
+    expected = n // 2
+    if junction < expected:
+        q2 = int(junction * 0.9)
+        if q2 >= qlen:
+            ident2, _, re2 = glocal_align_np(_rc(codes[:q2]), codes[q2:])
+            if ident2 < cfg.min_ratio2:
+                return False, -1
+            junction = (q2 + re2) // 2
+    else:
+        q2 = int((n - junction) * 0.9)
+        if q2 >= qlen:
+            ident2, rs2, _ = glocal_align_np(_rc(codes[-q2:]), codes[:-q2])
+            if ident2 < cfg.min_ratio2:
+                return False, -1
+            junction = (rs2 + (n - q2)) // 2
+    frac = (
+        junction / n if left else (n - junction) / n
+    )
+    return frac >= MIN_JUNCTION_FRACTION, junction
 
 
 def _pad_tasks(qs, rs):

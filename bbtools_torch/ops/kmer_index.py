@@ -16,10 +16,23 @@ RightShift :707-766, mutate recursion BBDukIndexMod.java:383-443):
     length_mask bit, expanded with hdist2
   - maskMiddle keys are stored pre-masked
 
+Lookup runs on the index's device. Three interchangeable structures:
+
+  SortedKmerIndex — sorted int64 keys + binary search (searchsorted).
+    Deterministic, simple; the reference's own BBMap Block index is the
+    same sorted-array idea (align2/Block.java:18).
+  HashKmerIndex — open-addressed, linearly-probed table in flat arrays,
+    keys split into int32 hi/lo lanes; probe depth is fixed at build
+    time so the query is a handful of gather+compare steps (the
+    HashArray analog, kmer/HashArray.java:22).
+  BucketKmerIndex — keys hash to one bucket row of BUCKET slots: one or
+    two row gathers a lookup whatever the load; BBDuk's bucket backend.
+
+Each returns the stored id (>0) or 0 for a miss, per query position.
+
 The host builders are copies of bbtools_tpu/ops/kmer_index.py, but for
 `expand_kmers` at hdist >= 2, which builds the same stream vectorized
-(see there). The
-BucketKmerIndex lookups are torch gathers on the index's device; the
+(see there). The lookups are torch gathers on the index's device; the
 splitmix64 hash runs in int64 with logical right shifts, since torch
 has no general uint64 arithmetic (multiplication wraps modulo 2**64 on
 both the CPU and CUDA).
@@ -340,6 +353,43 @@ def build_ref_keys(
     return ukeys, uids
 
 
+@dataclass
+class SortedKmerIndex:
+    """Sorted-key index; lookup via binary search. Works on host and device."""
+
+    keys: np.ndarray  # int64 [N], sorted ascending
+    ids: np.ndarray  # int32 [N]
+
+    @property
+    def n(self) -> int:
+        return len(self.keys)
+
+    def lookup_np(self, query: np.ndarray) -> np.ndarray:
+        if self.n == 0:
+            return np.zeros(query.shape, dtype=np.int32)
+        pos = np.searchsorted(self.keys, query)
+        pos = np.minimum(pos, self.n - 1)
+        hit = self.keys[pos] == query
+        return np.where(hit, self.ids[pos], 0).astype(np.int32)
+
+    def device_arrays(self, device):
+        return (
+            torch.from_numpy(np.ascontiguousarray(self.keys, np.int64)).to(device),
+            torch.from_numpy(np.ascontiguousarray(self.ids, np.int32)).to(device),
+        )
+
+    @staticmethod
+    def lookup(keys, ids, query):
+        """query int64 [...] -> id int32 [...] on the keys' device: the
+        left insertion point, clamped to the last key, and a compare."""
+        n = keys.shape[0]
+        if n == 0:
+            return torch.zeros(query.shape, dtype=torch.int32, device=query.device)
+        pos = torch.searchsorted(keys, query.reshape(-1)).clamp(max=n - 1).reshape(query.shape)
+        hit = keys[pos] == query
+        return torch.where(hit, ids[pos], 0).to(torch.int32)
+
+
 def _mix64(h: np.ndarray) -> np.ndarray:
     """splitmix64 finalizer (public-domain mixing constants)."""
     h = h.astype(np.uint64)
@@ -349,6 +399,118 @@ def _mix64(h: np.ndarray) -> np.ndarray:
     h *= np.uint64(0x94D049BB133111EB)
     h ^= h >> np.uint64(31)
     return h
+
+
+@dataclass
+class HashKmerIndex:
+    """Open-addressed, linear-probe hash table in flat device arrays.
+
+    Keys are stored as separate int32 hi/lo lanes plus an int32 id lane;
+    empty slots have id == 0. `max_probe` is the longest probe sequence
+    that occurred at build, so the device query is a loop of
+    `max_probe + 1` gather+compare steps.
+    """
+
+    key_hi: np.ndarray  # int32 [cap]
+    key_lo: np.ndarray  # int32 [cap]
+    ids: np.ndarray  # int32 [cap]
+    cap: int
+    max_probe: int
+    n: int
+
+    #: longest probe sequence allowed; build retries with a bigger table if
+    #: exceeded, keeping the device lookup a short unrolled gather chain
+    PROBE_LIMIT = 6
+
+    @staticmethod
+    def build(keys: np.ndarray, ids: np.ndarray, load_factor: float = 0.5):
+        n = len(keys)
+        cap = 64
+        while cap * load_factor < max(n, 1):
+            cap *= 2
+        while True:
+            idx = HashKmerIndex._build_at(keys, ids, cap)
+            if idx.max_probe <= HashKmerIndex.PROBE_LIMIT or cap >= 1 << 30:
+                return idx
+            cap *= 2
+
+    @staticmethod
+    def _build_at(keys: np.ndarray, ids: np.ndarray, cap: int):
+        n = len(keys)
+        key_hi = np.zeros(cap, dtype=np.int32)
+        key_lo = np.zeros(cap, dtype=np.int32)
+        idarr = np.zeros(cap, dtype=np.int32)
+        occupied = np.zeros(cap, dtype=bool)
+        h = (_mix64(keys.astype(np.uint64)) & np.uint64(cap - 1)).astype(np.int64)
+        remaining = np.arange(n)
+        probe = 0
+        max_probe = 0
+        while len(remaining):
+            slot = (h[remaining] + probe) & (cap - 1)
+            free = ~occupied[slot]
+            # among entries landing on the same free slot, lowest index wins
+            cand = remaining[free]
+            cand_slot = slot[free]
+            order = np.argsort(cand_slot, kind="stable")
+            cand, cand_slot = cand[order], cand_slot[order]
+            first = np.ones(len(cand), dtype=bool)
+            first[1:] = cand_slot[1:] != cand_slot[:-1]
+            placed = cand[first]
+            pslot = cand_slot[first]
+            occupied[pslot] = True
+            key_hi[pslot] = (keys[placed] >> 32).astype(np.int32)
+            key_lo[pslot] = (keys[placed] & 0xFFFFFFFF).astype(np.int32)
+            idarr[pslot] = ids[placed]
+            if len(placed):
+                max_probe = probe
+            mask = np.ones(len(remaining), dtype=bool)
+            mask[np.isin(remaining, placed)] = False
+            remaining = remaining[mask]
+            probe += 1
+            if probe > cap:
+                raise RuntimeError("hash build failed to converge")
+        return HashKmerIndex(key_hi, key_lo, idarr, cap, max_probe, n)
+
+    def lookup_np(self, query: np.ndarray) -> np.ndarray:
+        qh = (_mix64(query.astype(np.uint64)) & np.uint64(self.cap - 1)).astype(
+            np.int64
+        )
+        out = np.zeros(query.shape, dtype=np.int32)
+        found = np.zeros(query.shape, dtype=bool)
+        q_hi = (query >> 32).astype(np.int32)
+        q_lo = (query & 0xFFFFFFFF).astype(np.int32)
+        for step in range(self.max_probe + 1):
+            slot = (qh + step) & (self.cap - 1)
+            hit = (
+                (self.key_hi[slot] == q_hi)
+                & (self.key_lo[slot] == q_lo)
+                & (self.ids[slot] != 0)
+                & ~found
+            )
+            out = np.where(hit, self.ids[slot], out)
+            found |= hit
+        return out
+
+    def device_arrays(self, device):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in (self.key_hi, self.key_lo, self.ids))
+
+    @staticmethod
+    def lookup(key_hi, key_lo, ids, cap: int, max_probe: int, query):
+        """query int64 [...] -> id int32 [...] on the table's device:
+        max_probe + 1 steps of three gathers and a compare. The query's
+        lanes are its high 32 bits and its low 32 bits read as int32
+        (wrapped as numpy's astype(int32) wraps them)."""
+        base = _bucket_of(query, cap)
+        q_hi = (query >> 32).to(torch.int32)
+        lo = query & 0xFFFFFFFF
+        q_lo = (lo - ((lo >> 31) << 32)).to(torch.int32)
+        out = torch.zeros(query.shape, dtype=torch.int32, device=query.device)
+        for step in range(max_probe + 1):
+            slot = (base + step) & (cap - 1)
+            hit = (key_hi[slot] == q_hi) & (key_lo[slot] == q_lo) & (ids[slot] != 0) & (out == 0)
+            out = torch.where(hit, ids[slot], out)
+        return out
 
 
 @dataclass

@@ -33,6 +33,10 @@ import torch
 from ..core.dna import N_CODE
 
 
+def kmer_mask(k: int) -> int:
+    return (1 << (2 * k)) - 1
+
+
 def length_mask(k: int) -> int:
     """Single bit to the left of the kmer; tags keys with their length."""
     return 1 << (2 * k)
@@ -51,6 +55,15 @@ def middle_mask(k: int, mid_mask_len: int) -> int:
 def mid_mask_len_default(k: int, mask_middle: bool) -> int:
     """Default midMaskLen = 2-(k&1) when maskMiddle (BBDukParser.java:233)."""
     return (2 - (k & 1)) if mask_middle else 0
+
+
+def rc_kmer(kmer: int, k: int) -> int:
+    """Reverse complement of a packed 2-bit kmer (host scalar)."""
+    out = 0
+    for _ in range(k):
+        out = (out << 2) | (3 - (kmer & 3))
+        kmer >>= 2
+    return out
 
 
 def rc_kmer_np(kmers: np.ndarray, k: int) -> np.ndarray:

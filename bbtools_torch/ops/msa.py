@@ -8,10 +8,12 @@ functions `col0_scores`, `prepare_limits_np` and `match_strings_np`,
 and `realign_batch`, CallVariants' realignment. The unpruned fill with
 traceback planes is ops/msa_fill.py: the B4 kernel over full-width
 windows, and its plain torch wavefront, which realignment runs over
-ragged windows on any device. `msa_fill_batch` is the score-only fill
-of the JAX package's host wrapper: fillLimitedX (prune=True, :128-610)
-or fillUnlimited (prune=False), torch ops over the anti-diagonals on
-the run's device, with no planes.
+ragged windows on any device. `msa_fill_batch` is the JAX package's
+host wrapper of its XLA fill: fillLimitedX (prune=True, :128-610) or
+fillUnlimited (prune=False), torch ops over the anti-diagonals on the
+run's device; with traceback=True it also writes the prevState planes
+(`msa_fill_tb`, the JAX package's `msa_fill(traceback=True)`) and walks
+them, in groups under the plane budget.
 """
 
 from __future__ import annotations
@@ -231,11 +233,14 @@ def _calc_ins_score(length, cum_ins):
 
 
 def _fill_scores(reads, read_lens, refs, ref_lens, vert, horiz, floor, subfloor,
-                 prune: bool):
+                 prune: bool, traceback: bool = False):
     """(max_score, max_col, max_state) int32 [B] of the wavefront fill, one
     step of torch ops per diagonal over [B, R+1] rows: fillLimitedX with
     prune (each cell held to its limit, a dead cell at subfloor), else
-    fillUnlimited. All tensors on one device; limits int32."""
+    fillUnlimited. With traceback, also the uint8 prevState planes [R+Cc-1,
+    B, R+1] (diagonal d at d-2), each byte from the picks before the
+    gates, as the JAX package's `msa_fill(traceback=True)` writes them.
+    All tensors on one device; limits int32."""
     from .msa_fill import NEG_BIG, REF_PAD, _del_ext_cost, _ins_array_cost, \
         _shift_row, _sub_array_cost
 
@@ -277,6 +282,8 @@ def _fill_scores(reads, read_lens, refs, ref_lens, vert, horiz, floor, subfloor,
     p2 = (s0, zero, s0, zero, s0, zero)
     best_s = [torch.full((B,), NEG_BIG, dtype=i32, device=dev) for _ in range(3)]
     best_c = [torch.full((B,), -1, dtype=i32, device=dev) for _ in range(3)]
+    planes = (torch.empty((R + Cc - 1, B, W), dtype=torch.uint8, device=dev)
+              if traceback else None)
     for d in range(2, R + Cc + 1):
         c = d - rr
         lo = n - 1 - (d + R + 1)
@@ -337,6 +344,10 @@ def _fill_scores(reads, read_lens, refs, ref_lens, vert, horiz, floor, subfloor,
         i_pick = i_sMS >= i_sI
         ins_score = torch.where(i_pick, i_sMS, i_sI)
         ins_time = torch.where(i_pick, 1, i_streak + 1)
+        if traceback:
+            ms_prev = torch.where(pick_ms, 0, torch.where(pick_d, 1, 2))
+            planes[d - 2] = (ms_prev + torch.where(d_pick, 0, 4)
+                             + torch.where(i_pick, 0, 32)).to(torch.uint8)
         # --- gates and pruning ---
         ins_barrier = (ins_lo & (c > 1)) | (ins_hi & (c < cols - 1))
         if prune:
@@ -402,23 +413,27 @@ def _fill_scores(reads, read_lens, refs, ref_lens, vert, horiz, floor, subfloor,
         bs = torch.where(take, best_s[st], bs)
         bc = torch.where(take, best_c[st], bc)
         bst = torch.where(take, st, bst).to(i32)
-    return bs, bc, bst
+    return bs, bc, bst, planes
 
 
-def msa_fill_batch(reads, read_lens, refs, ref_lens, min_score, prune=True,
-                   device="cuda"):
-    """The score-only fill on `device` (cuda by default): the limits on
-    the host, then the wavefront over reads[:, :R'] (R' the longest read;
-    rows past it feed no final-row cell).
-
-    min_score: int array [B] (raw, before MIN_SCORE_ADJUST) for prune mode.
-    Per-task dispatch to unlimited happens on the host (reference :137).
-    Returns (max_score, max_col, max_state) int32 numpy arrays; tasks where
-    prune mode found nothing get max_score < min_score (caller filters).
-    """
+def msa_fill_tb(reads, read_lens, refs, ref_lens, min_score, prune=True, device="cuda"):
+    """The fill with traceback planes on `device` (cuda by default), all
+    tasks in one call: (max_score, max_col, max_state, planes) tensors on
+    the device, planes uint8 [R'+Cc-1, B, R'+1] over reads[:, :R'] (R' the
+    longest read). With prune, fillLimitedX with traceback: on every live
+    cell (0 <= r <= len, 0 <= c <= Cc; `ops.msa_fill.live_cells`) equal to
+    bbtools_tpu/ops/msa.py `msa_fill(R, Cc, True, True, ...)`. The planes
+    take (R'+Cc-1)(R'+1) bytes a task: a caller past
+    `ops.msa_fill.plane_budget` groups its tasks, as `msa_fill_batch`
+    does."""
     dev = resolve_device(str(device))
-    if dev.type == "cuda":
-        msa_fill_batch.device_calls += 1
+    return _fill_scores(*_fill_inputs(reads, read_lens, refs, ref_lens, min_score, prune, dev),
+                        prune, traceback=True)
+
+
+def _fill_inputs(reads, read_lens, refs, ref_lens, min_score, prune, dev):
+    """The host limits and the tensors of one fill call on `dev`: reads
+    trimmed to R' rows, limits int32."""
     reads = np.asarray(reads, np.uint8)
     refs = np.asarray(refs, np.uint8)
     read_lens = np.asarray(read_lens)
@@ -437,10 +452,50 @@ def msa_fill_batch(reads, read_lens, refs, ref_lens, min_score, prune=True,
     def t(x, dtype=np.int32):
         return torch.as_tensor(np.ascontiguousarray(x, dtype), device=dev)
 
-    out = _fill_scores(
-        t(reads[:, :Rp], np.uint8), t(read_lens), t(refs, np.uint8), t(ref_lens),
-        t(vert[:, : Rp + 1]), t(horiz), t(floor), t(subfloor), prune)
-    return tuple(x.cpu().numpy() for x in out)
+    return (t(reads[:, :Rp], np.uint8), t(read_lens), t(refs, np.uint8), t(ref_lens),
+            t(vert[:, : Rp + 1]), t(horiz), t(floor), t(subfloor))
+
+
+def msa_fill_batch(reads, read_lens, refs, ref_lens, min_score, prune=True,
+                   device="cuda", traceback=False):
+    """The fill on `device` (cuda by default): the limits on the host,
+    then the wavefront over reads[:, :R'] (R' the longest read; rows past
+    it feed no final-row cell).
+
+    min_score: int array [B] (raw, before MIN_SCORE_ADJUST) for prune mode.
+    Per-task dispatch to unlimited happens on the host (reference :137).
+    Returns (max_score, max_col, max_state) int32 numpy arrays; tasks where
+    prune mode found nothing get max_score < min_score (caller filters).
+    With traceback, also the walk over the fill's planes (`msa_fill_tb`,
+    then `msa_walk`): (..., ops uint8 [B, R'+Cc], steps int32 [B]), the
+    tasks filled and walked in the groups of `ops.msa_fill.fill_groups`
+    under `plane_budget`, which change no output.
+    """
+    dev = resolve_device(str(device))
+    if dev.type == "cuda":
+        msa_fill_batch.device_calls += 1
+    if not traceback:
+        out = _fill_scores(*_fill_inputs(reads, read_lens, refs, ref_lens, min_score, prune,
+                                         dev), prune)[:3]
+        return tuple(x.cpu().numpy() for x in out)
+    from .msa_fill import fill_groups, plane_budget, task_bytes, trimmed_rows
+
+    reads, read_lens, refs, ref_lens, min_score = (
+        np.asarray(x) for x in (reads, read_lens, refs, ref_lens, min_score))
+    B, Cc = len(reads), refs.shape[1]
+    Rp = trimmed_rows(reads, read_lens)
+    parts = []
+    groups = fill_groups(B, Rp, Cc, plane_budget(dev, B * task_bytes(Rp, Cc)))
+    for g in groups or [slice(0, 0)]:
+        bs, bc, bst, planes = msa_fill_tb(reads[g], read_lens[g], refs[g], ref_lens[g],
+                                          min_score[g], prune=prune, device=dev)
+        ops, steps = msa_walk(planes.shape[2] - 1, Cc, planes,
+                              torch.as_tensor(read_lens[g], device=dev), bc, bst)
+        del planes
+        # one width across the groups: a walk's row reads 0 past its end
+        ops = F.pad(ops, (0, Rp + Cc - ops.shape[1]))
+        parts.append([x.cpu().numpy() for x in (bs, bc, bst, ops, steps)])
+    return tuple(np.concatenate(x) for x in zip(*parts))
 
 
 #: calls on CUDA since the count was last set to 0

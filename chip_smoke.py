@@ -216,7 +216,21 @@ From the root of a checkout, on a machine with a CUDA card:
      windows of the BBMap row's first 256 reads (its device=cpu half in
      a process of its own); postfilter on a head (10
      genome contigs, the planted ones, the reads that fall in them) and
-     reassemble against device=cpu, byte for byte.
+     reassemble against device=cpu, byte for byte;
+ 17. the surface phase: BBDuk config #1's and the one-adapter
+     flags over the first 20,000 of config #1's reads, each without and
+     with `profile=<dir>` (the files equal; the trace's kernel events of
+     B2, and of B1, equal to those kernels' launch counts in the run; a
+     trace with no device event fails; each wall and the trace's size
+     printed); `ops.seed_cluster.seed_candidates` on the card over the
+     BBMap row's first 4,096-read batch (all nine outputs equal to the
+     host `candidates_for_batch`; both timed); `SortedKmerIndex` and
+     `HashKmerIndex` over config #1's 217,135 keys, their card lookups of
+     one batch's 4,194,304 canonical keys equal to `lookup_np` (ms a
+     call); the pruned fill with planes and its walk
+     (`msa_fill_batch(prune=True, traceback=True)`) over 16's windows,
+     its device=cpu half in a process of its own (scores, columns,
+     states, walk ops and steps equal).
 
 Its last line is {"ok": true, "device": {...}}; any failed phase raises
 and the script exits non-zero. Without CUDA, or outside a checkout, it
@@ -5006,7 +5020,8 @@ def g4_phases(g4: dict, ctx: dict, work: str, card: str, phase_s: dict) -> dict:
                                 stdout=log, stderr=subprocess.STDOUT)
     SIDE_PROCS.append(proc)
     phase_s["pruned fill"] = time.perf_counter() - t0
-    return {"fill": (proc, got, io_paths[1], os.path.join(work, "g4_fill.log"))}
+    return {"fill": (proc, got, io_paths[1], os.path.join(work, "g4_fill.log")),
+            "fill_inputs": inputs}
 
 
 #: the pruned fill's CPU half: argv[1] the inputs (.npz), argv[2] where
@@ -5041,6 +5056,235 @@ def g4_fill_check(pending: dict):
         raise AssertionError("msa_fill_batch: cuda and cpu differ")
     print(f"msa_fill_batch prune=True: cuda == cpu on every task (score, column, "
           f"state; cpu {secs:.2f} s in a process of its own, one thread)")
+
+
+#: reads of config #1 that the surface phase's profiled BBDuk runs take
+SURF_READS = 20_000
+#: each profiled kernel's launch counter and the names its kernels carry
+#: in a trace (csrc/*.cu)
+TRACED = {"cummax_i64": ("cummax_one_pass_kernel",),
+          "lane_lookup": ("lane_lookup_shared_kernel", "lane_lookup_l2_kernel")}
+
+
+def surface_phase(fq: str, kern_fq: str, ctx: dict, g4_pending: dict, work: str, card: str,
+                  phase_s: dict) -> dict:
+    """The port's last surface on the card: BBDuk under profile=,
+    the device seed-and-cluster, the sorted and hash k-mer indexes and
+    the pruned fill with planes; its device=cpu half in a process of its
+    own, for surface_fill_check. Returns what surface_fill_check takes."""
+    import torch
+
+    from bbtools_torch.io.fastq import FastqReader
+    from bbtools_torch.models.bbduk import build_index, parse_args
+    from bbtools_torch.models.bbmap import BBMap
+    from bbtools_torch.models.bbmap import parse_args as bbmap_args
+    from bbtools_torch.ops import kmer_index, msa
+    from bbtools_torch.ops.bbduk_scan import KScanConfig, canonical_keys
+    from bbtools_torch.ops.kmers import rolling_kmers
+    from bbtools_torch.ops.seed_cluster import seed_candidates
+    from bbtools_torch.utils.timer import device_events, device_profile, kernel_table, trace_path
+
+    t_phase = time.perf_counter()
+    # ---- BBDuk without and with profile= (B2 on config #1, B1 on the
+    # one-adapter panel) ----
+    t0 = time.perf_counter()
+    head = os.path.join(work, "surface_head.fq.gz")
+    head_fastq(fq, head, SURF_READS)
+    # the profiler's start-up (CUPTI's, once a process) apart from the
+    # runs: a trace of one small op
+    t1 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        with device_profile(os.path.join(work, "surface_prof_start"), "cuda"):
+            torch.ones(1, device="cuda").sum().item()
+    start_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        with device_profile(os.path.join(work, "surface_prof_start2"), "cuda"):
+            torch.ones(1, device="cuda").sum().item()
+    print(f"torch.profiler with CUDA activities: the first trace of one op {start_s:.2f} s "
+          f"(its start-up, once a process), a second {time.perf_counter() - t1:.2f} s on {card}")
+    for name in CONFIGS:
+        prof = os.path.join(work, f"surface_prof_{name}")
+        walls, files = {}, {}
+        for tag, extra in (("plain", []), ("profiled", [f"profile={prof}"])):
+            (out, stats, dt, log), got = run_path(
+                f"bbduk {name} {tag}",
+                lambda: run_bbduk(f"surface_{name}_{tag}", CONFIGS[name] + extra, head, work,
+                                  "cuda"), (), {})
+            walls[tag] = dt
+            files[tag] = read_all([out, stats])
+        if files["plain"] != files["profiled"]:
+            raise AssertionError(f"bbduk {name}: profile= changed the output files")
+        if f"Device profile written to {prof}" not in log:
+            raise AssertionError(f"bbduk {name}: no profile line on stderr")
+        trace = trace_path(prof)
+        events = device_events(trace)
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        counted = {k: sum(any(n in e.get("name", "") for n in names) for e in kernels)
+                   for k, names in TRACED.items()}
+        print(f"bbduk {name} profile= device=cuda: {SURF_READS} reads, wall {walls['plain']:.2f} "
+              f"s without the profiler, {walls['profiled']:.2f} s with it "
+              f"({walls['profiled'] / walls['plain']:.2f}x), trace {os.path.getsize(trace)} "
+              f"bytes, {len(events)} device events ({len(kernels)} kernels); kernel events "
+              f"{counted}, launch counts { {k: got[k] for k in TRACED} } on {card}")
+        top = kernel_table(trace)[:5]
+        print(f"bbduk {name} profile=: the trace's kernel table, the most device time "
+              f"first: " + "; ".join(f"{n[:60]} x{c} {us / 1e3:.3f} ms" for n, c, us in top))
+        if not kernels:
+            raise AssertionError(f"bbduk {name}: the trace holds no kernel event")
+        need = "cummax_i64" if name == "adapters_fa" else "lane_lookup"
+        if got[need] <= 0 or any(counted[k] != got[k] for k in TRACED):
+            raise AssertionError(f"bbduk {name}: trace kernels {counted}, launches {got}")
+    phase_s["surface: bbduk profile="] = time.perf_counter() - t0
+
+    # ---- the device seed-and-cluster on one 4,096-read BBMap batch ----
+    t0 = time.perf_counter()
+    ref_fa = ctx["ref_fa"]
+    tool = BBMap(bbmap_args([f"ref={ref_fa}", f"in={ctx['map_batch']}", "device=cuda"]),
+                 index=WINDOW_INDEX.get(ref_fa))
+    WINDOW_INDEX[ref_fa] = tool.index
+    batch = list(tool._read_batches(ctx["map_batch"]))[0]
+    lengths = batch.lengths.astype(np.int64)
+    B = batch.bases.shape[0]
+    t1 = time.perf_counter()
+    host = tool.candidates_for_batch(batch.bases, lengths)
+    host_s = time.perf_counter() - t1
+    keys, vmask, offs, K = tool._seed_slots(batch.bases, lengths)
+    cfg = tool.cfg
+    bridge = min(cfg.max_indel, cfg.window_extras[-1] - 2 * cfg.pad)
+    t_cap = 1 << max(14, (4 * B * K).bit_length())
+    static = (B, K, t_cap, 2 * B * cfg.max_sites, cfg.max_sites, int(bridge))
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        keys[0].astype(np.int32), keys[1].astype(np.int32), vmask[0], vmask[1], offs,
+        tool.index.starts.astype(np.int32), tool.index.sites.astype(np.int32))]
+    got = [x.cpu().numpy() for x in seed_candidates(*args, *static)]
+    dev_ms = cuda_ms(lambda: seed_candidates(*args, *static), 5)
+    n = int(got[6])
+    equal = (bool(got[7]) and n == len(host[0])
+             and all(np.array_equal(h.astype(np.int64), g[:n].astype(np.int64))
+                     for h, g in zip(host[:6], got[:6]))
+             and np.array_equal(host[6].astype(np.int64), got[8].astype(np.int64)))
+    print(f"seed_candidates device=cuda: {B} reads, K={K}, t_cap={t_cap}, {n} candidates of "
+          f"{int(got[8].sum())} clusters; {dev_ms:.3f} ms a call (CUDA events, the index "
+          f"on the card) against the host candidates_for_batch's {host_s * 1e3:.1f} ms on "
+          f"{card}; the nine outputs equal the host's: {equal}")
+    if not equal:
+        raise AssertionError("seed_candidates: cuda differs from the host candidates_for_batch")
+    del args
+    phase_s["surface: seed_candidates"] = time.perf_counter() - t0
+
+    # ---- the sorted and hash indexes over config #1's keys ----
+    t0 = time.perf_counter()
+    bcfg = parse_args(CONFIGS["adapters_fa"])
+    _, _, _, rkeys, rids = build_index(bcfg, return_keys=True)
+    rids = rids.astype(np.int32)
+    qbatch = list(FastqReader(kern_fq, batch_reads=BATCH))[0]
+    fwd, rkm, _ = rolling_kmers(torch.from_numpy(qbatch.bases).to(dev), bcfg.k)
+    mid = bcfg.mid_mask_bits if bcfg.mask_middle else -1
+    q = canonical_keys(KScanConfig(k=bcfg.k, mid_mask=mid), fwd, rkm, bcfg.k)
+    q_host = q.cpu().numpy()
+    t1 = time.perf_counter()
+    hidx = kmer_index.HashKmerIndex.build(rkeys, rids)
+    build_s = time.perf_counter() - t1
+    for label, idx, lookup in (
+            ("SortedKmerIndex", kmer_index.SortedKmerIndex(rkeys, rids),
+             kmer_index.SortedKmerIndex.lookup),
+            ("HashKmerIndex", hidx, lambda *a: kmer_index.HashKmerIndex.lookup(
+                *a[:3], hidx.cap, hidx.max_probe, a[3]))):
+        tables = idx.device_arrays(dev)
+        ids = lookup(*tables, q).cpu().numpy()
+        want = idx.lookup_np(q_host)
+        ms = cuda_ms(lambda: lookup(*tables, q), 10)
+        extra = (f", cap {hidx.cap}, max probe {hidx.max_probe}, built in {build_s:.2f} s"
+                 if idx is hidx else "")
+        print(f"{label} device=cuda: {len(rkeys)} keys{extra}; {q.numel()} queries "
+              f"{tuple(q.shape)} in {ms:.3f} ms a call ({q.numel() / ms / 1e6:.2f} G "
+              f"lookups/s) on {card}; {(ids > 0).sum()} hits; equal to lookup_np: "
+              f"{np.array_equal(ids, want)}")
+        if not np.array_equal(ids, want) or not (want > 0).any():
+            raise AssertionError(f"{label}: cuda lookups differ from lookup_np")
+    phase_s["surface: indexes"] = time.perf_counter() - t0
+
+    # ---- the pruned fill with planes and its walk, over 16's windows ----
+    t0 = time.perf_counter()
+    inputs = g4_pending["fill_inputs"]
+    before = msa.msa_fill_batch.device_calls
+    walk, walk_s = msa.msa_walk, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = walk(*a)
+        torch.cuda.synchronize()
+        walk_s.append(time.perf_counter() - t2)
+        return out
+
+    msa.msa_walk = timed
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = msa.msa_fill_batch(*inputs, prune=True, device="cuda", traceback=True)
+        secs = time.perf_counter() - t1
+    finally:
+        msa.msa_walk = walk
+    calls = msa.msa_fill_batch.device_calls - before
+    reads, lens, refs = inputs[:3]
+    print(f"msa_fill_batch prune=True traceback=True device=cuda: {len(lens)} tasks, "
+          f"{int(lens.max()) + refs.shape[1] - 1} diagonal steps and the walk in "
+          f"{secs:.2f} s (the walk {sum(walk_s):.2f} s of it, {len(walk_s)} group; {calls} call "
+          f"on the card, planes of "
+          f"{(int(lens.max()) + refs.shape[1] - 1) * (int(lens.max()) + 1) * len(lens)} "
+          f"bytes) on {card}; {int((got[4] > 0).sum())} tasks walked, "
+          f"{int(got[4].sum())} walk steps")
+    if calls != 1 or not (got[4] > 0).any():
+        raise AssertionError(f"msa_fill_batch traceback=True: {calls} calls on the card")
+    io_paths = [os.path.join(work, f"surface_fill.{x}") for x in ("in.npz", "cpu.npz", "log")]
+    np.savez(io_paths[0], **dict(zip(("reads", "lens", "refs", "cols", "mins"), inputs)))
+    with open(io_paths[2], "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-c", SURFACE_FILL_WORKER, *io_paths[:2]],
+                                cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE,
+                                                   OMP_NUM_THREADS="1"),
+                                stdout=log, stderr=subprocess.STDOUT)
+    SIDE_PROCS.append(proc)
+    phase_s["surface: pruned fill with planes"] = time.perf_counter() - t0
+    phase_s["surface"] = time.perf_counter() - t_phase
+    print(f"surface phase: {phase_s['surface']:.1f} s on {card}")
+    return {"fill": (proc, got, io_paths[1], io_paths[2])}
+
+
+#: the pruned fill with planes' CPU half: argv[1] the inputs (.npz),
+#: argv[2] where its outputs and seconds go
+SURFACE_FILL_WORKER = r"""
+import sys, time
+import numpy as np
+from bbtools_torch.ops.msa import msa_fill_batch
+
+with np.load(sys.argv[1]) as z:
+    args = [z[k] for k in ("reads", "lens", "refs", "cols", "mins")]
+t0 = time.perf_counter()
+out = msa_fill_batch(*args, prune=True, device="cpu", traceback=True)
+np.savez(sys.argv[2], *out, s=time.perf_counter() - t0)
+"""
+
+
+def surface_fill_check(pending: dict):
+    """The pruned fill with planes' CPU half (started by surface_phase)
+    against its CUDA half: score, column, state, walk ops and steps of
+    every task equal."""
+    proc, got, out, log = pending["fill"]
+    if proc.wait():
+        with open(log, errors="replace") as fh:
+            print(fh.read()[-3000:])
+        raise AssertionError(f"the CPU half of the fill with planes failed (rc {proc.returncode})")
+    with np.load(out) as z:
+        cpu = [z[f"arr_{i}"] for i in range(5)]
+        secs = float(z["s"])
+    if not all(np.array_equal(a, b) for a, b in zip(got, cpu)):
+        raise AssertionError("msa_fill_batch traceback=True: cuda and cpu differ")
+    print(f"msa_fill_batch prune=True traceback=True: cuda == cpu on every task (score, "
+          f"column, state, walk ops and steps; cpu {secs:.2f} s in a process of its own, "
+          f"one thread)")
 
 
 def read_all(paths) -> list[bytes]:
@@ -5393,6 +5637,7 @@ def main(argv=None) -> int:
                                 kern_fq, work, card, phase_s, launches))
         a8b_phases(a8b, work, card, phase_s, launches)
         g4_pending = g4_phases(g4, ctx, work, card, phase_s)
+        surface_pending = surface_phase(fq, kern_fq, ctx, g4_pending, work, card, phase_s)
         early.close()
         # the CUDA halves of the checks, and the CPU halves that need the
         # trained net, in processes once the last rate is taken
@@ -5460,6 +5705,7 @@ def main(argv=None) -> int:
         a8b_checks(a8b, a8b_check_runs(a8b, work), cpu_side, phase_s)
         file_checks("a8b group 4", g4_check_runs(g4, work), cpu_side, phase_s)
         g4_fill_check(g4_pending)
+        surface_fill_check(surface_pending)
         loglog_check(asm)
     finally:
         build_thread.join()

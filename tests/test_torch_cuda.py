@@ -2109,3 +2109,113 @@ def test_bbmap_on_a_virtual_mesh_equals_cpu(cuda, tmp_path):
 
     assert body("mesh.sam") == body("cpu.sam") == body("one.sam")
     assert len(body("mesh.sam")) > 512
+
+
+def test_seed_candidates_on_the_card_equal_the_cpu_and_the_host(cuda, tmp_path):
+    """ops/seed_cluster.seed_candidates on the card: its nine outputs equal
+    the same function's on the CPU, and the host candidates_for_batch."""
+    from bbtools_torch.io.fasta import load_reference, write_fasta
+    from bbtools_torch.models.bbmap import BBMap, BBMapConfig
+    from bbtools_torch.models.bbmap_index import SeedIndex
+    from bbtools_torch.ops.seed_cluster import seed_candidates
+    from bbtools_torch.utils.synth import random_genome, random_reads, write_reads
+
+    write_fasta(str(tmp_path / "ref.fa"), random_genome(300_000, n_scaffolds=2, seed=14))
+    ref = load_reference(str(tmp_path / "ref.fa"))
+    write_reads(str(tmp_path / "r.fq"), random_reads(
+        ref, 256, read_len=151, snp_rate=0.01, indel_rate=0.1, indel_range=(1, 10), seed=6))
+    tool = BBMap(BBMapConfig(device="cuda"), index=SeedIndex.build(ref, k=13))
+    batch = list(tool._read_batches(str(tmp_path / "r.fq")))[0]
+    lengths = batch.lengths.astype(np.int64)
+    keys, vmask, offs, K = tool._seed_slots(batch.bases, lengths)
+    B, cfg = batch.bases.shape[0], tool.cfg
+    static = (B, K, 1 << max(14, (4 * B * K).bit_length()), 2 * B * cfg.max_sites,
+              cfg.max_sites, int(min(cfg.max_indel, cfg.window_extras[-1] - 2 * cfg.pad)))
+    arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        keys[0].astype(np.int32), keys[1].astype(np.int32), vmask[0], vmask[1], offs,
+        tool.index.starts.astype(np.int32), tool.index.sites.astype(np.int32))]
+    got = seed_candidates(*(a.to(cuda) for a in arrays), *static)
+    want = seed_candidates(*arrays, *static)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    host = tool.candidates_for_batch(batch.bases, lengths)
+    n = int(got[6])
+    assert bool(got[7]) and n == len(host[0])
+    for h, g in zip(host[:6], got[:6]):
+        np.testing.assert_array_equal(h.astype(np.int64), g[:n].cpu().numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("structure", ["sorted", "hash"])
+def test_kmer_index_lookups_on_the_card_equal_lookup_np(cuda, structure):
+    """SortedKmerIndex and HashKmerIndex on the card: ids equal to
+    lookup_np, low lanes of 2^31 and more included."""
+    from bbtools_torch.ops import kmer_index
+
+    rng = np.random.default_rng(4)
+    keys = np.unique(rng.integers(0, 1 << 62, 50_000, dtype=np.int64))
+    ids = rng.integers(1, 60_000, len(keys)).astype(np.int32)
+    q = np.concatenate([keys[::3], rng.integers(0, 1 << 62, 100_000, dtype=np.int64)])
+    if structure == "sorted":
+        idx = kmer_index.SortedKmerIndex(keys, ids)
+        got = kmer_index.SortedKmerIndex.lookup(*idx.device_arrays(cuda),
+                                                torch.from_numpy(q).to(cuda))
+    else:
+        idx = kmer_index.HashKmerIndex.build(keys, ids)
+        got = kmer_index.HashKmerIndex.lookup(*idx.device_arrays(cuda), idx.cap, idx.max_probe,
+                                              torch.from_numpy(q).to(cuda))
+    want = idx.lookup_np(q)
+    assert (want > 0).sum() == len(keys[::3])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_pruned_fill_with_planes_on_the_card_equals_the_cpu(cuda):
+    """msa_fill_batch(prune=True, traceback=True) on the card: scores,
+    columns, states, walk ops and steps of the CPU run."""
+    from bbtools_torch.ops import msa
+    from bbtools_torch.ops import msa_constants as C
+
+    rng = np.random.default_rng(9)
+    S, R, Cc = 96, 60, 120
+    refs = rng.integers(0, 4, (S, Cc)).astype(np.uint8)
+    lens = rng.integers(30, R + 1, S).astype(np.int32)
+    reads = np.full((S, R), 4, np.uint8)
+    for i in range(S):
+        src = refs[i, 20 : 20 + lens[i]].copy()
+        m = rng.random(lens[i]) < 0.05 * (i % 4)
+        src[m] = (src[m] + 1) % 4
+        reads[i, : lens[i]] = src
+    cols = np.full(S, Cc, np.int32)
+    mins = (0.7 * (C.POINTS_MATCH + (lens.astype(np.int64) - 1) * C.POINTS_MATCH2)).astype(np.int64)
+    args = (reads, lens, refs, cols, mins)
+    got = msa.msa_fill_batch(*args, prune=True, device=cuda, traceback=True)
+    want = msa.msa_fill_batch(*args, prune=True, device="cpu", traceback=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert (got[4] > 0).any() and (got[0] < mins - C.MIN_SCORE_ADJUST).any()
+
+
+def test_bbduk_profile_traces_the_kernels(cuda, tmp_path, monkeypatch):
+    """bbduk profile= on the card: the trace's B1 kernel events equal
+    lane_lookup's launches, and the files equal a run without it."""
+    from bbtools_torch.cli import main
+    from bbtools_torch.utils.timer import device_events, trace_path
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(2)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    adapter = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+    with open("in.fq", "wb") as fh:
+        for i in range(3000):
+            s = acgt[rng.integers(0, 4, 100)].copy()
+            if i % 3 == 0:
+                s[67:] = np.frombuffer(adapter, np.uint8)
+            fh.write(b"@r%d\n%s\n+\n%s\n" % (i, s.tobytes(), b"I" * 100))
+    flags = [f"literal={adapter.decode()}", "k=23", "mink=11", "hdist=1", "ktrim=r",
+             "minlen=40", "device=cuda"]
+    main(["bbduk", "in=in.fq", "out=plain.fq", *flags])
+    lane_index.lane_lookup.launches = 0
+    main(["bbduk", "in=in.fq", "out=prof.fq", "profile=prof", *flags])
+    events = [e for e in device_events(trace_path("prof")) if e["cat"] == "kernel"]
+    traced = sum("lane_lookup_" in e["name"] for e in events)
+    assert traced == lane_index.lane_lookup.launches > 0
+    assert open("plain.fq", "rb").read() == open("prof.fq", "rb").read()
