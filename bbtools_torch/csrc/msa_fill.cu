@@ -42,23 +42,75 @@
 // is R+1 contiguous bytes, so a slice's 32 live bytes are one coalesced
 // store.
 //
-// What bounds it on Hopper: the SMs' instruction rate. Each computed cell costs some
-// eighty instructions (three candidate scores per state, selects,
-// barriers, clamps, five shuffles) and one plane byte; chip_smoke.py
-// counts the instructions of the diagonal loop in the built code. With
-// reads of 151 bases in a 280-column window, the slices cover ~50,000
-// cells of a task against 42,500 live ones; the block kernel below
-// computed 137,500 at R = 256.
+// What bounds the warp kernel on Hopper: the SMs' instruction rate. Each
+// computed cell costs some eighty instructions (three candidate scores
+// per state, selects, barriers, clamps, five shuffles) and one plane
+// byte; chip_smoke.py counts the instructions of the diagonal loop in the
+// built code. With reads of 151 bases in a 280-column window, the slices
+// cover ~50,000 cells of a task against 42,500 live ones.
 //
-// A task with more than 32 * MAX_WARP_SLICES rows does not fit the warp
-// kernel's registers; it goes to `msa_fill_block_kernel`, the first design:
-// one block per task, thread t owns rows t + k*T, one __syncthreads per
-// diagonal. The wrapper picks those tasks by length. A call with too few
-// tasks to give each scheduler of the card a few warps leaves the warp
-// kernel bound by one warp's chain of dependent instructions; there the
-// wrapper runs the block kernel over every task (variant 1), which
-// spreads a task's rows over several warps. Both choices are by shape,
-// and the wrapper counts them.
+// The band kernel, `msa_fill_band_kernel`, takes the tasks of more than
+// 32 * MAX_WARP_SLICES rows, and every task of a call too small to give
+// the warp kernel a few warps an SM whose tasks are too long for the
+// block kernel below (the wrapper's choices, by shape). A
+// task's live rows 0..min(len, R) are cut into bands of 32 * K rows,
+// and each band is one warp (one block of one warp) that runs the warp
+// kernel's diagonal loop over its band: the same fill_cell, the same
+// skipping of dead slices, the same plane-row stores and the same
+// final-row capture, in the band that owns row len. A band starting at
+// row r0 >= 2 starts at diagonal r0 with the warp kernel's seed values,
+// which are the boundary values its rows hold on diagonals r0-1 and
+// r0-2 (every column there is negative).
+//
+// The boundary record. Lane 0 of the band's first slice reads row r0-1,
+// the last row of the band above, from a buffer in global memory: one
+// 16-byte record a column c = 0..Cc (ms_s, del_s, ins_s, and ms_t |
+// ins_t << 16: both times are at most MAX_TIME), written by lane 31 of
+// the band above's last slice right after it computes (r0-1, c). The
+// buffer holds a band's whole column range, so a producer never waits
+// for its consumer. The consumer copies the records of up to 32 columns
+// at a time into shared memory and reads one a diagonal; the d-2 words
+// are the previous column's, kept in registers as in the warp kernel.
+//
+// Order and progress. Each warp draws a ticket from an atomic counter in
+// a scratch buffer that outlives the call (the counter in the low 32
+// bits, the call's epoch above it; the warp that draws the last ticket
+// resets the counter and advances the epoch). Tickets are handed out in
+// the order the warps start, and the wrapper's plan lays the bands of a
+// task on consecutive tickets (`band_start`), band b of a task on ticket
+// t waiting only on ticket t-1, band b-1. Ticket t-1 was drawn by a warp
+// that is running or done, and that warp waits only on one drawn before
+// it, down to the task's band 0, which waits on nothing: whatever the
+// residency, no band waits on a band that cannot run, so the kernel
+// cannot deadlock. Each band publishes its progress every G columns and
+// at its last column: lane 31 stores its records, then (epoch << 32 |
+// columns done) into the band's progress word with a release store. The
+// consumer's lane 0 polls that word with acquire loads until it covers
+// the column it needs, then __syncwarp, and the warp copies the records.
+// A word of an earlier call carries an older epoch and reads as no
+// progress, so the scratch is zeroed once when it is allocated, not
+// before each call. A task has ceil((min(len, R) + 1) / (32 K)) bands,
+// at least one (the one that writes its result): no band lies past its
+// task's length, so none stalls the order. Tickets past the plan's last
+// band exit at once.
+//
+// What bounds the band kernel on this card: at mapPacBio's widest class
+// (4 tasks, R = 6,000, Cc = 13,640) not the instruction rate but the
+// chain of R + Cc dependent diagonals. Its ~560 bands give a scheduler
+// about one warp, so a diagonal step costs the loop's couple of hundred
+// instructions at the latency of each, not at the issue rate, and each
+// band starts some G columns (and a release-acquire round trip through
+// the L2) after the band above. Small K gives more bands and warps to
+// hide that chain; large K fewer records, polls and loop overheads. The
+// wrapper picks K (`band_k` in ops/msa_fill.py) from a crossover
+// measured on the card.
+//
+// The fill's first design, `msa_fill_block_kernel` (one block per task,
+// thread t owns rows t + k*T, one __syncthreads per diagonal, every row
+// on every diagonal), keeps the small calls of short tasks: with one row
+// a thread, its barrier per diagonal costs less than the band kernel's
+// longer loop and its bands' start-up lag (ops/msa_fill.py
+// `few_task_route`, from chip_smoke.py's crossover).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,6 +148,11 @@ constexpr int XW = 5;  // words of one row's d-1 state in the block exchange
 constexpr int WARPS = 4;  // tasks per block of the warp kernel
 constexpr int MAX_WARP_SLICES = 8;  // rows a warp takes: 32 * 8
 constexpr int REF_LPAD = 32;  // sentinel bytes before a warp's window
+// the band kernel's scratch: the ticket counter in the low TICKET_BITS
+// bits of its first word, the call's epoch above them, then one progress
+// word a ticket
+constexpr int TICKET_BITS = 32;
+constexpr unsigned long long TICKET_MASK = (1ull << TICKET_BITS) - 1;
 
 __device__ __forceinline__ int sub_cost(int streak) {
   const int i = streak + 1;
@@ -231,7 +288,7 @@ msa_fill_warp_kernel(const uint8_t* __restrict__ reads,
   if (s >= S) return;
   const int len = lens[s];
   const int nrows = len < 0 ? 0 : min(len, R) + 1;  // live rows 0..nrows-1
-  if (nrows > 32 * K) return;  // the block kernel takes this task
+  if (nrows > 32 * K) return;  // the band kernel takes this task
   const int fin = (len >= 0 && len <= R) ? len : -1;
   // the window at sref[REF_LPAD + j], the sentinel around it: row r
   // reads column c-1 = d-r-1 >= -32 and <= Cc+30 in a live slice
@@ -317,13 +374,198 @@ msa_fill_warp_kernel(const uint8_t* __restrict__ reads,
     write_best(out_s, out_c, out_st, s, best_s, best_c);
 }
 
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// One band of 32 * K rows of one task, one warp a block. task_ids (null:
+// task i is i) names the n_tasks tasks of the call; band_start [n_tasks +
+// 1] their first tickets. n_draws warps draw tickets; sync holds the
+// ticket counter and a progress word a ticket, edges (Cc + 1) boundary
+// records a ticket.
+template <int K>
+__global__ void __launch_bounds__(32, K <= 3 ? 24 : (K <= 5 ? 16 : 12))
+msa_fill_band_kernel(const uint8_t* __restrict__ reads,
+                     const int32_t* __restrict__ lens,
+                     const uint8_t* __restrict__ refs,
+                     const int32_t* __restrict__ col0,
+                     const int32_t* __restrict__ task_ids,
+                     const int32_t* __restrict__ band_start, int n_tasks,
+                     unsigned long long n_draws, int G,
+                     unsigned long long* __restrict__ sync, int4* __restrict__ edges,
+                     int32_t* __restrict__ out_s, int32_t* __restrict__ out_c,
+                     int32_t* __restrict__ out_st, uint8_t* __restrict__ planes,
+                     int S, int R, int ldr, int Cc, int ref_stride) {
+  extern __shared__ int4 smem4[];
+  const int lane = threadIdx.x;
+  // the ticket; the warp that draws the last one starts the next epoch
+  unsigned long long h = 0;
+  if (lane == 0) {
+    h = atomicAdd(sync, 1ull);
+    if ((h & TICKET_MASK) == n_draws - 1)
+      atomicExch(sync, ((h >> TICKET_BITS) + 1) << TICKET_BITS);
+  }
+  h = __shfl_sync(FULL, h, 0);
+  const int t = (int)(h & TICKET_MASK);
+  const unsigned long long tag = (h >> TICKET_BITS) << 32;
+  if (t >= __ldg(band_start + n_tasks)) return;
+  // the task: the last i with band_start[i] <= t
+  int lo = 0, hi = n_tasks - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(band_start + mid) <= t) lo = mid; else hi = mid - 1;
+  }
+  const int64_t s = task_ids ? __ldg(task_ids + lo) : lo;
+  const int b = t - __ldg(band_start + lo);
+  const bool above = b > 0;
+  const bool below = t + 1 < __ldg(band_start + lo + 1);
+  unsigned long long* prog = sync + 1;
+  const int4* from = edges + (int64_t)(t - 1) * (Cc + 1);
+  int4* to = edges + (int64_t)t * (Cc + 1);
+
+  const int len = lens[s];
+  const int nrows = len < 0 ? 0 : min(len, R) + 1;  // live rows 0..nrows-1
+  const int fin = (len >= 0 && len <= R) ? len : -1;
+  const int r0 = b * 32 * K;
+  const int end = min(r0 + 32 * K, nrows);  // the band's rows r0..end-1
+  int4* stage = smem4;  // up to 32 records of row r0-1
+  uint8_t* sref = reinterpret_cast<uint8_t*>(smem4 + 32);
+  for (int i = lane; i < ref_stride; i += 32) {
+    const int j = i - REF_LPAD;
+    sref[i] = (j >= 0 && j < Cc) ? refs[s * Cc + j] : (uint8_t)REF_PAD;
+  }
+  __syncwarp();
+
+  const int W = R + 1;
+  const int subfloor = -2 * ((len - 1) * POINTS_MATCH2 + POINTS_MATCH);
+  const int c00 = __ldg(col0), c01 = __ldg(col0 + 1);
+  int call1[K], call0[K], ref_prev[K];
+  State cur[K];  // diagonal d-1 of row r
+  int q_ms_s[K], q_ms_t[K], q_del_s[K], q_ins_s[K];  // diagonal d-2 of row r-1
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    // rows r >= 2 hold the boundary on diagonals r0-1 and r0-2, where
+    // the band starts; band 0 starts at diagonal 2, as the warp kernel
+    const int r = r0 + lane + 32 * k;
+    const bool on = r <= R;
+    const uint8_t* rd = reads + s * ldr;
+    call1[k] = r == 0 ? 99 : (on ? rd[r - 1] : 0);
+    call0[k] = r < 2 ? 98 : (on ? rd[r - 2] : 0);
+    ref_prev[k] = r == 0 ? sref[REF_LPAD] : REF_PAD;
+    const int s1 = r == 1 ? c01 : (r == 0 ? 0 : NEG_BIG);
+    cur[k] = State{s1, 0, s1, 0, s1, 0};
+    const int s0 = r == 0 ? 0 : (r == 1 ? c00 : NEG_BIG);
+    q_ms_s[k] = q_del_s[k] = q_ins_s[k] = s0;
+    q_ms_t[k] = 0;
+  }
+  int best_s[3] = {NEG_BIG, NEG_BIG, NEG_BIG};
+  int best_c[3] = {-1, -1, -1};
+  const int src = (lane + 31) & 31;
+  int have = 0, base = 0;  // records base..have-1 are staged
+  int next_pub = G;        // columns done at the next progress store
+
+  const int d_last = end - 1 + Cc;
+  const int d_first = max(2, r0);
+  const int64_t plane_step = (int64_t)S * W;
+  uint8_t* prow = planes + ((int64_t)(d_first - 2) * S + s) * W;
+#pragma unroll 1
+  for (int d = d_first; d <= d_last; ++d, prow += plane_step) {
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+      const int a = r0 + 32 * k;
+      // with one slice, the loop's range is the slice's live interval
+      if (K > 1 && (a >= nrows || d < a || d > min(a + 31, nrows - 1) + Cc)) continue;
+      int p_ms_s, p_ms_t, p_del_s, p_ins_s, p_ins_t;
+      if (k == 0) {
+        p_ms_s = __shfl_up_sync(FULL, cur[0].ms_s, 1);
+        p_ms_t = __shfl_up_sync(FULL, cur[0].ms_t, 1);
+        p_del_s = __shfl_up_sync(FULL, cur[0].del_s, 1);
+        p_ins_s = __shfl_up_sync(FULL, cur[0].ins_s, 1);
+        p_ins_t = __shfl_up_sync(FULL, cur[0].ins_t, 1);
+        // lane 0: row r0-1 at column d - r0, the band above's record, or
+        // row -1 (zeros); past column Cc its cell is dead
+        int4 e = make_int4(0, 0, 0, 0);
+        const int c = d - r0;
+        if (above && c <= Cc) {
+          if (c >= have) {
+            int n = 0;
+            if (lane == 0) {
+              do {
+                const unsigned long long f = ld_acquire(prog + t - 1);
+                n = (f & ~TICKET_MASK) == tag ? (int)(f & TICKET_MASK) : 0;
+              } while (n <= c);
+            }
+            __syncwarp();
+            n = __shfl_sync(FULL, n, 0);
+            base = c;
+            have = min(n, c + 32);
+            if (c + lane < have) stage[lane] = __ldcg(from + c + lane);
+            __syncwarp();
+          }
+          e = stage[c - base];
+        }
+        if (lane == 0) {
+          p_ms_s = e.x;
+          p_del_s = e.y;
+          p_ins_s = e.z;
+          p_ms_t = e.w & 0xFFFF;
+          p_ins_t = e.w >> 16;
+        }
+      } else {
+        const State& lo_st = cur[k > 0 ? k - 1 : 0];
+        const State& me = cur[k];
+        const bool top = lane == 31;
+        p_ms_s = __shfl_sync(FULL, top ? lo_st.ms_s : me.ms_s, src);
+        p_ms_t = __shfl_sync(FULL, top ? lo_st.ms_t : me.ms_t, src);
+        p_del_s = __shfl_sync(FULL, top ? lo_st.del_s : me.del_s, src);
+        p_ins_s = __shfl_sync(FULL, top ? lo_st.ins_s : me.ins_s, src);
+        p_ins_t = __shfl_sync(FULL, top ? lo_st.ins_t : me.ins_t, src);
+      }
+      const int r = lane + a;
+      const int c = d - r;
+      const int ref1 = sref[REF_LPAD + c - 1];
+      const int c0 = (c == 0 && r <= R) ? __ldg(col0 + r) : 0;
+      const uint32_t byte = fill_cell(cur[k], r, c, len, Cc, subfloor, c0, call1[k],
+                                      call0[k], ref1, ref_prev[k], q_ms_s[k], q_ms_t[k],
+                                      q_del_s[k], q_ins_s[k], p_ms_s, p_ins_s, p_ins_t);
+      ref_prev[k] = ref1;
+      q_ms_s[k] = p_ms_s;
+      q_ms_t[k] = p_ms_t;
+      q_del_s[k] = p_del_s;
+      q_ins_s[k] = p_ins_s;
+      if (r < nrows && c >= 0 && c <= Cc) prow[r] = (uint8_t)byte;
+      if (r == fin && c >= 1 && c <= Cc) keep_best(cur[k], c, best_s, best_c);
+      // the last row's record for the band below (a band with one below
+      // is full: its last row is lane 31 of slice K-1)
+      if (k == K - 1 && below && d - (a + 31) >= 0 && d - (a + 31) <= Cc) {
+        const int cl = d - (a + 31);
+        const State& st = cur[K - 1];
+        if (lane == 31)
+          to[cl] = make_int4(st.ms_s, st.del_s, st.ins_s, st.ms_t | (st.ins_t << 16));
+        if (cl + 1 == next_pub || cl == Cc) {
+          if (lane == 31) st_release(prog + t, tag | (unsigned long long)(cl + 1));
+          next_pub += G;
+        }
+      }
+    }
+  }
+  const int owner = fin >= 0 ? fin / (32 * K) : 0;
+  if (b == owner && lane == (fin >= 0 ? fin & 31 : 0))
+    write_best(out_s, out_c, out_st, s, best_s, best_c);
+}
+
 template <int K>
 __global__ void __launch_bounds__(1024)
 msa_fill_block_kernel(const uint8_t* __restrict__ reads,
                       const int32_t* __restrict__ lens,
                       const uint8_t* __restrict__ refs,
                       const int32_t* __restrict__ col0,
-                      const int32_t* __restrict__ task_ids,
                       int32_t* __restrict__ out_s, int32_t* __restrict__ out_c,
                       int32_t* __restrict__ out_st, uint8_t* __restrict__ planes,
                       int S, int R, int ldr, int Cc) {
@@ -336,7 +578,7 @@ msa_fill_block_kernel(const uint8_t* __restrict__ reads,
   int* xchg = reinterpret_cast<int*>(smem4);  // [2][nwarps][K][XW]
   uint8_t* sread = reinterpret_cast<uint8_t*>(xchg + 2 * nwarps * K * XW);
   uint8_t* sref = sread + R;
-  const int64_t s = task_ids ? task_ids[blockIdx.x] : blockIdx.x;
+  const int64_t s = blockIdx.x;
   for (int i = tid; i < R; i += T) sread[i] = reads[s * ldr + i];
   for (int i = tid; i < Cc; i += T) sref[i] = refs[s * Cc + i];
   const int len = lens[s];
@@ -448,14 +690,37 @@ int launch_warp(const Args& a, cudaStream_t stream) {
 }
 
 template <int K>
-int launch_block(const Args& a, const int32_t* task_ids, int n_tasks, int T,
-                 cudaStream_t stream) {
+int launch_block(const Args& a, int T, cudaStream_t stream) {
   const size_t smem = (size_t)2 * (T / 32) * K * XW * sizeof(int) + a.R + a.Cc;
   const int e = set_smem((const void*)msa_fill_block_kernel<K>, smem);
   if (e) return e;
-  msa_fill_block_kernel<K><<<(unsigned)n_tasks, T, smem, stream>>>(
-      a.reads, a.lens, a.refs, a.col0, task_ids, a.out_s, a.out_c, a.out_st,
-      a.planes, a.S, a.R, a.ldr, a.Cc);
+  msa_fill_block_kernel<K><<<(unsigned)a.S, T, smem, stream>>>(
+      a.reads, a.lens, a.refs, a.col0, a.out_s, a.out_c, a.out_st, a.planes, a.S, a.R,
+      a.ldr, a.Cc);
+  return (int)cudaGetLastError();
+}
+
+// The band kernel's launch: one block of one warp a ticket.
+struct Band {
+  const int32_t* task_ids;
+  const int32_t* band_start;
+  int n_tasks;
+  int64_t n_tickets;
+  int G;
+  unsigned long long* sync;
+  int4* edges;
+};
+
+template <int K>
+int launch_band(const Args& a, const Band& b, cudaStream_t stream) {
+  const int ref_stride = (a.Cc + 2 * REF_LPAD + 15) / 16 * 16;
+  const size_t smem = 32 * sizeof(int4) + (size_t)ref_stride;
+  const int e = set_smem((const void*)msa_fill_band_kernel<K>, smem);
+  if (e) return e;
+  msa_fill_band_kernel<K><<<(unsigned)b.n_tickets, 32, smem, stream>>>(
+      a.reads, a.lens, a.refs, a.col0, b.task_ids, b.band_start, b.n_tasks,
+      (unsigned long long)b.n_tickets, b.G, b.sync, b.edges, a.out_s, a.out_c, a.out_st,
+      a.planes, a.S, a.R, a.ldr, a.Cc, ref_stride);
   return (int)cudaGetLastError();
 }
 
@@ -474,24 +739,29 @@ int run_warp(const Args& a, cudaStream_t stream) {
   }
 }
 
-// The block kernel over `task_ids` (all S tasks when null): K rows per
-// thread, the least power of two that fits R+1 rows into 1,024 threads.
-int run_block(const Args& a, const int32_t* task_ids, int n_tasks,
-              cudaStream_t stream) {
+// The block kernel over every task: K rows per thread, the least power
+// of two that fits R+1 rows into 1,024 threads.
+int run_block(const Args& a, cudaStream_t stream) {
   const int W = a.R + 1;
   int K = 1;
   while (K * 1024 < W) K *= 2;
   const int T = ((W + K - 1) / K + 31) / 32 * 32;
   switch (K) {
-    case 1: return launch_block<1>(a, task_ids, n_tasks, T, stream);
-    case 2: return launch_block<2>(a, task_ids, n_tasks, T, stream);
-    case 4: return launch_block<4>(a, task_ids, n_tasks, T, stream);
-    case 8: return launch_block<8>(a, task_ids, n_tasks, T, stream);
-    case 16: return launch_block<16>(a, task_ids, n_tasks, T, stream);
-    case 32: return launch_block<32>(a, task_ids, n_tasks, T, stream);
-    case 64: return launch_block<64>(a, task_ids, n_tasks, T, stream);
+    case 1: return launch_block<1>(a, T, stream);
+    case 2: return launch_block<2>(a, T, stream);
+    case 4: return launch_block<4>(a, T, stream);
+    case 8: return launch_block<8>(a, T, stream);
+    case 16: return launch_block<16>(a, T, stream);
+    case 32: return launch_block<32>(a, T, stream);
+    case 64: return launch_block<64>(a, T, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int check_args(int64_t S, int R, int ldr, int Cc) {
+  return (R < 1 || ldr < R || Cc < 1 || S > 0x7FFFFFFF || R + 1 > 65536)
+             ? (int)cudaErrorInvalidValue
+             : (int)cudaSuccess;
 }
 
 }  // namespace
@@ -500,24 +770,52 @@ int run_block(const Args& a, const int32_t* task_ids, int n_tasks,
 // first R; lens: int32 [S]; refs: uint8 [S, Cc]; col0: int32 [R+1]
 // column-0 penalties; out_s, out_c, out_st: int32 [S]; planes: uint8
 // [R+Cc-1, S, R+1]; R + 1 <= 65,536. variant 0: the warp kernel over
-// every task with at most 32 * MAX_WARP_SLICES live rows, and the block
-// kernel over `long_ids` (n_long tasks, those with more); variant 1 (for
-// measurement): the block kernel over every task. On `stream`. Returns
-// the cudaError_t of the launches.
+// every task with at most 32 * MAX_WARP_SLICES live rows (the rest are
+// left to msa_fill_band); variant 1: the block kernel over every
+// task. On `stream`. Returns the cudaError_t of the launch.
 extern "C" int msa_fill(const uint8_t* reads, const int32_t* lens,
                         const uint8_t* refs, const int32_t* col0, int32_t* out_s,
                         int32_t* out_c, int32_t* out_st, uint8_t* planes,
-                        int64_t S, int R, int ldr, int Cc, const int32_t* long_ids,
-                        int64_t n_long, int variant, cudaStream_t stream) {
+                        int64_t S, int R, int ldr, int Cc, int variant,
+                        cudaStream_t stream) {
   if (S <= 0) return (int)cudaSuccess;
-  if (R < 1 || ldr < R || Cc < 1 || S > 0x7FFFFFFF || R + 1 > 65536 || n_long < 0 ||
-      n_long > S)
+  const int e = check_args(S, R, ldr, Cc);
+  if (e) return e;
+  const Args a{reads, lens, refs, col0, out_s, out_c, out_st, planes,
+               (int)S, R, ldr, Cc};
+  if (variant == 0) return run_warp(a, stream);
+  if (variant == 1) return run_block(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The band kernel over the n_tasks tasks `task_ids` (null: tasks
+// 0..n_tasks-1) of the arrays msa_fill takes, K rows a lane (1, 2, 4 or
+// 8), a progress store every G columns. band_start: int32 [n_tasks + 1],
+// task i's bands on tickets band_start[i] .. band_start[i+1]-1;
+// n_tickets >= band_start[n_tasks] warps are launched. sync: uint64 [1 +
+// n_tickets], zeroed once when allocated and kept for the stream's later
+// calls; edges: int4 [n_tickets, Cc + 1], any contents.
+extern "C" int msa_fill_band(const uint8_t* reads, const int32_t* lens,
+                             const uint8_t* refs, const int32_t* col0,
+                             const int32_t* task_ids, const int32_t* band_start,
+                             int64_t n_tasks, int64_t n_tickets, int K, int G,
+                             void* sync, void* edges, int32_t* out_s, int32_t* out_c,
+                             int32_t* out_st, uint8_t* planes, int64_t S, int R,
+                             int ldr, int Cc, cudaStream_t stream) {
+  if (n_tasks <= 0) return (int)cudaSuccess;
+  const int e = check_args(S, R, ldr, Cc);
+  if (e) return e;
+  if (n_tasks > S || n_tickets < n_tasks || n_tickets > 0x7FFFFFFF || G < 1)
     return (int)cudaErrorInvalidValue;
   const Args a{reads, lens, refs, col0, out_s, out_c, out_st, planes,
                (int)S, R, ldr, Cc};
-  if (variant == 1) return run_block(a, nullptr, (int)S, stream);
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  const int e = run_warp(a, stream);
-  if (e || n_long == 0) return e;
-  return run_block(a, long_ids, (int)n_long, stream);
+  const Band b{task_ids, band_start, (int)n_tasks, n_tickets, G,
+               static_cast<unsigned long long*>(sync), static_cast<int4*>(edges)};
+  switch (K) {
+    case 1: return launch_band<1>(a, b, stream);
+    case 2: return launch_band<2>(a, b, stream);
+    case 4: return launch_band<4>(a, b, stream);
+    case 8: return launch_band<8>(a, b, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -65,9 +65,12 @@ SIGNATURES = {
     # the same, then variant, stream
     "mm_lookup_variant": (_P, _P, _I64, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # reads, lens, refs, col0, out_s, out_c, out_st, planes, S, R, ldr, Cc,
-    # long_ids, n_long, variant, stream
-    "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P, _I64, _I,
-                 _P),
+    # variant, stream
+    "msa_fill": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
+    # reads, lens, refs, col0, task_ids, band_start, n_tasks, n_tickets, K,
+    # G, sync, edges, out_s, out_c, out_st, planes, S, R, ldr, Cc, stream
+    "msa_fill_band": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P,
+                      _P, _I64, _I, _I, _I, _P),
 }
 
 #: entry points that return something else than a cudaError_t (int)

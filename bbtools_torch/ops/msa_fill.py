@@ -27,16 +27,17 @@ cells are unspecified.
 `msa_fill` is the wrapper: a CPU tensor runs `msa_fill_plain` (a torch
 wavefront over the diagonals), a CUDA tensor launches the kernels of
 csrc/msa_fill.cu (one warp per task where the call has enough tasks to
-fill the card, a task of more than WARP_MAX_ROWS rows going to the block
-kernel; otherwise the block kernel, one block per task), anything else
-raises. All
-arithmetic is int32 and exact, so both agree to the bit on every output
-and every live plane byte.
+fill the card, a task of more than WARP_MAX_ROWS rows going to the band
+kernel; otherwise the band kernel over every task, each task's rows cut
+into bands of 32 * K, a warp a band, `band_plan`), anything else raises.
+All arithmetic is int32 and exact, so both agree to the bit on every
+output and every live plane byte.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -48,11 +49,12 @@ from .msa import col0_scores, msa_walk
 NEG_BIG = -(1 << 30)
 #: the sentinel of the reference columns outside the window
 REF_PAD = 97
-#: the longest read the kernels take: rows a block kernel thread may own
-#: (its largest template) times its 1,024 threads, less row 0
+#: the longest read the kernels take: R' + 1 <= 65,536 rows (the C
+#: entries' check; the block kernel: its largest template, 64 rows a
+#: thread, times its 1,024 threads)
 MAX_READ = 64 * 1024 - 1
 #: the most rows a task may have for the warp kernel (32 lanes x 8
-#: slices); a task with more goes to the block kernel
+#: slices); a task with more goes to the band kernel
 WARP_MAX_ROWS = 256
 
 
@@ -293,32 +295,90 @@ def msa_fill(reads, read_lens, refs, rows: int | None = None):
     Rp = trimmed_rows(reads, read_lens) if rows is None else rows
     long_ids = _long_tasks(read_lens, Rp)
     n_warp = S - (0 if long_ids is None else long_ids.numel())
-    warp = n_warp >= WARP_MIN_TASKS_PER_SM * torch.cuda.get_device_properties(
-        reads.device).multi_processor_count
-    outs = _launch("msa_fill", reads, read_lens, refs, Rp,
-                   VARIANTS["warp" if warp else "block"], long_ids if warp else None)
+    sms = _sms(reads.device)
+    route = "warp" if n_warp >= WARP_MIN_TASKS_PER_SM * sms else few_task_route(Rp + 1, S, sms)
+    outs = _launch("msa_fill", reads, read_lens, refs, Rp, route,
+                   long_ids if route == "warp" else None)
     if S:
-        msa_fill.launches += warp
-        msa_fill.block_launches += not warp or long_ids is not None
+        msa_fill.launches += route == "warp"
+        msa_fill.band_launches += route == "band" or (route == "warp" and long_ids is not None)
+        msa_fill.block_launches += route == "block"
     return outs
 
 
 #: kernel launches since the counts were last set to 0: `launches` of the
-#: warp kernel, `block_launches` of the block kernel (for every task of a
-#: call that gives the warp kernel fewer than WARP_MIN_TASKS_PER_SM tasks
-#: an SM, or for the tasks of more than WARP_MAX_ROWS rows)
+#: warp kernel, `band_launches` of the band kernel (for the tasks of more
+#: than WARP_MAX_ROWS rows, or every task of a call that gives the warp
+#: kernel fewer than WARP_MIN_TASKS_PER_SM tasks an SM), `block_launches`
+#: of the block kernel (the few-task calls of `few_task_route`'s
+#: shapes)
 msa_fill.launches = 0
+msa_fill.band_launches = 0
 msa_fill.block_launches = 0
 
-#: the kernels of csrc/msa_fill.cu: one warp per task (with the block
-#: kernel for tasks of more than WARP_MAX_ROWS rows), and the block
-#: kernel over every task; both are also measurement variants
-VARIANTS = {"warp": 0, "block": 1}
 #: the warp kernel runs where it has at least this many tasks per SM;
 #: fewer warps than that leave it bound by one warp's chain of dependent
-#: instructions, and the block kernel, which spreads a task's rows over
-#: several warps, is faster (PERF.md: window classes 1-3)
+#: instructions, and the band and block kernels, which spread a task's
+#: rows over several warps, are faster (PERF.md: window classes 1-3)
 WARP_MIN_TASKS_PER_SM = 8
+#: the block kernel keeps a few-task call whose tasks have at most
+#: BLOCK_MAX_ROWS rows, or at most BLOCK_BUSY_ROWS (one row a thread)
+#: where the call has a task for every second SM: there the card's
+#: barrier per diagonal costs less than the band kernel's longer loop and
+#: its bands' start-up lag (chip_smoke.py `b4_crossover`, PERF.md)
+BLOCK_MAX_ROWS = 512
+BLOCK_BUSY_ROWS = 1024
+#: the band kernel's templates: rows a lane owns in a band of 32 * K
+BAND_K = (1, 2, 4, 8)
+#: one-warp blocks an SM holds at once (Hopper's limit of 32 blocks an
+#: SM, which the K = 1 kernel's 64 registers also allow)
+BAND_RESIDENT_WARPS_PER_SM = 32
+#: columns between two of a band's progress stores
+BAND_G = 16
+#: bytes of one boundary record of the band kernel (one column of a
+#: band's last row)
+EDGE_BYTES = 16
+
+
+def few_task_route(rows: int, n_tasks: int, sms: int) -> str:
+    """The kernel of a call too small for the warp kernel: n_tasks tasks
+    whose longest has `rows` live rows, on a card of `sms` SMs. "block"
+    (the block kernel, one block a task) for short tasks, and for tasks of
+    up to BLOCK_BUSY_ROWS where every second SM has one; "band" else."""
+    if rows <= BLOCK_MAX_ROWS or (rows <= BLOCK_BUSY_ROWS and 2 * n_tasks >= sms):
+        return "block"
+    return "band"
+
+
+def band_k(rows: int, n_tasks: int, sms: int) -> int:
+    """K for the band kernel over n_tasks tasks whose longest has `rows`
+    live rows, on a card of `sms` SMs: 1, the most bands, while one warp
+    a band of 32 rows fits what the card holds at once; 2 past that."""
+    if n_tasks * -(-rows // 32) <= BAND_RESIDENT_WARPS_PER_SM * sms:
+        return 1
+    return 2
+
+
+def band_plan(read_lens, rows: int, sms: int, k: int | None = None):
+    """The band kernel's plan for tasks of lengths read_lens (int [n], any
+    device) of at most rows - 1 bases (R' + 1 = rows): (K, int32 [n + 1]
+    on read_lens' device). K is `band_k`'s, or k; task i's bands of 32 *
+    K rows lie on tickets starts[i] .. starts[i+1]-1, band b over rows
+    32Kb .. min(32K(b+1), nrows) - 1 of its nrows = min(len, R') + 1 live
+    rows, at least one band a task (the one that writes its result)."""
+    K = band_k(rows, read_lens.numel(), sms) if k is None else k
+    if K not in BAND_K:
+        raise ValueError(f"band_plan: K={K} is not one of {BAND_K}")
+    nrows = (read_lens.to(torch.int64).clamp(max=rows - 1) + 1).clamp(min=0)
+    nb = ((nrows + 32 * K - 1) // (32 * K)).clamp(min=1)
+    return K, F.pad(nb.cumsum(0), (1, 0)).to(torch.int32)
+
+
+def band_edge_bytes(R: int, Cc: int) -> int:
+    """The most boundary bytes the band kernel takes for one task of up
+    to R bases in a window of Cc columns: a record a column, Cc + 1, for
+    each band at the smallest K."""
+    return -(-(R + 1) // (32 * BAND_K[0])) * (Cc + 1) * EDGE_BYTES
 
 
 #: the share of the card's free memory that one fill call's planes and
@@ -351,9 +411,10 @@ def plane_budget(device, need: int = 0) -> int:
 def task_bytes(R: int, Cc: int) -> int:
     """The most bytes one task of reads of up to R bases in a window of
     Cc columns takes in a fill call and the walk after it: its planes
-    [R+Cc-1, R+1], and three copies of its walk row of R+Cc steps (the
-    walk's output, its transpose and the padded row)."""
-    return (R + Cc - 1) * (R + 1) + 3 * (R + Cc)
+    [R+Cc-1, R+1], the band kernel's boundary records
+    (`band_edge_bytes`), and three copies of its walk row of R+Cc steps
+    (the walk's output, its transpose and the padded row)."""
+    return (R + Cc - 1) * (R + 1) + band_edge_bytes(R, Cc) + 3 * (R + Cc)
 
 
 def fill_groups(n: int, R: int, Cc: int, budget: int) -> list[slice]:
@@ -397,17 +458,22 @@ def fill_walk(reads: np.ndarray, read_lens: np.ndarray, refs: np.ndarray, device
     return out, len(groups)
 
 
-def msa_fill_variant(variant: str, reads, read_lens, refs, trim: bool = True):
-    """One of VARIANTS on CUDA tensors, for timing beside `msa_fill`;
-    with trim=False over all R rows, as the fill first ran. No path of
-    the port calls it, and it counts in no launch count."""
+def msa_fill_variant(variant: str, reads, read_lens, refs, trim: bool = True,
+                     k: int | None = None):
+    """One kernel route on CUDA tensors, for timing beside `msa_fill`:
+    "warp" the warp kernel (the band kernel over the tasks of more than
+    WARP_MAX_ROWS rows), "band" the band kernel over every task (K = k,
+    or `band_plan`'s), "block" the block kernel over every task; with
+    trim=False over all R rows, as the fill first ran. No path of the
+    port calls it, and it counts in no launch count."""
     if reads.device.type != "cuda":
         raise ValueError(f"msa_fill_variant: needs a CUDA tensor, not {reads.device}")
+    if variant not in ("warp", "band", "block"):
+        raise ValueError(f"msa_fill_variant: unknown variant {variant!r}")
     _check("msa_fill_variant", reads, read_lens, refs)
     Rp = trimmed_rows(reads, read_lens) if trim else reads.shape[1]
     long_ids = _long_tasks(read_lens, Rp) if variant == "warp" else None
-    return _launch("msa_fill_variant", reads, read_lens, refs, Rp, VARIANTS[variant],
-                   long_ids)
+    return _launch("msa_fill_variant", reads, read_lens, refs, Rp, variant, long_ids, k)
 
 
 def _check(name: str, reads, read_lens, refs):
@@ -429,6 +495,13 @@ def _check(name: str, reads, read_lens, refs):
         raise ValueError(f"{name}: reads of {R} bases exceed the kernel's {MAX_READ}")
 
 
+@functools.cache
+def _sms(device) -> int:
+    """The card's SMs, read once a device: the wrapper's routes depend
+    on it, and a call of a millisecond should not pay the query."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _long_tasks(read_lens, Rp: int):
     """int32 indices of the tasks of more than WARP_MAX_ROWS rows (of the
     Rp kept), or None. A pull from the device where Rp allows any."""
@@ -438,9 +511,27 @@ def _long_tasks(read_lens, Rp: int):
     return ids.to(torch.int32) if ids.numel() else None
 
 
-def _launch(name: str, reads, read_lens, refs, Rp: int, variant: int, long_ids):
-    """The fill over Rp rows: variant 0 the warp kernel (the block kernel
-    over `long_ids`), 1 the block kernel over every task."""
+#: the band kernel's ticket counter and progress words, by (device index,
+#: stream handle): zeroed once when allocated, each call's epoch telling
+#: its words from an earlier call's
+_BAND_SYNC: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _band_sync(device, stream: int, words: int) -> torch.Tensor:
+    key = (device.index, stream)
+    sync = _BAND_SYNC.get(key)
+    if sync is None or sync.numel() < words:
+        sync = torch.zeros(words, dtype=torch.int64, device=device)
+        _BAND_SYNC[key] = sync
+    return sync
+
+
+def _launch(name: str, reads, read_lens, refs, Rp: int, variant: str, band_ids,
+            k: int | None = None):
+    """The fill over Rp rows: variant "warp" the warp kernel, then the
+    band kernel over `band_ids` (int32 task indices, or None for none);
+    "band" the band kernel over every task (K = k, or band_plan's);
+    "block" the block kernel over every task (band_ids None)."""
     S, R = reads.shape
     Cc = refs.shape[1]
     dev = reads.device
@@ -451,15 +542,32 @@ def _launch(name: str, reads, read_lens, refs, Rp: int, variant: int, long_ids):
     col0 = torch.as_tensor(col0_scores(Rp), dtype=torch.int32, device=dev)
     from ..kernels.build import check, library
 
+    lib = library()
+    ptrs = (reads.data_ptr(), read_lens.data_ptr(), refs.data_ptr(), col0.data_ptr())
+    out_ptrs = (outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+                planes.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = library().msa_fill(
-            reads.data_ptr(), read_lens.data_ptr(), refs.data_ptr(),
-            col0.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr(), planes.data_ptr(), S, Rp, R, Cc,
-            long_ids.data_ptr() if long_ids is not None else None,
-            long_ids.numel() if long_ids is not None else 0, variant,
-            ctypes.c_void_p(stream),
-        )
-    check(rc, name)
+        if variant != "band":
+            rc = lib.msa_fill(*ptrs, *out_ptrs, S, Rp, R, Cc,
+                              VARIANTS[variant], ctypes.c_void_p(stream))
+            check(rc, name)
+        if variant == "band" or band_ids is not None:
+            lens = read_lens if variant == "band" else read_lens[band_ids.long()]
+            K, starts = band_plan(lens, Rp + 1, _sms(dev), k)
+            n = lens.numel()
+            n_tickets = n * -(-(Rp + 1) // (32 * K))
+            sync = _band_sync(dev, stream, 1 + n_tickets)
+            edges = torch.empty((n_tickets, Cc + 1, EDGE_BYTES // 4), dtype=torch.int32,
+                                device=dev)
+            ids = band_ids.data_ptr() if variant != "band" else None
+            rc = lib.msa_fill_band(*ptrs, ids, starts.data_ptr(), n, n_tickets, K, BAND_G,
+                                   sync.data_ptr(), edges.data_ptr(), *out_ptrs, S, Rp, R,
+                                   Cc, ctypes.c_void_p(stream))
+            check(rc, name)
     return (*outs, planes)
+
+
+#: the C entry's variants of `msa_fill`: the warp kernel, and the
+#: block kernel over every task
+VARIANTS = {"warp": 0, "block": 1}

@@ -17,8 +17,11 @@ From the root of a checkout, on a machine with a CUDA card:
      traceback planes: window class 0 of one real 4,096-read batch, class
      3 of that batch, 4,096 synthetic tasks of mixed lengths at R=250,
      and 4,096 long-read tasks at R=400, those past 256 rows taking
-     the block kernel; plane bytes compared on live cells; and the warp
-     and block kernels timed against each other at 256-2,048 tasks); each kernel's row
+     the band kernel, and mapPacBio's widest class, the band kernel's;
+     plane bytes compared on live cells; the band kernel at each K and
+     progress step; the warp, band and block kernels timed against each
+     other at 256-2,048 tasks, the band and block kernels on few-task
+     calls); each kernel's row
      carries its bound (bytes over the memory rate or operations over
      the card's rate for their type, the larger; B4's operations are the
      SASS instructions of its diagonal loop, counted with cuobjdump, over
@@ -241,6 +244,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gzip
 import io
 import json
@@ -1236,6 +1240,19 @@ def b4_equal(label: str, got, want, lens, Cc: int):
     return int(live.sum().item())
 
 
+@functools.cache
+def sass_text(lib: str) -> str | None:
+    """The built library's SASS as cuobjdump prints it, read once a
+    library (~10 s a run on the card's host); None where the toolkit has
+    no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+
+
 def sass_loops(lib: str, kernel: str) -> list[tuple[int, int, list[str]]] | None:
     """The loops of `kernel` (a substring of its mangled name) in the
     built library's SASS, read with cuobjdump: (first address, address
@@ -1243,12 +1260,9 @@ def sass_loops(lib: str, kernel: str) -> list[tuple[int, int, list[str]]] | None
     each backward branch. None where the toolkit has no cuobjdump."""
     import re
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    sass = sass_text(lib)
+    if sass is None:
         return None
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
-                          check=True).stdout
     body = None
     for chunk in sass.split("Function : ")[1:]:
         if kernel in chunk.split("\n", 1)[0]:
@@ -1324,13 +1338,14 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     4,096-read batch (`batch_fq` holds exactly that batch; 128 synthetic
     class-3 tasks if the batch gives none), 4,096 synthetic tasks of
     mixed lengths at R=250, and 4,096 long-read tasks of 150-400 bases,
-    whose tasks past 256 rows take the block kernel. Every output is
+    whose tasks past 256 rows take the band kernel. Every output is
     compared, plane bytes on live cells, for the wrapper and for each
     kernel over every task. The wrapper's choice is timed in turns with
-    the warp kernel and the block kernel over every task, on the
-    trimmed rows and over all R rows (the fill's first design, whole),
-    the plain version on its compared call; then both kernels at 256 to
-    2,048 class-0 tasks (`b4_crossover`)."""
+    the warp kernel, the band kernel over every task and the block
+    kernel over every task, on the trimmed rows and over all R rows (the
+    fill's first design, whole), the plain version on its compared call;
+    the band kernel at each K of BAND_K (`b4_band_k`); then the warp and
+    the band kernel at 256 to 2,048 class-0 tasks (`b4_crossover`)."""
     import torch
 
     from bbtools_torch.kernels import build
@@ -1343,6 +1358,10 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     print(f"B4 SASS: the diagonal loop of the warp kernel at {B4_MAIN_SLICES} slices holds "
           f"{n_ins} instructions: {ops_per_cell:.1f} a cell"
           + ("" if n_ins else f" (no cuobjdump: the recorded {B4_OPS_PER_CELL})"))
+    band_ins = {k: sass_loop_instructions(build.library_path(),
+                                          f"msa_fill_band_kernelILi{k}E") for k in (1, 8)}
+    print(f"B4 SASS: the diagonal loop of the band kernel holds {band_ins[1]} instructions "
+          f"at K=1, {band_ins[8]} at K=8")
     tool, B, L, by_wc = fused_windows(ref_fa, batch_fq)
     extras = tool.cfg.window_extras
     print(f"B4 one batch of {B} reads (L={L}): tasks per window class "
@@ -1364,9 +1383,10 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
     for label, (reads, lens, refs) in sets:
         S, R = reads.shape
         Cc = refs.shape[1]
-        blocks = msa_fill.block_launches
+        before = (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches)
         got = msa_fill(reads, lens, refs)
-        block_ran = msa_fill.block_launches > blocks
+        ran = [k for k, b, a in zip(("warp", "band", "block"), before, (
+            msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches)) if a > b]
         # the plain version timed on the call that is compared (one call:
         # it takes seconds at class 3)
         torch.cuda.synchronize()
@@ -1377,13 +1397,14 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1)
         live_bytes = b4_equal(label, got, want, lens, Cc)
-        for v in ("warp", "block"):
+        for v in ("warp", "band", "block"):
             b4_equal(f"{label}, {v} kernel", msa_fill_variant(v, reads, lens, refs), want,
                      lens, Cc)
         Rp = got[3].shape[2] - 1
-        del got, want
+        del got
         fns = {"main": lambda: msa_fill(reads, lens, refs),
                "warp": lambda: msa_fill_variant("warp", reads, lens, refs),
+               "band": lambda: msa_fill_variant("band", reads, lens, refs),
                "block": lambda: msa_fill_variant("block", reads, lens, refs),
                "block_untrimmed": lambda: msa_fill_variant("block", reads, lens, refs,
                                                            trim=False)}
@@ -1393,77 +1414,150 @@ def check_msa_fill(ref_fa: str, batch_fq: str) -> list[dict]:
                 t[f].append(cuda_ms(fns[f], 5))
         ms = {f: sum(v) / len(v) for f, v in t.items()}
         ms["plain"] = plain_ms
+        by_k = b4_band_k(label, reads, lens, refs, want, 5)
+        del want
         # live cells: rows 0..min(len, R'), columns 0..Cc
         nrows = (lens.clamp(max=Rp).to(torch.int64) + 1).clamp(min=0)
         live = int((nrows * (Cc + 1)).sum().item())
         all_cells = S * (R + Cc - 1) * (R + 1)
         inputs = nbytes(reads, lens, refs) + 12 * S
         r = {"max_abs_err": 0, "ms": ms["main"], "plain_ms": ms["plain"],
-             "variants_ms": {f: ms[f] for f in ("warp", "block", "block_untrimmed")}}
+             "variants_ms": {f: ms[f] for f in ("warp", "band", "block", "block_untrimmed")},
+             "band_k_ms": by_k}
         r.update(bound(inputs + live_bytes, ops_per_cell * live, INSTR_S))
         old = bound(inputs + all_cells, ops_per_cell * all_cells, INSTR_S)
         r.update(label=label, S=S, R=R, R_trimmed=Rp, Cc=Cc, live_cells=live,
                  all_cells=all_cells, bound_all_cells_ms=old["bound_ms"],
-                 block_kernel=block_ran, gcells_s=live / ms["main"] / 1e6)
+                 chain_floor_ms=chain_floor_ms(Rp, Cc, ops_per_cell), route=ran,
+                 gcells_s=live / ms["main"] / 1e6)
         print(f"B4 {label} (S={S}, R={R} trimmed to {Rp}, Cc={Cc}): exact on outputs and "
-              f"{live_bytes} live plane bytes; kernel {ms['main']:.4f} ms"
-              f"{' (the block kernel ran)' if block_ran else ''}: the warp kernel "
-              f"{ms['warp']:.4f} ms, the block kernel "
-              f"{ms['block']:.4f} ms trimmed, {ms['block_untrimmed']:.4f} ms over all R rows; "
-              f"plain {ms['plain']:.2f} ms; bound {r['bound_ms']:.4f} ms on {live} live cells "
-              f"({r['bound_ms'] / ms['main']:.3f} of it), {old['bound_ms']:.4f} ms on "
-              f"{all_cells} cells of the old R x nd count")
+              f"{live_bytes} live plane bytes; the wrapper ({' + '.join(ran)}) "
+              f"{ms['main']:.4f} ms ({ms['main'] / ms['block']:.3f} of the block kernel): the "
+              f"warp kernel {ms['warp']:.4f} ms, the band kernel {ms['band']:.4f} ms, the block "
+              f"block kernel {ms['block']:.4f} ms trimmed, {ms['block_untrimmed']:.4f} ms over "
+              f"all R rows; plain {ms['plain']:.2f} ms; bound {r['bound_ms']:.4f} ms on {live} "
+              f"live cells ({r['bound_ms'] / ms['main']:.3f} of it), chain floor "
+              f"{r['chain_floor_ms']:.4f} ms, {old['bound_ms']:.4f} ms on {all_cells} cells of "
+              f"the old R x nd count")
         rows.append(r)
-    if not any(r["block_kernel"] for r in rows):
-        raise AssertionError("B4: no set launched the block kernel")
+    if rows[0]["route"] != ["warp"] or rows[3]["route"] != ["warp", "band"]:
+        raise AssertionError("B4: class 0 did not take the warp kernel alone, or the long "
+                             "reads' tasks past 256 rows not the band kernel")
     crossover = b4_crossover(synthetic, L, L + extras[0])
     del tool
 
-    def row(name: str, r: dict) -> dict:
+    def row(name: str, r: dict, ms: float) -> dict:
         return {"name": name, "route": "cuda", "source": "bbtools_torch/csrc/msa_fill.cu",
                 "replaces": "bbtools_tpu/ops/msa_pallas.py:97", "redesigned": True,
-                "ops_per_cell": ops_per_cell, "max_abs_err": 0, "ms": r["ms"],
+                "ops_per_cell": ops_per_cell, "max_abs_err": 0, "ms": ms,
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "bound_all_cells_ms": r["bound_all_cells_ms"],
-                "variants_ms": r["variants_ms"], "library_ms": None, "set": r["label"]}
+                "chain_floor_ms": r["chain_floor_ms"], "variants_ms": r["variants_ms"],
+                "library_ms": None, "set": r["label"]}
 
-    # the main path's two kernels, each on the class it takes: the warp
-    # kernel class 0, the block kernel class 3 (too few tasks for warps)
-    return [{**row("msa_fill", rows[0]), "sass_loop_instructions": n_ins, "sets": rows,
+    # two of the main path's kernels, each on the class it takes: the warp
+    # kernel class 0, the block kernel class 3 (`few_task_route`: too
+    # few tasks for warps, too few rows for bands); the band kernel's row
+    # is mapPacBio's widest class (`check_b4_long`)
+    return [{**row("msa_fill", rows[0], rows[0]["ms"]), "sass_loop_instructions": n_ins,
+             "band_sass_loop_instructions": band_ins, "sets": rows,
              "crossover_ms": crossover},
-            row("msa_fill_block", rows[1])]
+            {**row("msa_fill_block", rows[1], rows[1]["ms"]), "route_taken": rows[1]["route"]}]
 
 
-#: task counts at which the two B4 kernels are timed on class-0 shapes,
+def chain_floor_ms(Rp: int, Cc: int, ops_per_cell: float) -> float:
+    """The least time of a fill's chain of R' + Cc - 1 dependent diagonal
+    steps (2..R'+Cc): each step a slice's diagonal-loop body, issued by
+    one warp at most one instruction a clock at 1.98 GHz. Beside the
+    operations bound, which spreads the cells over every scheduler."""
+    return 1e3 * (Rp + Cc - 1) * ops_per_cell / 1.98e9
+
+
+def b4_band_k(label: str, reads, lens, refs, want, reps: int) -> dict:
+    """The band kernel over every task at each K of BAND_K, each exact
+    against the plain version's outputs `want`, timed in turns: where the
+    wrapper's K (`band_plan`) stands."""
+    import torch
+
+    from bbtools_torch.ops.msa_fill import BAND_K, band_k, msa_fill_variant
+
+    for k in BAND_K:
+        b4_equal(f"{label}, band kernel K={k}",
+                 msa_fill_variant("band", reads, lens, refs, k=k), want, lens, refs.shape[1])
+    t = {k: [] for k in BAND_K}
+    for order in (BAND_K, BAND_K[::-1]):
+        for k in order:
+            t[k].append(cuda_ms(lambda: msa_fill_variant("band", reads, lens, refs, k=k), reps))
+    out = {k: sum(v) / len(v) for k, v in t.items()}
+    Rp = want[3].shape[2] - 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"B4 {label}: the band kernel over all {reads.shape[0]} tasks by K (the plan picks "
+          f"K={band_k(Rp + 1, reads.shape[0], sms)}): "
+          + ", ".join(f"K={k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+#: task counts at which the B4 kernels are timed on class-0 shapes,
 #: around the wrapper's choice (WARP_MIN_TASKS_PER_SM tasks an SM)
 B4_CROSSOVER_TASKS = (256, 512, 768, 1056, 1536, 2048)
 
 
 def b4_crossover(synthetic, R: int, Cc: int) -> dict:
-    """The warp and the block kernel over the same tasks (reads of up to
-    151 bases in rows of R, windows of Cc), in turns, at each of
-    B4_CROSSOVER_TASKS: where the warp kernel starts to win."""
+    """The warp kernel, the band kernel (the plan's K) and the block
+    kernel over the same tasks (reads of up to 151 bases in rows of R,
+    windows of Cc), in turns, at each of B4_CROSSOVER_TASKS: where the
+    warp kernel starts to win; then the band and the block kernel at
+    B4_FEW_TASK_SHAPES: where `few_task_route` keeps a call on the block
+    kernel."""
     import torch
 
-    from bbtools_torch.ops.msa_fill import WARP_MIN_TASKS_PER_SM, msa_fill_variant
+    from bbtools_torch.ops.msa_fill import (WARP_MIN_TASKS_PER_SM, few_task_route,
+                                            msa_fill_variant)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
+    kernels = ("warp", "band", "block")
     for S in B4_CROSSOVER_TASKS:
         reads, lens, refs = synthetic(S, R, Cc, 151)
         lens.clamp_(max=151)
         reads[torch.arange(R, device=reads.device)[None, :] >= lens[:, None]] = 4
-        if not torch.equal(msa_fill_variant("warp", reads, lens, refs)[0],
-                           msa_fill_variant("block", reads, lens, refs)[0]):
-            raise AssertionError(f"B4 crossover S={S}: the kernels' scores differ")
-        t = {"warp": [], "block": []}
-        for v in ("warp", "block", "block", "warp"):
+        want = msa_fill_variant("warp", reads, lens, refs)[0]
+        for v in kernels[1:]:
+            if not torch.equal(msa_fill_variant(v, reads, lens, refs)[0], want):
+                raise AssertionError(f"B4 crossover S={S}: the {v} kernel's scores differ")
+        t = {v: [] for v in kernels}
+        for v in kernels + kernels[::-1]:
             t[v].append(cuda_ms(lambda: msa_fill_variant(v, reads, lens, refs), 5))
         out[S] = {v: sum(x) / len(x) for v, x in t.items()}
-    print(f"B4 warp against block kernel by tasks (class-0 shapes; the wrapper takes the "
+    print(f"B4 warp / band / block kernel by tasks (class-0 shapes; the wrapper takes the "
           f"warp kernel from {WARP_MIN_TASKS_PER_SM * sms} tasks): "
-          + ", ".join(f"S={S} {t['warp']:.4f} / {t['block']:.4f} ms" for S, t in out.items()))
-    return out
+          + ", ".join(f"S={S} {t['warp']:.4f} / {t['band']:.4f} / {t['block']:.4f} ms"
+                      for S, t in out.items()))
+    few = {}
+    for S, rows in B4_FEW_TASK_SHAPES:
+        Cc = rows + B4_FEW_TASK_EXTRA
+        reads, lens, refs = synthetic(S, rows - 1, Cc, rows - 12)
+        want = msa_fill_variant("block", reads, lens, refs)[0]
+        if not torch.equal(msa_fill_variant("band", reads, lens, refs)[0], want):
+            raise AssertionError(f"B4 few tasks S={S} rows={rows}: the band kernel's scores "
+                                 f"differ")
+        t = {v: [] for v in ("band", "block")}
+        for v in ("band", "block", "block", "band"):
+            t[v].append(cuda_ms(lambda: msa_fill_variant(v, reads, lens, refs), 3))
+        few[f"{S}x{rows}"] = {v: sum(x) / len(x) for v, x in t.items()}
+        few[f"{S}x{rows}"]["route"] = few_task_route(int(lens.max()) + 1, S, sms)
+    print(f"B4 band / block kernel on few-task calls (tasks x rows, windows of rows + "
+          f"{B4_FEW_TASK_EXTRA} columns; the wrapper's pick in brackets): "
+          + ", ".join(f"{k} {t['band']:.4f} / {t['block']:.4f} ms [{t['route']}]"
+                      for k, t in few.items()))
+    return {"warp_by_tasks": out, "few_tasks": few}
+
+
+#: (tasks, rows) of the few-task calls at which the band and the block
+#: kernel are timed: where `few_task_route` draws its line
+B4_FEW_TASK_SHAPES = tuple((S, rows) for S in (4, 28, 128) for rows in (152, 320, 600, 1000))
+#: their windows' columns past the rows (a class-3 window of short reads)
+B4_FEW_TASK_EXTRA = 2072
 
 
 def counters():
@@ -1478,8 +1572,19 @@ def counters():
         "overlap_scan": (overlap_scan.overlap_counts, "launches"),
         "lane_table": (lane_table.lookup, "launches"),
         "msa_fill": (msa_fill.msa_fill, "launches"),
+        "msa_fill_band": (msa_fill.msa_fill, "band_launches"),
         "msa_fill_block": (msa_fill.msa_fill, "block_launches"),
     }
+
+
+def b4_total(got: dict) -> int:
+    """B4's launches in a path's counts: the warp, band and block kernels."""
+    return got["msa_fill"] + got["msa_fill_band"] + got["msa_fill_block"]
+
+
+def b4_routes(got: dict) -> str:
+    return (f"{got['msa_fill']} (warp), {got['msa_fill_band']} (band), "
+            f"{got['msa_fill_block']} (block)")
 
 
 def run_path(name: str, fn, needs: tuple[str, ...], launches: dict):
@@ -2254,8 +2359,7 @@ def a6b_phases(asm: dict, pipe: dict, ctx: dict, work: str, card: str,
           f"reads/s for the fused default; {tool.prescreened} prescreened ({zero} recounted), "
           f"{foreign} foreign reads ({mapped_foreign} mapped), {hit_share:.4f} of their 31-mers "
           f"hit the sketch (3 x 2^22 cells over the genome's 31-mers); {tool.reads_mapped} "
-          f"of {BLOOM_READS} real reads mapped ({share:.4f}); B4 launches {got['msa_fill']} "
-          f"(warp), {got['msa_fill_block']} (block)")
+          f"of {BLOOM_READS} real reads mapped ({share:.4f}); B4 launches {b4_routes(got)}")
     if (foreign != BLOOM_FOREIGN or mapped_foreign or tool.prescreened != zero
             or not MAPPED_RANGE[0] <= share <= MAPPED_RANGE[1]):
         raise AssertionError(f"bbmap bloomfilter=t: {tool.prescreened} prescreened "
@@ -2484,25 +2588,30 @@ def make_a2_data(work: str, genome, fq: str, map_fq: str, bloom_fq: str, seed: i
 
 
 def check_b4_long() -> dict:
-    """B4's block kernel at mapPacBio's widest window class (B4_LONG:
-    tasks of reads of up to 6,000 bases in windows of 6,000 + 7,640
-    columns) against its plain version on the same tasks: every output and
-    live plane byte; both timed with CUDA events (the plain version on its
-    one call, it takes seconds); the bound on live cells, by the method of
-    the main B4 row."""
+    """B4 at mapPacBio's widest window class (B4_LONG: tasks of reads of
+    up to 6,000 bases in windows of 6,000 + 7,640 columns): the wrapper
+    must take the band kernel; it and the block kernel against the
+    plain version on the same tasks, every output and live plane byte;
+    the two kernels timed in turns with CUDA events (the plain version on
+    its one call, it takes seconds), the band kernel at each K of BAND_K
+    and each progress step of B4_BAND_G; the bound on live cells, by the
+    method of the main B4 row, and the chain floor. Returns the band
+    kernel's row."""
     import torch
 
     from bbtools_torch.kernels import build
-    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+    from bbtools_torch.ops import msa_fill as mf
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
 
     S, R, Cc, lmin = B4_LONG
     rng = np.random.default_rng(6)
     reads, lens, refs = (torch.from_numpy(x).to("cuda")
                          for x in near_match_tasks(rng, S, R, Cc, lmin))
-    blocks = msa_fill.block_launches
+    before = (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches)
     got = msa_fill(reads, lens, refs)
-    if msa_fill.block_launches != blocks + 1:
-        raise AssertionError("B4 long reads: the block kernel did not take the tasks")
+    if (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches) != (
+            before[0], before[1] + 1, before[2]):
+        raise AssertionError("B4 long reads: the band kernel did not take the tasks")
     # the plain version once (~20,000 diagonal steps of torch ops), timed
     # with CUDA events on the call that is compared
     torch.cuda.synchronize()
@@ -2513,26 +2622,59 @@ def check_b4_long() -> dict:
     torch.cuda.synchronize()
     plain_ms = e0.elapsed_time(e1)
     live_bytes = b4_equal("mapPacBio widest class", got, want, lens, Cc)
+    b4_equal("mapPacBio widest class, block kernel",
+             msa_fill_variant("block", reads, lens, refs), want, lens, Cc)
     Rp = got[3].shape[2] - 1
-    del got, want
-    ms = cuda_ms(lambda: msa_fill(reads, lens, refs), 3)
+    del got
+    by_k = b4_band_k("mapPacBio widest class", reads, lens, refs, want, 3)
+    del want
+    fns = {"band": lambda: msa_fill(reads, lens, refs),
+           "block": lambda: msa_fill_variant("block", reads, lens, refs)}
+    t = {f: [] for f in fns}
+    for f in ("band", "block", "block", "band"):
+        t[f].append(cuda_ms(fns[f], 2))
+    ms = {f: sum(v) / len(v) for f, v in t.items()}
+    # the progress step G, in turns (the wrapper's G restored after)
+    g0, by_g = mf.BAND_G, {g: [] for g in B4_BAND_G}
+    try:
+        for order in (B4_BAND_G, B4_BAND_G[::-1]):
+            for g in order:
+                mf.BAND_G = g
+                by_g[g].append(cuda_ms(fns["band"], 2))
+    finally:
+        mf.BAND_G = g0
+    by_g = {g: sum(v) / len(v) for g, v in by_g.items()}
     n_ins = sass_loop_instructions(build.library_path(),
                                    f"msa_fill_warp_kernelILi{B4_MAIN_SLICES}E")
     ops_per_cell = n_ins / B4_MAIN_SLICES if n_ins else B4_OPS_PER_CELL
     block_ins = sass_loop_instructions(build.library_path(), "msa_fill_block_kernelILi8E")
     nrows = (lens.clamp(max=Rp).to(torch.int64) + 1).clamp(min=0)
     live = int((nrows * (Cc + 1)).sum().item())
-    r = {"S": S, "R": R, "R_trimmed": Rp, "Cc": Cc, "live_cells": live, "ms": ms,
-         "plain_ms": plain_ms, "max_abs_err": 0,
-         "block_loop_instructions_k8": block_ins, "gcells_s": live / ms / 1e6}
+    r = {"name": "msa_fill_band", "route": "cuda", "source": "bbtools_torch/csrc/msa_fill.cu",
+         "replaces": "bbtools_tpu/ops/msa_pallas.py:97", "redesigned": True,
+         "set": "mapPacBio widest class", "S": S, "R": R, "R_trimmed": Rp, "Cc": Cc,
+         "live_cells": live, "max_abs_err": 0, "ms": ms["band"], "plain_ms": plain_ms,
+         "block_ms": ms["block"], "library_ms": None, "band_k_ms": by_k, "band_g_ms": by_g,
+         "chain_floor_ms": chain_floor_ms(Rp, Cc, ops_per_cell), "ops_per_cell": ops_per_cell,
+         "block_loop_instructions_k8": block_ins, "gcells_s": live / ms["band"] / 1e6}
     r.update(bound(nbytes(reads, lens, refs) + 12 * S + live_bytes, ops_per_cell * live,
                    INSTR_S))
-    print(f"B4 mapPacBio widest class (S={S}, R={R} trimmed to {Rp}, Cc={Cc}): the block "
-          f"kernel exact on outputs and {live_bytes} live plane bytes; kernel {ms:.2f} ms, "
-          f"plain {plain_ms:.1f} ms; bound {r['bound_ms']:.3f} ms ({r['bound_by']}) on {live} "
-          f"live cells at {ops_per_cell:.1f} instructions a cell ({r['bound_ms'] / ms:.3f} of "
-          f"it); the block kernel's diagonal loop at K=8 holds {block_ins} instructions")
+    print(f"B4 mapPacBio widest class (S={S}, R={R} trimmed to {Rp}, Cc={Cc}): the band "
+          f"kernel (the wrapper's route) and the block kernel exact on outputs and "
+          f"{live_bytes} live plane bytes; in turns the band kernel {ms['band']:.2f} ms, the "
+          f"block kernel {ms['block']:.2f} ms ({ms['block'] / ms['band']:.1f}x), plain "
+          f"{plain_ms:.1f} ms; bound {r['bound_ms']:.3f} ms ({r['bound_by']}) on {live} live "
+          f"cells at {ops_per_cell:.1f} instructions a cell ({r['bound_ms'] / ms['band']:.3f} "
+          f"of the band kernel), chain floor {r['chain_floor_ms']:.3f} ms; the band kernel by "
+          f"progress step (the wrapper's G={g0}): "
+          + ", ".join(f"G={g} {v:.2f} ms" for g, v in by_g.items())
+          + f"; the block kernel's diagonal loop at K=8 holds {block_ins} instructions")
     return r
+
+
+#: progress steps (columns between two progress stores) at which the band
+#: kernel is timed at the widest class
+B4_BAND_G = (8, 16, 32, 64)
 
 
 def long_stats(sam: str) -> dict:
@@ -2587,7 +2729,7 @@ def timed_walk():
     return secs, undo
 
 
-def a2_phases(a2: dict, ctx: dict, work: str, card: str, phase_s: dict):
+def a2_phases(a2: dict, ctx: dict, work: str, card: str, phase_s: dict, launches: dict):
     """The A2/A5 and A4b paths on device=cuda, each with its kernels
     required: calctruequality (host), mapPacBio and bbmapskimmer over the
     long reads, BBDuk config #1 with align=t, BBDuk recalibrate=t, BBMap
@@ -2619,7 +2761,7 @@ def a2_phases(a2: dict, ctx: dict, work: str, card: str, phase_s: dict):
         try:
             (mapper, dt, _), got = run_path(tool, lambda: run_tool(tool, [
                 f"ref={ref_fa}", f"in={fin}", f"out={sam}"], "cuda"),
-                ("msa_fill_block",), {})
+                ("msa_fill_band",), launches)
         finally:
             undo()
         s = long_stats(sam)
@@ -2632,7 +2774,7 @@ def a2_phases(a2: dict, ctx: dict, work: str, card: str, phase_s: dict):
               f"{card}; mapped {mapper.reads_mapped} of {mapper.reads_in} "
               f"({mapper.reads_mapped / max(mapper.reads_in, 1):.4f}), {s['placed']} of "
               f"{s['mapped'] - s['chunks']} unchunked mapped reads within 50 bp of their "
-              f"origin; B4 launches {got['msa_fill']} (warp) {got['msa_fill_block']} (block); "
+              f"origin; B4 launches {b4_routes(got)}; "
               f"fused overflows {mapper.fused_overflows}; plane groups {mapper.plane_groups}; "
               f"walk {sum(walks):.2f} s in {len(walks)} calls "
               f"({sum(walks) / dt:.3f} of the wall); flag-256 lines {s['secondary']}")
@@ -2735,7 +2877,7 @@ def a2_phases(a2: dict, ctx: dict, work: str, card: str, phase_s: dict):
     (mapper, dt, _), got = run_path("removehuman", lambda: run_tool("removehuman", [
         f"ref={ref_fa}", f"in={a2['rh_fq']}", f"outu={um}", f"outm={mm}"], "cuda"),
         (), {})
-    if got["msa_fill"] + got["msa_fill_block"] == 0:
+    if b4_total(got) == 0:
         raise AssertionError("removehuman: B4 never launched")
     with open(mm, "rb") as fh:
         kept = fh.read().split(b"\n")[0::4]
@@ -4166,14 +4308,14 @@ def a7_phase(fq: str, map_batch: str, ref_fa: str, pairs: list[str], kmer_src: s
             return tool
 
         _, got = run_path("bbmap over dp=4", sharded_bbmap, (), {})
-        b4 = got["msa_fill"] + got["msa_fill_block"]
+        b4 = b4_total(got)
         if b4 <= 0:
             raise AssertionError("A7 bbmap: B4 never launched on the sharded path")
         if sam_body(w("map.mesh.sam")) != sam_body(w("map.one.sam")):
             raise AssertionError("A7 bbmap: the dp=4 mesh's SAM differs")
         secs["bbmap"] = time.perf_counter() - t0
         print(f"A7 bbmap over dp=4: {MAP_BATCH_READS} reads, SAM equal to one device; B4 "
-              f"launches {got['msa_fill']} (warp) + {got['msa_fill_block']} (block) over the 4 "
+              f"launches {b4_routes(got)} over the 4 "
               f"slabs' window classes; {secs['bbmap']:.1f} s")
 
         # ---- 3. the insert scan over 4 slabs of one BBMerge batch (B5) ----
@@ -4650,11 +4792,11 @@ def a8b_phases(a8b: dict, work: str, card: str, phase_s: dict, launches: dict):
                        lambda: run_tool("decontaminate", a8b_decon_argv(a8b, dout)[1:], "cuda"),
                        {"cms_add": None, "read_depths": None}),
         (), {})
-    if not got["msa_fill"] + got["msa_fill_block"]:
+    if not b4_total(got):
         raise AssertionError("decontaminate: B4 never launched")
     n_reads = sum(len(fastq_names(p)) for p in dec["reads"])
     print(f"decontaminate device=cuda: {DECON_LIBS} libraries, {n_reads} reads in {dt:.2f} s "
-          f"on {card}; B4 launches {got['msa_fill']} (warp), {got['msa_fill_block']} (block)")
+          f"on {card}; B4 launches {b4_routes(got)}")
     decon_check(a8b, dout)
     phase_s["decontaminate"] = time.perf_counter() - t0
 
@@ -4927,8 +5069,7 @@ def g4_phases(g4: dict, ctx: dict, work: str, card: str, phase_s: dict) -> dict:
           f"{dt:.2f} s = {g4['n_contigs'] / dt:.1f} contigs/s, {G4_PF_READS / dt:.0f} reads/s "
           f"(wall, the index build, pileup and the filter included) on {card}; kept "
           f"{len(kept)} ({len(kept & g4['kept'])} of the {G4_CONTIGS} genome contigs), removed "
-          f"{g4['n_contigs'] - len(kept)}; B4 launches {got['msa_fill']} (warp), "
-          f"{got['msa_fill_block']} (block); "
+          f"{g4['n_contigs'] - len(kept)}; B4 launches {b4_routes(got)}; "
           + "; ".join(ln.strip() for ln in log.splitlines() if "mapped" in ln or "Kept" in ln))
     if kept != g4["kept"]:
         raise AssertionError(f"postfilter: kept {sorted(kept ^ g4['kept'])[:5]} wrongly")
@@ -5485,7 +5626,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         kernels = check_kernels(kern_fq, *small_pairs)
         kernels[3:3] = check_msa_fill(ref_fa, map_batch)
-        next(r for r in kernels if r["name"] == "msa_fill_block")["long_read"] = check_b4_long()
+        kernels.insert(4, check_b4_long())
         phase_s["kernels"] = time.perf_counter() - t0
         print(f"kernel timings on: {card}; kernel phase {phase_s['kernels']:.1f} s")
         t0 = time.perf_counter()
@@ -5579,8 +5720,7 @@ def main(argv=None) -> int:
               f"{args.map_reads / dt:.0f} reads/s (wall, incl. the index build and IO) "
               f"on {card}")
         ctx["map_rate"] = args.map_reads / dt
-        print(f"bbmap B4 launches: warp kernel {got['msa_fill']}, block kernel "
-              f"{got['msa_fill_block']}; batches whose fused phase "
+        print(f"bbmap B4 launches: {b4_routes(got)}; batches whose fused phase "
               f"overflowed its walk cap and ran staged: {tool.fused_overflows}")
         if tool.reads_in != args.map_reads or not MAPPED_RANGE[0] <= share <= MAPPED_RANGE[1]:
             raise AssertionError(f"bbmap: {tool.reads_mapped} of {tool.reads_in} mapped")
@@ -5596,8 +5736,7 @@ def main(argv=None) -> int:
         mapped, placed = placed_share(pe_sam)
         print(f"bbmap paired device=cuda: {tool.reads_mapped} of {tool.reads_in} reads "
               f"mapped ({share:.4f}), {tool.rescued} mates rescued; {placed:.4f} of "
-              f"{mapped} placed within 20 bp; B4 launches {got['msa_fill']} (warp) and "
-              f"{got['msa_fill_block']} (block), fused "
+              f"{mapped} placed within 20 bp; B4 launches {b4_routes(got)}, fused "
               f"overflows {tool.fused_overflows}")
         print(f"bbmap paired device=cuda: {args.map_pairs} pairs in {dt:.2f} s = "
               f"{args.map_pairs / dt:.0f} pairs/s (wall) on {card}")
@@ -5605,8 +5744,6 @@ def main(argv=None) -> int:
             raise AssertionError(f"bbmap paired: {tool.reads_mapped} of {tool.reads_in} mapped")
         if placed < PLACED_MIN:
             raise AssertionError(f"bbmap paired: only {placed:.4f} of mapped reads placed")
-        for row in kernels:
-            row["launches"] = launches[row["name"]]
         phase_s["bbduk, bbmerge, bbmap"] = time.perf_counter() - t0
 
         # the CPU halves of the checks (plain versions on one thread,
@@ -5628,7 +5765,7 @@ def main(argv=None) -> int:
         asm_out = asm_phases(asm, work, card, phase_s)
         ctx["cv_sam"] = asm_out["sam"]
         a6b_out = a6b_phases(asm, pipe, ctx, work, card, phase_s)
-        a2_phases(a2, ctx, work, card, phase_s)
+        a2_phases(a2, ctx, work, card, phase_s, launches)
         early.add(pool_runs(a2_check_runs(a2, ctx, work))[0])
         a8a_phases(asm, a2, a8, work, card, phase_s)
         l5_phases(l5, fq, args.reads, work, card, phase_s)
@@ -5707,6 +5844,9 @@ def main(argv=None) -> int:
         g4_fill_check(g4_pending)
         surface_fill_check(surface_pending)
         loglog_check(asm)
+        for row in kernels:
+            if "launches" not in row:
+                row["launches"] = launches[row["name"]]
     finally:
         build_thread.join()
         for side in CpuSide.started:

@@ -800,16 +800,23 @@ def test_msa_fill_kernel_matches_plain(cuda, S, R, Cc, lmin):
     rng = np.random.default_rng(S + R + Cc)
     reads, lens, refs = (torch.from_numpy(x).to(cuda)
                          for x in _msa_tasks(rng, S, R, Cc, lmin))
-    before = msa_fill.launches + msa_fill.block_launches
+    before = _b4_launches()
     got = msa_fill(reads, lens, refs)
     want = msa_fill_plain(reads, lens, refs)
     torch.cuda.synchronize()
     _assert_fill_equal(got, want, lens, Cc)
-    assert msa_fill.launches + msa_fill.block_launches == before + 1
+    assert _b4_launches() == before + 1
     if lmin >= 100:
         assert int((got[1] >= 0).sum()) == S  # every task aligned
-    for name in ("warp", "block"):
+    for name in ("warp", "band", "block"):
         _assert_fill_equal(msa_fill_variant(name, reads, lens, refs), want, lens, Cc)
+
+
+def _b4_launches():
+    """B4's launches on every route: the warp, band and block kernels."""
+    from bbtools_torch.ops.msa_fill import msa_fill
+
+    return msa_fill.launches + msa_fill.band_launches + msa_fill.block_launches
 
 
 def _assert_fill_equal(got, want, lens, Cc):
@@ -830,12 +837,14 @@ def _assert_fill_equal(got, want, lens, Cc):
 def test_msa_fill_warp_and_block_kernels_on_mixed_lengths(cuda, R, Cc, S):
     """Lengths 0, 1, 31, 32, 33, 255 and R in one call, with the rest
     mixed. The warp kernel takes every task of at most 256 rows and, at
-    R = 300, the block kernel the tasks of more, in the same call; the
-    wrapper takes the block kernel for all tasks of a call with fewer
-    than WARP_MIN_TASKS_PER_SM tasks an SM. block_launches counts each
-    call that launched the block kernel."""
-    from bbtools_torch.ops.msa_fill import (WARP_MAX_ROWS, WARP_MIN_TASKS_PER_SM, msa_fill,
-                                            msa_fill_plain, msa_fill_variant)
+    R = 300, the band kernel the tasks of more, in the same call; the
+    wrapper takes the band kernel for all tasks of a call with fewer
+    than WARP_MIN_TASKS_PER_SM tasks an SM, or the block kernel
+    where `few_task_route` keeps the shape on it. Each count counts the
+    calls that launched its kernel."""
+    from bbtools_torch.ops.msa_fill import (WARP_MAX_ROWS, WARP_MIN_TASKS_PER_SM,
+                                            few_task_route, msa_fill, msa_fill_plain,
+                                            msa_fill_variant)
 
     rng = np.random.default_rng(R + S)
     reads, lens, refs = _msa_tasks(rng, S, R, Cc, 0)
@@ -844,34 +853,128 @@ def test_msa_fill_warp_and_block_kernels_on_mixed_lengths(cuda, R, Cc, S):
     reads[np.arange(R)[None, :] >= lens[:, None]] = 4
     reads, lens, refs = (torch.from_numpy(x).to(cuda) for x in (reads, lens, refs))
     want = msa_fill_plain(reads, lens, refs)
-    before = (msa_fill.launches, msa_fill.block_launches)
+    before = (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches)
     got = msa_fill(reads, lens, refs)
     torch.cuda.synchronize()
     _assert_fill_equal(got, want, lens, Cc)
-    _assert_fill_equal(msa_fill_variant("warp", reads, lens, refs), want, lens, Cc)
+    for name in ("warp", "band", "block"):
+        _assert_fill_equal(msa_fill_variant(name, reads, lens, refs), want, lens, Cc)
     long_tasks = int((lens + 1 > WARP_MAX_ROWS).sum())
-    warp = S - long_tasks >= WARP_MIN_TASKS_PER_SM * torch.cuda.get_device_properties(
-        cuda).multi_processor_count
-    block = not warp or long_tasks > 0
-    assert (msa_fill.launches, msa_fill.block_launches) == (before[0] + warp,
-                                                            before[1] + block)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    warp = S - long_tasks >= WARP_MIN_TASKS_PER_SM * sms
+    few = None if warp else few_task_route(int(lens.max()) + 1, S, sms)
+    assert (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches) == (
+        before[0] + warp, before[1] + (few == "band" or (warp and long_tasks > 0)),
+        before[2] + (few == "block"))
     assert int(got[1][0]) >= 0 and int(got[1][6]) >= 0  # len 0 and len R align
 
 
 def test_msa_fill_block_variant_equals_plain_and_does_not_count(cuda):
-    """Both kernels over every task, as measurement variants, equal the
-    plain fill on live cells, and no launch counts."""
+    """The three kernels over every task, as measurement variants, equal
+    the plain fill on live cells, and no launch counts."""
     from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
 
     rng = np.random.default_rng(9)
     reads, lens, refs = (torch.from_numpy(x).to(cuda)
                          for x in _msa_tasks(rng, 300, 256, 280, 100))
-    before = (msa_fill.launches, msa_fill.block_launches)
+    before = _b4_launches()
     want = msa_fill_plain(reads, lens, refs)
-    for name in ("warp", "block"):
+    for name in ("warp", "band", "block"):
         _assert_fill_equal(msa_fill_variant(name, reads, lens, refs), want, lens, 280)
     torch.cuda.synchronize()
-    assert (msa_fill.launches, msa_fill.block_launches) == before
+    assert _b4_launches() == before
+
+
+def _band_case(rng, case):
+    """(reads, lens, refs) of one band-kernel case."""
+    if case.startswith("edges K="):  # 32K-1, 32K, 32K+1 rows, and 0, 1
+        K = int(case.split("=")[1])
+        lens = [32 * K - 2, 32 * K - 1, 32 * K, 0, 1, 3 * 32 * K]
+        R = max(lens)
+        reads, _, refs = _msa_tasks(rng, len(lens), R, R + 40, 0)
+    elif case == "len 0, 1 and R'":
+        lens = [0, 1, 700, 699, 2]
+        reads, _, refs = _msa_tasks(rng, len(lens), 700, 760, 0)
+    elif case == "one band beside many":
+        lens = [17, 1500, 40, 1499]
+        reads, _, refs = _msa_tasks(rng, len(lens), 1500, 1540, 0)
+    elif case == "Cc < R'":
+        lens = [900, 640, 33]
+        reads, _, refs = _msa_tasks(rng, len(lens), 900, 300, 0)
+    elif case == "N codes":
+        reads, lens, refs = _msa_tasks(rng, 6, 500, 560, 300)
+        reads[rng.random(reads.shape) < 0.05] = 4
+        refs[rng.random(refs.shape) < 0.05] = 4
+        refs[:, 100:130] = 4
+        return reads, lens, refs
+    else:  # "2,000 rows in 2,500 columns"
+        reads, lens, refs = _msa_tasks(rng, 1, 2000, 2500, 2000)
+        return reads, lens, refs
+    lens = np.asarray(lens, np.int32)
+    reads = reads[:, : int(lens.max())].copy() if lens.max() < reads.shape[1] else reads
+    for s, n in enumerate(lens):
+        reads[s, n:] = 4
+        if n:  # a read of its window with a few substitutions
+            start = int(rng.integers(0, max(refs.shape[1] - n, 1)))
+            src = np.resize(refs[s, start : start + n], n).copy()
+            m = rng.random(n) < 0.03
+            src[m] = (src[m] + 1) % 4
+            reads[s, :n] = src
+    return reads, lens, refs
+
+
+BAND_CASES = ["edges K=1", "edges K=2", "edges K=4", "edges K=8", "len 0, 1 and R'",
+              "one band beside many", "Cc < R'", "N codes", "2,000 rows in 2,500 columns"]
+
+
+@pytest.mark.parametrize("case", BAND_CASES)
+def test_msa_fill_band_kernel_matches_plain(cuda, case):
+    """The band kernel as the variant at every K, and the wrapper (a
+    few-task call: the band kernel, or the block kernel where
+    `few_task_route` keeps the shape on it), equal the plain fill on
+    every output and every live plane byte; the wrapper counts one
+    launch of its route and the variants none."""
+    from bbtools_torch.ops.msa_fill import (BAND_K, few_task_route, msa_fill, msa_fill_plain,
+                                            msa_fill_variant)
+
+    rng = np.random.default_rng(len(case))
+    reads, lens, refs = (torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                         for x in _band_case(rng, case))
+    Cc = refs.shape[1]
+    want = msa_fill_plain(reads, lens, refs)
+    before = (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches)
+    got = msa_fill(reads, lens, refs)
+    torch.cuda.synchronize()
+    _assert_fill_equal(got, want, lens, Cc)
+    band = few_task_route(int(lens.max()) + 1, len(lens), torch.cuda.get_device_properties(
+        cuda).multi_processor_count) == "band"
+    after = (before[0], before[1] + band, before[2] + (not band))
+    assert (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches) == after
+    for k in BAND_K:
+        _assert_fill_equal(msa_fill_variant("band", reads, lens, refs, k=k), want, lens, Cc)
+    torch.cuda.synchronize()
+    assert (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches) == after
+    assert int((got[1] >= 0).sum()) == int((lens >= 0).sum())
+
+
+def test_msa_fill_band_kernel_two_calls_in_a_row(cuda):
+    """Calls back to back on one stream, of other ticket counts, reuse
+    the ticket counter and progress words without zeroing them: each
+    call's epoch tells its words from the last call's."""
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
+
+    rng = np.random.default_rng(19)
+    before = msa_fill.band_launches
+    sets = [tuple(torch.from_numpy(x).to(cuda) for x in _msa_tasks(rng, S, R, R + 300, R - 50))
+            for S, R in ((4, 1200), (3, 700), (4, 1200))]
+    wants = [msa_fill_plain(*t) for t in sets]
+    for _ in range(2):
+        gots = [msa_fill(*t) for t in sets]
+        gots += [msa_fill_variant("band", *t, k=1) for t in sets]
+        torch.cuda.synchronize()
+        for got, want, t in zip(gots, wants + wants, sets + sets):
+            _assert_fill_equal(got, want, t[1], t[2].shape[1])
+    assert msa_fill.band_launches == before + 6  # rows past BLOCK_MAX_ROWS: the band route
 
 
 def test_msa_fill_kernel_rejects_what_it_does_not_take(cuda):
@@ -906,13 +1009,13 @@ def test_bbmap_cuda_equals_cpu(cuda, tmp_path):
     write_reads(str(tmp_path / "p2.fq"), [p[1] for p in pairs])
     outs = {}
     for dev in ("cuda", "cpu"):
-        before = msa_fill.launches + msa_fill.block_launches
+        before = _b4_launches()
         se, pe = tmp_path / f"{dev}.sam", tmp_path / f"{dev}.pe.sam"
         main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}",
               f"out={se}", f"device={dev}"])
         main(["bbmap", f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'p1.fq'}",
               f"in2={tmp_path / 'p2.fq'}", f"out={pe}", f"device={dev}"])
-        assert (msa_fill.launches + msa_fill.block_launches > before) == (dev == "cuda")
+        assert (_b4_launches() > before) == (dev == "cuda")
         outs[dev] = (se.read_bytes(), pe.read_bytes())
     assert outs["cuda"] == outs["cpu"]
     assert outs["cuda"][0].count(b"\n") > 512
@@ -981,9 +1084,9 @@ def test_bbmap_cuda_equals_cpu_on_repeats(cuda, repeat_genome, case):
     outs, tools = {}, {}
     for dev in ("cuda", "cpu"):
         sam, stats = d / f"{case}.{dev}.sam", d / f"{case}.{dev}.scafstats.txt"
-        before = msa_fill.launches + msa_fill.block_launches
+        before = _b4_launches()
         tools[dev] = tbbmap.main([*args, f"out={sam}", f"scafstats={stats}", f"device={dev}"])
-        assert (msa_fill.launches + msa_fill.block_launches > before) == (dev == "cuda")
+        assert (_b4_launches() > before) == (dev == "cuda")
         outs[dev] = (sam.read_bytes(), stats.read_bytes())
     assert outs["cuda"] == outs["cpu"]
     sam, stats = outs["cuda"]
@@ -1317,7 +1420,7 @@ def test_bbmap_bloomfilter_cuda_equals_cpu(cuda, tmp_path):
     for dev in ("cuda", "cpu"):
         out = tmp_path / f"{dev}.sam"
         def b4():
-            return msa_fill.msa_fill.launches + msa_fill.msa_fill.block_launches
+            return _b4_launches()
 
         before = b4()
         tools[dev] = bbmap.main([f"ref={tmp_path / 'ref.fa'}", f"in={tmp_path / 'r.fq'}",
@@ -1446,22 +1549,25 @@ def test_tadpipe_cuda_equals_cpu(cuda, tmp_path):
 
 
 def test_msa_fill_block_kernel_at_a_long_read_shape(cuda):
-    """B4's block kernel at a mapPacBio widest-class shape (R = 2,000, Cc
-    = R + 7,640): every output and every live plane byte equal to the
-    plain fill; one block launch."""
-    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain
+    """B4 at a mapPacBio widest-class shape (R = 2,000, Cc = R + 7,640):
+    the wrapper's route (the band kernel) and the block kernel, every
+    output and every live plane byte equal to the plain fill; one band
+    launch."""
+    from bbtools_torch.ops.msa_fill import msa_fill, msa_fill_plain, msa_fill_variant
 
     R = 2000
     rng = np.random.default_rng(R)
     reads, lens, refs = (torch.from_numpy(x).to(cuda)
                          for x in _msa_tasks(rng, 4, R, R + 7640, 1500))
-    before = (msa_fill.launches, msa_fill.block_launches)
+    before = (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches)
     got = msa_fill(reads, lens, refs)
     want = msa_fill_plain(reads, lens, refs)
     torch.cuda.synchronize()
     _assert_fill_equal(got, want, lens, R + 7640)
-    assert (msa_fill.launches, msa_fill.block_launches) == (before[0], before[1] + 1)
+    assert (msa_fill.launches, msa_fill.band_launches, msa_fill.block_launches) == (
+        before[0], before[1] + 1, before[2])
     assert int((got[1] >= 0).sum()) == 4
+    _assert_fill_equal(msa_fill_variant("block", reads, lens, refs), want, lens, R + 7640)
 
 
 @pytest.fixture(scope="module")
@@ -1524,12 +1630,12 @@ def test_long_read_presets_cuda_equal_cpu_at_two_budgets(cuda, long_reads, tool,
     for tag, dev, share in (("cuda", "cuda", mf.PLANE_SHARE), ("cuda_small", "cuda", small),
                             ("cpu", "cpu", mf.PLANE_SHARE)):
         monkeypatch.setattr(mf, "PLANE_SHARE", share)
-        before = msa_fill.launches + msa_fill.block_launches
+        before = _b4_launches()
         sam = d / f"{tool}.{tag}.sam"
         argv = [f"ref={d / 'ref.fa'}", f"in={inp}", f"out={sam}", "fastareadlen=1200",
                 f"device={dev}"]
         groups[tag] = TOOLS[tool](argv).plane_groups
-        assert (msa_fill.launches + msa_fill.block_launches > before) == (dev == "cuda")
+        assert (_b4_launches() > before) == (dev == "cuda")
         outs[tag] = sam.read_bytes()
     assert outs["cuda"] == outs["cpu"] == outs["cuda_small"]
     assert groups["cuda_small"] > groups["cuda"]
@@ -2048,9 +2154,9 @@ def test_sharded_steps_on_a_virtual_mesh_equal_one_device(cuda):
     # the fill and walk over dp=4
     tasks = _msa_tasks(rng, 400, 151, 151 + 24, 100)
     fn = sc.make_sharded_fill_walk(mesh4, 151, 151 + 24)
-    before = msa_fill.msa_fill.launches + msa_fill.msa_fill.block_launches
+    before = _b4_launches()
     got = fn(*tasks)
-    assert msa_fill.msa_fill.launches + msa_fill.msa_fill.block_launches >= before + 4
+    assert _b4_launches() >= before + 4
     (want, _groups) = msa_fill.fill_walk(*tasks, cuda)
     for i, (g, w) in enumerate(zip(got, want)):
         if i == 3:  # walk ops: one width across slabs, zero past each row's steps
